@@ -1,0 +1,8 @@
+from .registry import ConfigType, find_config, find_model
+from .res import SpeechResModel
+from .torch_compat import from_flax_variables, load_honk_checkpoint, load_state_dict
+
+__all__ = [
+    "ConfigType", "SpeechResModel", "find_config", "find_model",
+    "from_flax_variables", "load_honk_checkpoint", "load_state_dict",
+]

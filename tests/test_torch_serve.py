@@ -1,0 +1,201 @@
+"""Port's serving slice (LabelService, HTTP, CLI) against the JAX package, on the CPU.
+
+Also pins what the port must not do: fall back to the CPU when no CUDA
+device is present, run convolutions in TF32, or import JAX or the JAX
+package at run time.
+"""
+
+import ast
+import base64
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from honk_tpu.serve import LabelService as JLabelService
+from honk_tpu_torch.cli import serve as cli_serve
+from honk_tpu_torch.ops import _build
+from honk_tpu_torch.serve import LabelService, default_labels, serve
+
+ROOT = Path(__file__).resolve().parents[1]
+ZOO_RES8 = str(ROOT / "zoo" / "res8.pt")
+# Softmax probabilities of the same checkpoint on the same audio; the logits
+# agree within the reference's 2e-4 gate, and softmax does not enlarge that.
+PROB_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def services():
+    return (
+        LabelService("res8", ZOO_RES8, device="cpu"),
+        JLabelService("res8", ZOO_RES8),
+    )
+
+
+def _utterances(seed, shape, scale=0.1):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def test_default_labels_match_reference(services):
+    port, ref = services
+    assert port.labels == ref.labels == default_labels()
+
+
+@pytest.mark.parametrize("n_samples", [16000, 12000, 20000])
+def test_evaluate_matches_jax_service(services, n_samples):
+    port, ref = services
+    audio = _utterances(n_samples, n_samples)
+    audio[n_samples // 3 : n_samples // 3 + 4000] *= 5  # a loud span for trim_window to find
+    label, prob = port.evaluate(audio)
+    rlabel, rprob = ref.evaluate(audio)
+    assert label == rlabel
+    assert abs(prob - rprob) <= PROB_ATOL
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_evaluate_batch_matches_jax_service(services, batch):
+    port, ref = services
+    audio = _utterances(100 + batch, (batch, 16000))
+    got, want = port.evaluate_batch(audio), ref.evaluate_batch(audio)
+    assert [lab for lab, _ in got] == [lab for lab, _ in want]
+    np.testing.assert_allclose([p for _, p in got], [p for _, p in want], atol=PROB_ATOL)
+
+
+def test_no_hidden_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LabelService("res8", ZOO_RES8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LabelService("res8", ZOO_RES8, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_serve.main(["--model", "res8", "--checkpoint", ZOO_RES8, "--port", "0"])
+
+
+def test_service_turns_tf32_off():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        LabelService("res8", ZOO_RES8, device="cpu")
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _request(url, body=None):
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def test_http_listen_labels_and_errors(services):
+    port_svc, _ = services
+    httpd = serve(port_svc, port=0)  # port 0 = ephemeral
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        code, body = _request(f"{base}/labels")
+        assert code == 200 and json.loads(body)["labels"] == port_svc.labels
+
+        pcm = (np.random.default_rng(0).standard_normal(16000) * 3000).astype(np.int16)
+        code, body = _request(
+            f"{base}/listen", json.dumps({"wav_data": base64.b64encode(pcm.tobytes()).decode()}).encode()
+        )
+        out = json.loads(body)
+        label, prob = port_svc.evaluate(pcm.astype(np.float32) / 32768.0)
+        assert code == 200
+        assert out == {
+            "contains_command": label not in ("__silence__", "__unknown__"),
+            "label": label,
+            "prob": prob,
+        }
+
+        assert _request(f"{base}/listen", b"not json")[0] == 400
+        assert _request(f"{base}/listen", b'{"method": "all"}')[0] == 400  # no wav_data
+        assert _request(f"{base}/listen", b'{"wav_data": "AAA"}')[0] == 400  # bad base64
+        for path in ("/train", "/stream", "/stream/open", "/stream/push_bin"):
+            code, body = _request(f"{base}{path}", b"{}")
+            assert code == 501 and json.loads(body) == {"error": "not in this port yet"}, path
+        assert _request(f"{base}/nope", b"{}")[0] == 404
+
+        code, body = _request(f"{base}/")
+        assert code == 200 and b"keyword spotting" in body
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    assert not th.is_alive()
+
+
+@pytest.mark.parametrize("flag", [["--stream-slots", "4"], ["--pipelined"], ["--wire-dtype=int16"], ["--bogus"]])
+def test_cli_refuses_flags_of_later_slices(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli_serve.main(["--device", "cpu", *flag])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert ("streaming is not in this port yet" in err) != (flag == ["--bogus"])
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", Path("/nonexistent-build-dir"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("mfcc", "res_stack")
+
+
+def test_build_is_keyed_by_source_and_flags(monkeypatch):
+    lib = _build.library_path("mfcc")
+    assert lib.parent == _build.BUILD_DIR and lib.name.startswith("libmfcc-")
+    assert _build.library_path("res_stack") != lib
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path("mfcc") != lib
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def _port_sources():
+    pkg = ROOT / "honk_tpu_torch"
+    sources = [p for p in pkg.rglob("*.py") if "_build" not in p.relative_to(pkg).parts]
+    return sorted(sources) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax", "honk_tpu"), f"{path}: imports {n}"
+
+
+def test_port_runtime_loads_no_jax():
+    code = (
+        "import honk_tpu_torch.serve.http, honk_tpu_torch.cli.serve, sys; "
+        "assert not any(m=='jax' or m=='honk_tpu' or m.startswith(('jax.','honk_tpu.')) "
+        "for m in sys.modules)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
