@@ -7,7 +7,8 @@ Run from a checkout of the repository on a machine with a CUDA device and
 nvcc. Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build both kernels (csrc/mfcc.cu, csrc/res_stack.cu) with nvcc, in parallel;
+2. build the three kernels (csrc/mfcc.cu, csrc/res_stack.cu,
+   csrc/assemble.cu) with nvcc, in parallel;
 3. MFCC kernel against its plain PyTorch version on the card, B=257
    (256 rows of seeded noise and one silent row, which must be exactly 0);
 4. res-stack kernel against its plain version: zoo/res8.pt weights at
@@ -15,13 +16,26 @@ nvcc. Phases, in order; any failure exits non-zero:
    (res26's maps take the global scratch path);
 5. LabelService("res8", "zoo/res8.pt") on cuda against the same service
    on the CPU: evaluate_batch of 256 seeded utterances;
-6. the main path: the HTTP server answers GET /labels and 8 POST /listen
+6. the serving path: the HTTP server answers GET /labels and 8 POST /listen
    requests; each answer is checked against the CPU service, and each
    kernel's launch count must be exactly 8 over this phase; the same
    utterances then go through LabelService.evaluate alone, on the host
    clock, to split a request's time between HTTP and the service;
 7. each kernel and its plain version timed with CUDA events at B=1 and
-   B=256.
+   B=256;
+8. the assembly kernel against its plain version: the exact and the
+   sub-row layout, B=64 and B=1024, with silence rows;
+9. three float32 train steps of res8 at full width, B=64, on cuda and on
+   the CPU from the same initial weights and the same draws (made on the
+   CPU: the two devices' generators differ): losses and weights compared;
+10. the training path through its entry point: honk_tpu_torch.cli.train
+    trains res8 (bf16, B=64) for 2 epochs on a synthetic corpus, with exact
+    launch counts of all three kernels over the run; then --type eval of
+    its best.pt on cuda and on the CPU must give the same accuracy;
+11. timings with CUDA events: the assembly kernel and its plain version
+    at B=64 and B=1024, the MFCC at B=64, and one train step at B=64 in
+    float32 and bf16, split into assembly, MFCC and forward + backward +
+    update.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -30,10 +44,14 @@ It prints a JSON line of per-kernel results, then, as the last line,
 from __future__ import annotations
 
 import base64
+import contextlib
+import io
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -57,6 +75,15 @@ RES_TOL = dict(atol=5e-4, rtol=1e-3)
 # (tests/test_cross_runtime.py); probabilities of one answer within 1e-4.
 LOGIT_ATOL = 2e-4
 PROB_ATOL = 1e-4
+# Assembly: the reference's gate (tests/test_assemble_kernel.py). The kernel
+# rounds the two products and the sum as the plain version does, so 0 is expected.
+ASSEMBLE_ATOL = 1e-6
+# Train steps, cuda against cpu, float32 with TF32 off, lr 0.01 then 0.001: the
+# MFCC kernel differs from the plain frontend by ~2e-6 and cuDNN's backward sums
+# in another order than the CPU's, and three steps from a fresh init amplify that.
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)
+TRAIN_BATCH = 64
 
 
 def fail(msg: str) -> None:
@@ -108,6 +135,242 @@ def post_json(url: str, obj) -> dict:
         return json.loads(r.read())
 
 
+def assemble_work(ops, n_samples: int = 16000) -> tuple[float, float]:
+    """(operations, bytes) one assembly needs on these operands.
+
+    Bytes: the corpus samples and noise samples it must read, each once (the
+    union of the windows that count: rows with gain 0 add nothing of the
+    corpus, rows with nscale 0 nothing of the noise; noise windows overlap),
+    the output written once, and 24 B of operands per row. Operations: two
+    products, a sum and a clamp per output sample.
+    """
+    clip_start, noise_start, gain, nscale = (t.cpu().numpy() for t in ops)
+
+    def covered(starts):  # samples in the union of the windows [s, s + n_samples)
+        if starts.size == 0:
+            return 0
+        s = np.sort(starts)
+        return int(n_samples + np.minimum(np.diff(s), n_samples).sum())
+
+    b = clip_start.shape[0]
+    nbytes = 2 * covered(clip_start[gain != 0]) + 4 * covered(noise_start[nscale != 0]) + 4 * b * n_samples + 24 * b
+    return 4.0 * b * n_samples, float(nbytes)
+
+
+def phase_assemble(torch, dev, A, K):
+    """8. The assembly kernel against its plain version, both layouts, B=64 and 1024."""
+    rng = np.random.default_rng(SEED + 8)
+    n = 2000
+    raw = rng.integers(-32768, 32768, (n, 16000), dtype=np.int16)  # the full range: the clamp bites
+    labels = rng.integers(2, 12, n, dtype=np.int32)
+    noise = (rng.standard_normal(16000 * 60) * 0.3).astype(np.float32)
+    cfg = A.AugmentConfig(n_silence=n // 10)
+    errs, exact = {}, None
+    for layout in ("exact", "subrow"):
+        arrays = A.prepare_train_arrays(raw, labels, noise, cfg, layout=layout, device=dev)
+        exact = exact or arrays
+        for b in (64, 1024):
+            draws = A.draw_batch(A.step_generator(SEED, b, dev), arrays, b, cfg)
+            *ops, _ = A.kernel_operands(draws, arrays, cfg)
+            got = K.assemble(arrays.pool, arrays.noise, *ops)
+            ref = K.assemble_plain(arrays.pool, arrays.noise, *ops)
+            torch.cuda.synchronize()
+            silence = draws.idx >= n
+            if got.shape != (b, 16000) or not torch.isfinite(got).all() or float(got.abs().max()) > 1.0:
+                fail(f"assemble kernel, {layout} B={b}: shape {tuple(got.shape)}, non-finite or outside [-1, 1]")
+            if not bool(silence.any()):
+                fail(f"assemble kernel, {layout} B={b}: the draws hold no silence row")
+            err = max_err(got, ref)
+            if err > ASSEMBLE_ATOL:
+                fail(f"assemble kernel disagrees with its plain version, {layout} B={b}: max abs err {err:.3e}")
+            errs[f"{layout}_b{b}"] = (err, bool(torch.equal(got, ref)), int(silence.sum()))
+    print("[assemble] " + "; ".join(f"{k}: max abs err {e:.3e}, bitwise equal {eq}, {ns} silence rows"
+                                    for k, (e, eq, ns) in errs.items()) + f" (atol {ASSEMBLE_ATOL})")
+    return max(e for e, _, _ in errs.values()), exact, cfg
+
+
+def phase_train_steps(torch, dev, A):
+    """9. Three float32 res8 train steps on cuda and on the CPU, same weights, same draws."""
+    from honk_tpu_torch.models import SpeechResModel, find_config
+    from honk_tpu_torch.models.res import init_weights
+    from honk_tpu_torch.train import create_train_state, make_optimizer
+    from honk_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(SEED + 9)
+    n = 256
+    raw = (rng.standard_normal((n, 16000)) * 3000).clip(-32768, 32767).astype(np.int16)
+    labels = rng.integers(0, 12, n, dtype=np.int32)
+    noise = (rng.standard_normal(16000 * 8) * 0.1).astype(np.float32)
+    cfg = A.AugmentConfig(n_silence=n // 10)
+    sides = {}
+    for side, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        model = init_weights(SpeechResModel(find_config("res8")), torch.Generator().manual_seed(SEED)).to(d)
+        tx = make_optimizer(lrs=(0.01, 0.001), boundaries=(2,))  # the ladder switches at update 2
+        sides[side] = (create_train_state(model, tx), make_train_step(tx, TRAIN_BATCH, cfg),
+                       A.prepare_train_arrays(raw, labels, noise, cfg, device=d))
+    losses = {k: [] for k in sides}
+    for step in range(3):
+        draws = A.draw_batch(A.step_generator(SEED + 1, step, "cpu"), sides["cpu"][2], TRAIN_BATCH, cfg)
+        for k, (state, train_step, arrays) in sides.items():
+            moved = A.Draws(*(t.to(arrays.pool.device) for t in draws))
+            _, m = train_step.apply_batch(state, *A.assemble_batch(moved, arrays, cfg))
+            losses[k].append(float(m["loss"]))
+    loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    if not all(math.isfinite(v) for v in losses["cuda"]) or loss_err > TRAIN_LOSS_ATOL:
+        fail(f"train steps cuda vs cpu: losses {losses}")
+    gpu_sd, cpu_sd = (sides[k][0].model.state_dict() for k in ("cuda", "cpu"))
+    param_err = 0.0
+    for name, ref in cpu_sd.items():
+        got = gpu_sd[name].cpu()
+        param_err = max(param_err, max_err(got.float(), ref.float()))
+        if not close(got.float(), ref.float(), **TRAIN_PARAM_TOL):
+            fail(f"train steps cuda vs cpu: {name} max abs err {max_err(got.float(), ref.float()):.3e}")
+    print(f"[train_steps] res8 B={TRAIN_BATCH} f32, 3 steps: losses cuda {losses['cuda']} cpu {losses['cpu']}; "
+          f"loss max abs err {loss_err:.3e} (atol {TRAIN_LOSS_ATOL}); weights and BN stats max abs err "
+          f"{param_err:.3e} (atol {TRAIN_PARAM_TOL['atol']}, rtol {TRAIN_PARAM_TOL['rtol']})")
+    return {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err}
+
+
+def run_cli(main, argv) -> tuple[int, str]:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def final_accuracy(out: str) -> float:
+    lines = [ln for ln in out.splitlines() if ln.startswith("final test accuracy:")]
+    if len(lines) != 1:
+        fail(f"expected one 'final test accuracy:' line, got {lines}")
+    return float(lines[0].split(":", 1)[1])
+
+
+def phase_entry_point(torch, tmp, counters):
+    """10. honk_tpu_torch.cli.train: train res8 on cuda with exact launch counts, then eval cuda vs cpu."""
+    from honk_tpu_torch.cli.train import main as cli_main
+    from honk_tpu_torch.data import generate_dataset, load_speech_commands
+
+    root = os.path.join(tmp, "corpus")
+    generate_dataset(root, clips_per_word=40, n_speakers=8)
+    ds = load_speech_commands(root)  # the CLI's defaults: the same splits it will train on
+    n_epochs, eval_b = 2, 256
+    n_train = len(ds.train)
+    steps = n_epochs * math.ceil((n_train + int(0.1 * n_train)) / TRAIN_BATCH)
+    evals = n_epochs * math.ceil(len(ds.dev) / eval_b) + math.ceil(len(ds.test) / eval_b)
+    expect = {"assemble": steps, "mfcc": steps + evals, "res_stack": evals}
+    out_dir, metrics = os.path.join(tmp, "run"), os.path.join(tmp, "metrics.jsonl")
+    argv = ["--type", "train", "--model", "res8", "--batch_size", str(TRAIN_BATCH), "--n_epochs", str(n_epochs),
+            "--dev_every", "1", "--data_dir", root, "--output_dir", out_dir, "--metrics_jsonl", metrics]
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(cli_main, argv)
+    train_s = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in counters.items()}
+    if rc != 0:
+        fail(f"cli.train --type train returned {rc}")
+    if launches != expect:
+        fail(f"cli.train launched {launches}, expected {expect} "
+             f"({steps} train steps, {evals} eval batches)")
+    train_acc = final_accuracy(out)
+    best = os.path.join(out_dir, "best.pt")
+    if not os.path.isfile(best):
+        fail("cli.train wrote no best.pt")
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f]
+    epochs = [r for r in records if r["kind"] == "train_epoch"]
+    if len(epochs) != n_epochs or not all(math.isfinite(r["loss"]) for r in epochs):
+        fail(f"cli.train epoch records: {epochs}")
+    accs = {}
+    for d in ("cuda", "cpu"):
+        rc, out = run_cli(cli_main, ["--type", "eval", "--model", "res8", "--data_dir", root,
+                                     "--input_file", best, "--device", d])
+        if rc != 0:
+            fail(f"cli.train --type eval --device {d} returned {rc}")
+        accs[d] = final_accuracy(out)
+    if accs["cuda"] != accs["cpu"]:
+        fail(f"--type eval of best.pt: cuda {accs['cuda']} != cpu {accs['cpu']}")
+    print(f"[train_cli] res8 bf16 B={TRAIN_BATCH}, {n_epochs} epochs on {n_train} clips "
+          f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} (exact); "
+          f"epochs " + "; ".join(f"loss {r['loss']:.4f} acc {r['acc']:.4f} audio_s_per_s {r['audio_s_per_s']}"
+                                 for r in epochs)
+          + f"; final test accuracy {train_acc}; --type eval of best.pt cuda {accs['cuda']} = cpu {accs['cpu']}")
+    return launches, epochs
+
+
+def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
+    """11. The assembly kernel, plain, at B=64 and 1024; the MFCC at B=64; one train step split."""
+    from honk_tpu_torch.models import SpeechResModel, find_config
+    from honk_tpu_torch.models.res import init_weights
+    from honk_tpu_torch.train import create_train_state, make_optimizer
+    from honk_tpu_torch.train.steps import make_train_step
+
+    times, work = {}, {}
+    for b in (64, 1024):
+        draws = A.draw_batch(A.step_generator(SEED + 11, b, dev), arrays, b, cfg)
+        *ops, _ = A.kernel_operands(draws, arrays, cfg)
+        iters = 200 if b == 64 else 50
+        times[f"assemble_b{b}"] = time_ms(torch, lambda: K.assemble(arrays.pool, arrays.noise, *ops), iters)
+        times[f"assemble_plain_b{b}"] = time_ms(torch, lambda: K.assemble_plain(arrays.pool, arrays.noise, *ops), iters)
+        work[b] = assemble_work(ops)
+    gen = A.step_generator(SEED + 11, 0, dev)
+    audio, labels = A.sample_train_batch(gen, arrays, TRAIN_BATCH, cfg)
+    times["mfcc_b64"] = time_ms(torch, lambda: mfcc_kernel.mfcc(audio), 100)
+    times["mfcc_plain_b64"] = time_ms(torch, lambda: mfcc_kernel.mfcc_plain(audio), 100)
+    feats = mfcc_kernel.mfcc(audio)
+    steps = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        model = init_weights(SpeechResModel(find_config("res8"), dtype=dtype), torch.Generator().manual_seed(SEED))
+        tx = make_optimizer(lrs=(0.01,), boundaries=())
+        state = create_train_state(model.to(dev), tx)
+        step = make_train_step(tx, TRAIN_BATCH, cfg)
+        parts = {
+            "assembly": time_ms(torch, lambda: A.sample_train_batch(gen, arrays, TRAIN_BATCH, cfg), 50),
+            "mfcc": times["mfcc_b64"],
+            "fwd_bwd_update": time_ms(torch, lambda: step.apply_features(state, feats, labels), 50),
+            "step": time_ms(torch, lambda: step(state, SEED, arrays), 50),
+        }
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            step(state, SEED, arrays)
+        torch.cuda.synchronize()
+        parts["step_wall"] = (time.perf_counter() - t0) * 1e3 / 50
+        parts.update(profile_steps(torch, lambda: step(state, SEED, arrays), 10))
+        steps[dtype_name] = parts
+    print("[step_times] ms per call (CUDA events behind a spin kernel; step_wall: host clock over 50 steps; "
+          "device_ms and top_kernels_ms: torch.profiler over 10 steps): "
+          + json.dumps({"kernels": times, "train_step_b64": steps}))
+    return times, steps, work
+
+
+def profile_steps(torch, fn, n: int) -> dict:
+    """Device time per call from torch.profiler's kernel records, and the busiest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    # Device records, less the annotations that span them (torch.optim's
+    # "Optimizer.step#SGD.step" shows on the device timeline too).
+    records = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    kernels = {}
+    for e in records:
+        kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / n
+    device = sum(kernels.values())
+    if device <= 0:
+        fail("torch.profiler recorded no device time for the train step")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_wall_ms": wall, "device_ms": device, "device_idle_share": max(0.0, 1 - device / wall),
+            "device_kernels_per_step": len(records) / n,
+            "top_kernels_ms": [[name[:60], ms] for name, ms in top]}
+
+
 def main() -> int:
     import torch
 
@@ -117,8 +380,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from honk_tpu_torch import use_full_f32
     from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.frontend import filters as mfcc_filters
     from honk_tpu_torch.models import SpeechResModel, find_config
-    from honk_tpu_torch.ops import _build, mfcc_kernel, res_kernel
+    from honk_tpu_torch.data import augment as A
+    from honk_tpu_torch.ops import _build, assemble_kernel, mfcc_kernel, res_kernel
     from honk_tpu_torch.serve import LabelService, serve
 
     dev = torch.device("cuda")
@@ -133,9 +398,9 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # 2. Build both kernels from the sources in this checkout, in parallel.
+    # 2. Build the three kernels from the sources in this checkout, in parallel.
     t0 = time.perf_counter()
-    logs = _build.build("mfcc", "res_stack")
+    logs = _build.build("mfcc", "res_stack", "assemble")
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.1f} s ({', '.join(sorted(logs)) or 'already built'})")
     for src, log in logs.items():
@@ -226,6 +491,7 @@ def main() -> int:
     ]
     mfcc_kernel.launches = 0
     res_kernel.launches = 0
+    assemble_kernel.launches = 0
     httpd = serve(svc, port=0)
     port = httpd.server_address[1]
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -245,11 +511,12 @@ def main() -> int:
         httpd.shutdown()
         httpd.server_close()
         th.join(timeout=30)
-    launches = {"mfcc": mfcc_kernel.launches, "res_stack": res_kernel.launches}
+    launches = {"mfcc": mfcc_kernel.launches, "res_stack": res_kernel.launches,
+                "assemble": assemble_kernel.launches}
     if th.is_alive():
         fail("HTTP server thread did not stop")
-    if launches != {"mfcc": N_LISTEN, "res_stack": N_LISTEN}:
-        fail(f"/listen x{N_LISTEN} launched {launches}, expected {N_LISTEN} each")
+    if launches != {"mfcc": N_LISTEN, "res_stack": N_LISTEN, "assemble": 0}:
+        fail(f"/listen x{N_LISTEN} launched {launches}, expected {N_LISTEN} mfcc and res_stack, no assemble")
     for pcm, ans in zip(requests, answers):
         label, prob = cpu.evaluate(pcm.astype(np.float32) / 32768.0)
         if ans["label"] != label or abs(ans["prob"] - prob) > PROB_ATOL:
@@ -281,19 +548,37 @@ def main() -> int:
                 "res_stack_plain": time_ms(torch, lambda: res_kernel.res_stack_plain(p, *packed), iters),
             }
 
+    # 8-11. The training path.
+    assemble_err, arrays, aug = phase_assemble(torch, dev, A, assemble_kernel)
+    train_step_errs = phase_train_steps(torch, dev, A)
+    counters = {"assemble": assemble_kernel, "mfcc": mfcc_kernel, "res_stack": res_kernel}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, epochs = phase_entry_point(torch, tmp, counters)
+    train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel, arrays, aug)
+
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
 
+    mel_taps = int(np.count_nonzero(mfcc_filters.frontend_constants(np.float32)["mel"]))
+
     def mfcc_work(b):
-        flops = 2 * b * 101 * (2 * 480 * 241 + 241 * 40 + 40 * 40)
-        nbytes = 4 * (b * 16000 + b * 101 * 40 + 480 + 2 * 480 * 241 + 241 * 40 + 40 * 40)
-        return flops, nbytes
+        # What the function needs, not what the kernel does (two dense DFT
+        # products): per frame the Hann window, a real FFT of 480 points
+        # (2.5 N log2 N), |X|^2 of 241 bins, the mel filters' nonzero taps,
+        # 40 logs and the 40x40 DCT. Bytes: audio in, MFCCs out, the window,
+        # the mel taps and the DCT.
+        per_frame = 480 + 2.5 * 480 * math.log2(480) + 3 * 241 + 2 * mel_taps + 40 + 2 * 40 * 40
+        nbytes = 4 * (b * 16000 + b * 101 * 40 + 480 + mel_taps + 40 * 40)
+        return b * 101 * per_frame, nbytes
 
     def res_work(b):
         flops = 2 * b * L * H * W * 9 * C * C + 2 * b * C * n_lab
         nbytes = 4 * (b * C * H * W + L * 9 * C * C + 2 * L * C + C * n_lab + n_lab + b * n_lab)
         return flops, nbytes
 
+    # "launches" counts the training path's run (phase 10); "launches_listen"
+    # the serving path's 8 requests (phase 6). ms / plain_ms / bound_ms are at
+    # "batch"; the other keys give the other sizes of the two paths.
     kernels = []
     for kname, src, replaces, work, err in (
         ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work, mfcc_err),
@@ -303,14 +588,30 @@ def main() -> int:
         b1, by1 = bound(*work(1), name)
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err,
+            "launches": train_launches[kname], "launches_listen": launches[kname], "max_abs_err": err,
             "ms": times[BATCH][kname], "plain_ms": times[BATCH][kname + "_plain"],
             "bound_ms": b256, "bound_by": by, "library_ms": None, "batch": BATCH,
             "ms_b1": times[1][kname], "plain_ms_b1": times[1][kname + "_plain"],
             "bound_ms_b1": b1, "bound_by_b1": by1,
         })
+    b64, by64 = bound(*mfcc_work(TRAIN_BATCH), name)
+    kernels[0].update({"ms_b64": train_times["mfcc_b64"], "plain_ms_b64": train_times["mfcc_plain_b64"],
+                       "bound_ms_b64": b64, "bound_by_b64": by64})
+    a64, aby64 = bound(*assemble_ops[TRAIN_BATCH], name)
+    a1024, aby1024 = bound(*assemble_ops[1024], name)
+    kernels.append({
+        "name": "assemble", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/assemble.cu",
+        "replaces": "honk_tpu/ops/assemble_kernel.py:122", "launches": train_launches["assemble"],
+        "launches_listen": launches["assemble"], "max_abs_err": assemble_err,
+        "ms": train_times["assemble_b64"], "plain_ms": train_times["assemble_plain_b64"],
+        "bound_ms": a64, "bound_by": aby64, "library_ms": None, "batch": TRAIN_BATCH,
+        "ms_b1024": train_times["assemble_b1024"], "plain_ms_b1024": train_times["assemble_plain_b1024"],
+        "bound_ms_b1024": a1024, "bound_by_b1024": aby1024,
+    })
     print(json.dumps({"build_s": build_s, "listen_host_ms": [s * 1e3 for s in listen_s],
-                      "evaluate_host_ms": [s * 1e3 for s in evaluate_s]}))
+                      "evaluate_host_ms": [s * 1e3 for s in evaluate_s],
+                      "train_steps_cuda_vs_cpu": train_step_errs,
+                      "train_epochs": epochs, "train_step_b64_ms": step_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,177 @@
+"""Training / eval CLI of the port, with the flags of ``honk_tpu.cli.train``:
+
+    python -m honk_tpu_torch.cli.train --type train --model res8 \\
+        --data_dir data/speech_dataset --n_epochs 26 \\
+        --lr 0.1 0.01 0.001 --schedule 3000 6000 --output_dir ckpts/res8
+    python -m honk_tpu_torch.cli.train --type eval --model res8 \\
+        --data_dir data/speech_dataset --input_file ckpts/res8/best.pt
+
+Runs on ``--device cuda`` (the default; it raises where no CUDA device is
+present) or ``--device cpu``. ``--compute_dtype bfloat16`` (the default)
+runs the training convolutions with bf16 operands; ``float32`` is the
+parity mode and turns TF32 off. A train run writes ``<output_dir>/best.pt``
+(a honk state dict) and ``step_XXXXXXXX.pt`` resume checkpoints.
+
+Refused, each naming its ROADMAP.md item, until the port has them:
+``--coordinator`` / ``--process-id`` / ``--num-processes`` and
+``--n_devices`` above 1 (data parallel, §1.7), ``--profile-dir``
+(``metrics/profiling.py``, §1.8) and an Orbax ``--input_file`` (§1.1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..config import DataConfig, ExperimentConfig, MeshConfig, TrainConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="honk_tpu_torch.train", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--type", choices=["train", "eval"], default="train")
+    d, t = DataConfig(), TrainConfig()
+    p.add_argument("--data_dir", default=d.data_dir)
+    p.add_argument("--wanted_words", nargs="+", default=list(d.wanted_words))
+    p.add_argument("--unknown_prob", type=float, default=d.unknown_prob)
+    p.add_argument("--silence_prob", type=float, default=d.silence_prob)
+    p.add_argument("--noise_prob", type=float, default=d.noise_prob)
+    p.add_argument("--timeshift_ms", type=float, default=d.timeshift_ms)
+    p.add_argument("--dev_pct", type=float, default=d.dev_pct,
+                   help="SHA1-bucket validation percentage (TF Speech Commands convention)")
+    p.add_argument("--test_pct", type=float, default=d.test_pct,
+                   help="SHA1-bucket test percentage")
+    p.add_argument("--model", default=t.model)
+    p.add_argument("--batch_size", type=int, default=t.batch_size)
+    p.add_argument("--n_epochs", type=int, default=t.n_epochs)
+    p.add_argument("--lr", type=float, nargs="+", default=list(t.lr))
+    p.add_argument("--schedule", type=int, nargs="*", default=list(t.schedule))
+    p.add_argument("--momentum", type=float, default=t.momentum)
+    p.add_argument("--weight_decay", type=float, default=t.weight_decay)
+    p.add_argument("--use_nesterov", action="store_true")
+    p.add_argument("--dev_every", type=int, default=t.dev_every)
+    p.add_argument("--seed", type=int, default=t.seed)
+    p.add_argument("--eval_batch_size", type=int, default=t.eval_batch_size)
+    p.add_argument(
+        "--compute_dtype", choices=["bfloat16", "float32"], default=t.compute_dtype,
+        help="operand dtype of the training convolutions (float32 = strict parity mode)",
+    )
+    p.add_argument(
+        "--steps_per_call", type=int, default=t.steps_per_call,
+        help="train steps per chunk of the epoch loop (1 disables chunking)",
+    )
+    p.add_argument("--input_file", default="", help="warm-start (train) or eval checkpoint: a honk .pt")
+    p.add_argument("--output_dir", default="ckpts/run", help="checkpoint directory")
+    p.add_argument("--metrics_jsonl", default="", help="JSONL metrics sink path")
+    p.add_argument(
+        "--save_every_epochs", type=int, default=5,
+        help="epochs between periodic step checkpoints (crash recovery)",
+    )
+    p.add_argument("--profile-dir", default="", help="refused: not in the port yet (ROADMAP.md §1.8)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate a synthetic dataset into data_dir first (no-network dev)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # multi-host / multi-device: refused until data parallel is ported
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--n_devices", type=int, default=0)
+    return p
+
+
+def _refuse_unported(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    from ..ckpt import is_orbax_path
+
+    for flag, value in (("--coordinator", args.coordinator), ("--process-id", args.process_id),
+                        ("--num-processes", args.num_processes)):
+        if value is not None:
+            p.error(f"{flag}: multi-process training is not in the port yet "
+                    "(data parallel, ROADMAP.md §1.7)")
+    if args.n_devices not in (0, 1):
+        p.error(f"--n_devices {args.n_devices}: the port trains on one device; data parallel "
+                "is ROADMAP.md §1.7")
+    if args.profile_dir:
+        p.error("--profile-dir: the torch.profiler port of metrics/profiling.py is "
+                "ROADMAP.md §1.8, not in the port yet")
+    if args.input_file and is_orbax_path(args.input_file):
+        p.error(f"--input_file {args.input_file}: the port reads honk .pt files; the Orbax "
+                "loader is the open Orbax item of ROADMAP.md §1.1")
+    if args.type == "eval" and not args.input_file:
+        p.error("--type eval needs --input_file (a honk .pt)")
+
+
+def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
+    return ExperimentConfig(
+        data=DataConfig(
+            data_dir=args.data_dir,
+            wanted_words=tuple(args.wanted_words),
+            unknown_prob=args.unknown_prob,
+            silence_prob=args.silence_prob,
+            noise_prob=args.noise_prob,
+            timeshift_ms=args.timeshift_ms,
+            dev_pct=args.dev_pct,
+            test_pct=args.test_pct,
+            seed=args.seed,
+        ),
+        train=TrainConfig(
+            model=args.model,
+            batch_size=args.batch_size,
+            n_epochs=args.n_epochs,
+            lr=tuple(args.lr),
+            schedule=tuple(args.schedule),
+            momentum=args.momentum,
+            weight_decay=args.weight_decay,
+            use_nesterov=args.use_nesterov,
+            dev_every=args.dev_every,
+            seed=args.seed,
+            eval_batch_size=args.eval_batch_size,
+            compute_dtype=args.compute_dtype,
+            steps_per_call=args.steps_per_call,
+            input_file=args.input_file if args.type == "train" else "",
+            output_file=args.output_dir,
+        ),
+        mesh=MeshConfig(n_devices=args.n_devices),
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    _refuse_unported(p, args)
+
+    from .. import resolve_device
+
+    device = resolve_device(args.device)  # no CUDA device and no --device cpu: raise now
+
+    if args.synthetic:
+        from ..data import generate_dataset
+
+        if not os.path.isdir(os.path.join(args.data_dir, "yes")):
+            generate_dataset(args.data_dir)
+
+    cfg = args_to_config(args)
+    from ..metrics import MetricsLogger
+
+    logger = MetricsLogger(args.metrics_jsonl or None)
+    try:
+        if args.type == "train":
+            from ..ckpt import Checkpointer
+            from ..train import train
+
+            result = train(cfg, logger=logger, checkpoint_dir=args.output_dir,
+                           save_every_epochs=args.save_every_epochs, device=device)
+            Checkpointer(args.output_dir).save_best(result["best"])
+            return 0
+
+        import torch
+
+        from ..train import evaluate
+
+        evaluate(cfg, torch.load(args.input_file, map_location="cpu", weights_only=True), device=device)
+        return 0
+    finally:
+        logger.close()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

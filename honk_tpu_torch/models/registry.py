@@ -204,6 +204,6 @@ def find_model(conf: ConfigType | str):
     if not conf.value.startswith("res"):
         raise NotImplementedError(
             f"{conf.value}: the cnn-* family comes with the port's model-family "
-            "slice (res15 / res26 / cnn-*, ROADMAP.md), not with serving"
+            "slice (res15 / res26 / cnn-*, ROADMAP.md §1.4)"
         )
     return SpeechResModel

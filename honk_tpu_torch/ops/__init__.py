@@ -1,11 +1,15 @@
 """Hand-written Hopper kernels, each with its plain PyTorch version beside it.
 
-``mfcc_kernel`` (csrc/mfcc.cu) and ``res_kernel`` (csrc/res_stack.cu); the
-sources are built with nvcc at first use by ``_build``. Importing these
-modules builds nothing.
+``mfcc_kernel`` (csrc/mfcc.cu), ``res_kernel`` (csrc/res_stack.cu) and
+``assemble_kernel`` (csrc/assemble.cu); the sources are built with nvcc at
+first use by ``_build``. Importing these modules builds nothing.
 """
 
+from .assemble_kernel import assemble, assemble_plain, pack_noise_subrows, pack_pool_subrows
 from .mfcc_kernel import mfcc, mfcc_plain
 from .res_kernel import pack_res_params, res_stack, res_stack_plain
 
-__all__ = ["mfcc", "mfcc_plain", "pack_res_params", "res_stack", "res_stack_plain"]
+__all__ = [
+    "assemble", "assemble_plain", "mfcc", "mfcc_plain", "pack_noise_subrows",
+    "pack_pool_subrows", "pack_res_params", "res_stack", "res_stack_plain",
+]

@@ -1,0 +1,135 @@
+"""Train and eval steps on one device (counterpart of ``honk_tpu.train.steps``).
+
+A train step is: draw the batch on the device from the step's generator,
+assemble it (assembly kernel), MFCC (MFCC kernel), the training forward,
+the mean cross-entropy, backward (cuDNN through autograd), and the SGD
+update. The only host-to-device traffic per step is the generator's seed;
+the packed corpus stays on the device for the whole run. Eval sweeps run
+the MFCC kernel and the res-stack kernel on fixed-size batches.
+
+PyTorch runs eagerly, so there is nothing to compile: a "scan" of N steps
+is a Python loop (graph capture of it is ROADMAP.md §1.3's open item).
+Steps update the state in place and also return it, in the JAX package's
+``(state, metrics)`` shape; metrics stay on the device until read.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from ..data.augment import AugmentConfig, TrainArrays, eval_batch, sample_train_batch, step_generator
+from ..frontend.mfcc import compute_mfccs
+from ..ops import pack_res_params
+from .state import SGD, TrainState
+
+
+def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig):
+    """Build the train step.
+
+    ``step(state, key, arrays) -> (state, {"loss", "acc"})``: the batch of
+    step ``state.step`` is drawn from ``step_generator(key, state.step)``
+    (JAX: ``fold_in(key, state.step)``), so it depends on the key and the
+    step count alone. ``step.apply_batch(state, audio, labels)`` is the
+    same step on a given batch (tests feed it the JAX package's batches),
+    and ``step.apply_features(state, feats, labels)`` the step after the
+    MFCC: forward, loss, backward and update.
+    """
+
+    def apply_features(state: TrainState, feats: torch.Tensor, labels: torch.Tensor):
+        model = state.model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        logits = model(feats)
+        loss = F.cross_entropy(logits, labels)
+        loss.backward()
+        tx.apply(state)
+        acc = (logits.detach().argmax(dim=-1) == labels).float().mean()
+        return state, {"loss": loss.detach(), "acc": acc}
+
+    def apply_batch(state: TrainState, audio: torch.Tensor, labels: torch.Tensor):
+        with torch.no_grad():
+            feats = compute_mfccs(audio)
+        return apply_features(state, feats, labels)
+
+    def train_step(state: TrainState, key: int, arrays: TrainArrays):
+        gen = step_generator(key, state.step, arrays.pool.device)
+        audio, labels = sample_train_batch(gen, arrays, batch_size, aug_cfg)
+        return apply_batch(state, audio, labels)
+
+    train_step.apply_batch = apply_batch
+    train_step.apply_features = apply_features
+    return train_step
+
+
+def make_train_scan(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, n_steps: int):
+    """N single steps in a row: ``scan(state, key, arrays) -> (state, mean metrics)``.
+
+    Same draws as calling the single step N times: each step derives its
+    generator from ``state.step``, which advances inside the loop.
+    """
+    step = make_train_step(tx, batch_size, aug_cfg)
+
+    def scan_fn(state: TrainState, key: int, arrays: TrainArrays):
+        losses, accs = [], []
+        for _ in range(n_steps):
+            state, m = step(state, key, arrays)
+            losses.append(m["loss"])
+            accs.append(m["acc"])
+        return state, {"loss": torch.stack(losses).mean(), "acc": torch.stack(accs).mean()}
+
+    return scan_fn
+
+
+def make_eval_sweep(batch_size: int) -> Callable:
+    """Build the sweep over a whole packed split.
+
+    ``sweep(model, audio_i16, labels) -> (correct, total)`` device scalars:
+    ``ceil(n / B)`` fixed-size batches (``eval_batch``, the tail masked),
+    each one MFCC kernel launch and one res-stack kernel launch, counts
+    accumulated on the device. The model is put in eval mode.
+    """
+
+    eval_step = make_eval_step()
+
+    @torch.no_grad()
+    def sweep(model, audio_i16: torch.Tensor, labels: torch.Tensor):
+        model.eval()
+        packed = pack_res_params(model)
+        n = audio_i16.shape[0]
+        correct = torch.zeros((), dtype=torch.int64, device=audio_i16.device)
+        total = torch.zeros_like(correct)
+        for start in range(0, n, batch_size):
+            c, t = eval_step(model, *eval_batch(audio_i16, labels, start, batch_size), packed=packed)
+            correct += c
+            total += t
+        return correct, total
+
+    return sweep
+
+
+def make_eval_step() -> Callable:
+    """``eval_step(model, audio_f32, labels, valid, packed=None) -> (n_correct, n_valid)``
+    device scalars; ``packed`` is ``pack_res_params(model)``, computed if None."""
+
+    @torch.no_grad()
+    def eval_step(model, audio, labels, valid, packed=None):
+        model.eval()
+        logits = model(compute_mfccs(audio), packed=packed)
+        correct = (logits.argmax(dim=-1) == labels) & valid
+        return correct.sum(), valid.sum()
+
+    return eval_step
+
+
+def make_forward() -> Callable:
+    """``forward(model, audio (B, 16000) f32) -> logits``: the eval forward on raw audio."""
+
+    @torch.no_grad()
+    def forward(model, audio):
+        model.eval()
+        return model(compute_mfccs(audio))
+
+    return forward

@@ -47,9 +47,15 @@ def test_cnn_models_not_ported_yet(conf):
 
 
 def test_training_forward_not_ported_yet():
+    """The training forward is ported now (tests/test_torch_train.py holds it
+    against flax): in training mode a forward gives logits and moves the BN
+    running statistics, where it used to raise."""
     model = SpeechResModel(find_config("res8-narrow"))  # nn.Modules start in training mode
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros((1, 101, 40)))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 101, 40)).astype(np.float32))
+    logits = model(x)
+    assert logits.shape == (2, 12) and torch.isfinite(logits).all() and logits.requires_grad
+    assert not torch.equal(model.bn1.running_mean, torch.zeros(19))
+    assert not torch.equal(model.bn1.running_var, torch.ones(19))
 
 
 def test_zoo_res8_logits_match_jax():
