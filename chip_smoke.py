@@ -10,10 +10,14 @@ nvcc. Phases, in order; any failure exits non-zero:
 2. build the three kernels (csrc/mfcc.cu, csrc/res_stack.cu,
    csrc/assemble.cu) with nvcc, in parallel;
 3. MFCC kernel against its plain PyTorch version on the card, B=257
-   (256 rows of seeded noise and one silent row, which must be exactly 0);
+   (256 rows of seeded noise and one silent row, which must be exactly 0)
+   at 16000 samples and at the 8000 and 24000 that /listen also sends,
+   B=1, and against the float64 golden (compute_mfccs_reference) on a few
+   rows; its launch geometry;
 4. res-stack kernel against its plain version: zoo/res8.pt weights at
-   B=256 and B=1, and random res8-narrow and res26-narrow weights at B=3
-   (res26's maps take the global scratch path);
+   B = 1, 2, 3, 133 and 256, and random res8-narrow, res26 and
+   res26-narrow weights (randomized BN statistics) at B = 1 and 3; the
+   cluster geometry the wrapper picks at each;
 5. LabelService("res8", "zoo/res8.pt") on cuda against the same service
    on the CPU: evaluate_batch of 256 seeded utterances;
 6. the serving path: the HTTP server answers GET /labels and 8 POST /listen
@@ -49,6 +53,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -68,6 +73,8 @@ N_LISTEN = 8
 # relative error into absolute error on each mel energy; 1e-4 is still 50x
 # inside the 5e-3 gate against the float64 golden.
 MFCC_TOL = dict(atol=1e-4, rtol=1e-4)
+# Against the float64 golden: the reference's golden gate (tests/test_frontend.py).
+GOLDEN_TOL = dict(atol=5e-3, rtol=1e-3)
 # Res stack: the reference's own gate for its res-stack kernel
 # (tests/test_res_kernel.py, kernel against the XLA model in f32).
 RES_TOL = dict(atol=5e-4, rtol=1e-3)
@@ -98,17 +105,23 @@ def close(got, ref, atol, rtol) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
 
 
-def peaks(name: str) -> tuple[float, float]:
-    """(f32 FLOP/s outside the tensor cores, HBM bytes/s): NVIDIA's SXM data sheets."""
+def peaks(name: str) -> tuple[float, float, float]:
+    """(f32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s, HBM
+    bytes/s): NVIDIA's SXM data sheets."""
     if "H200" in name:
-        return 67e12, 4.8e12
-    return 67e12, 3.35e12  # H100 SXM
+        return 67e12, 495e12, 4.8e12
+    return 67e12, 495e12, 3.35e12  # H100 SXM
 
 
-def bound(flops: float, nbytes: float, name: str) -> tuple[float, str]:
-    f, b = peaks(name)
-    t_ops, t_bytes = flops / f * 1e3, nbytes / b * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(flops: float, nbytes: float, name: str, tf32x3: bool = False) -> tuple[float, str]:
+    """Least time in ms: operations over the peak of the arithmetic the kernel
+    uses (3xTF32: three tensor-core products per product) or bytes over HBM."""
+    f32, tf32, b = peaks(name)
+    t_ops = (3 * flops / tf32 if tf32x3 else flops / f32) * 1e3
+    t_bytes = nbytes / b * 1e3
+    if t_ops < t_bytes:
+        return t_bytes, "bytes"
+    return t_ops, "operations (3xTF32)" if tf32x3 else "operations"
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -126,6 +139,25 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel entry of an nvcc -Xptxas -v log: registers and spills."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            kernel = re.match(r"_Z\d+(\w+?)(?:I|P|$)", name)
+            nt = re.search(r"Li(\d+)EE", name)
+            entry = (kernel.group(1) if kernel else name) + (f"<NT={nt.group(1)}>" if nt else "")
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif entry and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{entry}: {regs.group(1) if regs else '?'} registers, {spill}")
+            entry = None
+    return out
 
 
 def post_json(url: str, obj) -> dict:
@@ -219,16 +251,20 @@ def phase_train_steps(torch, dev, A):
     if not all(math.isfinite(v) for v in losses["cuda"]) or loss_err > TRAIN_LOSS_ATOL:
         fail(f"train steps cuda vs cpu: losses {losses}")
     gpu_sd, cpu_sd = (sides[k][0].model.state_dict() for k in ("cuda", "cpu"))
-    param_err = 0.0
+    param_err, gate_share = 0.0, 0.0
     for name, ref in cpu_sd.items():
-        got = gpu_sd[name].cpu()
-        param_err = max(param_err, max_err(got.float(), ref.float()))
-        if not close(got.float(), ref.float(), **TRAIN_PARAM_TOL):
-            fail(f"train steps cuda vs cpu: {name} max abs err {max_err(got.float(), ref.float()):.3e}")
+        got, ref = gpu_sd[name].cpu().float(), ref.float()
+        param_err = max(param_err, max_err(got, ref))
+        # The largest |got - ref| as a share of its element's own limit, atol + rtol * |ref|.
+        limit = TRAIN_PARAM_TOL["atol"] + TRAIN_PARAM_TOL["rtol"] * ref.abs()
+        gate_share = max(gate_share, float(((got - ref).abs() / limit).max()))
+        if not close(got, ref, **TRAIN_PARAM_TOL):
+            fail(f"train steps cuda vs cpu: {name} max abs err {max_err(got, ref):.3e}")
     print(f"[train_steps] res8 B={TRAIN_BATCH} f32, 3 steps: losses cuda {losses['cuda']} cpu {losses['cpu']}; "
           f"loss max abs err {loss_err:.3e} (atol {TRAIN_LOSS_ATOL}); weights and BN stats max abs err "
-          f"{param_err:.3e} (atol {TRAIN_PARAM_TOL['atol']}, rtol {TRAIN_PARAM_TOL['rtol']})")
-    return {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err}
+          f"{param_err:.3e} (atol {TRAIN_PARAM_TOL['atol']}, rtol {TRAIN_PARAM_TOL['rtol']}), "
+          f"at most {gate_share:.2f} of an element's limit")
+    return {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err, "param_gate_share": gate_share}
 
 
 def run_cli(main, argv) -> tuple[int, str]:
@@ -379,7 +415,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from honk_tpu_torch import use_full_f32
-    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.frontend import compute_mfccs_reference
     from honk_tpu_torch.frontend import filters as mfcc_filters
     from honk_tpu_torch.models import SpeechResModel, find_config
     from honk_tpu_torch.data import augment as A
@@ -404,53 +440,70 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.1f} s ({', '.join(sorted(logs)) or 'already built'})")
     for src, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {src}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"[build] {src}: {line}")
 
     rng = np.random.default_rng(SEED)
     audio_np = (rng.standard_normal((BATCH + 1, 16000)) * 0.2).astype(np.float32)
     audio_np[-1] = 0.0
     audio = torch.from_numpy(audio_np).to(dev)
 
-    # 3. MFCC kernel against its plain version.
-    got = mfcc_kernel.mfcc(audio)
-    ref = mfcc_kernel.mfcc_plain(audio)
-    torch.cuda.synchronize()
-    if got.shape != (BATCH + 1, 101, 40) or not torch.isfinite(got).all():
-        fail(f"mfcc kernel: shape {tuple(got.shape)} or non-finite values")
-    if not bool((got[-1] == 0).all()):
-        fail("mfcc kernel: the silent row is not exactly 0")
-    mfcc_err = max_err(got, ref)
-    if not close(got, ref, **MFCC_TOL):
-        fail(f"mfcc kernel disagrees with its plain version: max abs err {mfcc_err:.3e}")
-    got1 = mfcc_kernel.mfcc(audio[:1].contiguous())
-    if not close(got1, ref[:1], **MFCC_TOL):
-        fail(f"mfcc kernel at B=1: max abs err {max_err(got1, ref[:1]):.3e}")
-    print(f"[mfcc] B={BATCH + 1} max abs err {mfcc_err:.3e} (atol {MFCC_TOL['atol']}, "
-          f"rtol {MFCC_TOL['rtol']}); silent row exactly 0; B=1 ok")
+    # 3. MFCC kernel against its plain version, at the lengths /listen sends,
+    # and against the float64 golden.
+    mfcc_err, mfcc_errs = 0.0, {}
+    for n in (16000, 8000, 24000):
+        a = audio if n == 16000 else torch.from_numpy(
+            (rng.standard_normal((BATCH + 1, n)) * 0.2).astype(np.float32)).to(dev)
+        a[-1] = 0.0
+        got = mfcc_kernel.mfcc(a)
+        ref = mfcc_kernel.mfcc_plain(a)
+        torch.cuda.synchronize()
+        if got.shape != (BATCH + 1, 1 + n // 160, 40) or not torch.isfinite(got).all():
+            fail(f"mfcc kernel, {n} samples: shape {tuple(got.shape)} or non-finite values")
+        if not bool((got[-1] == 0).all()):
+            fail(f"mfcc kernel, {n} samples: the silent row is not exactly 0")
+        err = max_err(got, ref)
+        if not close(got, ref, **MFCC_TOL):
+            fail(f"mfcc kernel disagrees with its plain version, {n} samples: max abs err {err:.3e}")
+        got1 = mfcc_kernel.mfcc(a[:1].contiguous())
+        if not close(got1, ref[:1], **MFCC_TOL):
+            fail(f"mfcc kernel at B=1, {n} samples: max abs err {max_err(got1, ref[:1]):.3e}")
+        mfcc_errs[n] = err
+        if n == 16000:
+            mfcc_err = err
+            golden_err = 0.0
+            for i in range(4):
+                golden = torch.from_numpy(compute_mfccs_reference(audio_np[i].astype(np.float64)))
+                g = got[i].cpu().double()
+                golden_err = max(golden_err, max_err(g, golden))
+                if not close(g, golden, **GOLDEN_TOL):
+                    fail(f"mfcc kernel against the float64 golden, row {i}: max abs err {max_err(g, golden):.3e}")
+    print(f"[mfcc] B={BATCH + 1} max abs err " + ", ".join(f"{n} samples {e:.3e}" for n, e in mfcc_errs.items())
+          + f" (atol {MFCC_TOL['atol']}, rtol {MFCC_TOL['rtol']}); silent rows exactly 0; B=1 ok; "
+          f"float64 golden max abs err {golden_err:.3e} on 4 rows (atol {GOLDEN_TOL['atol']}, rtol {GOLDEN_TOL['rtol']}); "
+          f"geometry B=1 {mfcc_kernel.geometry(audio[:1])}, B={BATCH} {mfcc_kernel.geometry(audio[:BATCH])}")
 
     # 4. Res-stack kernel against its plain version.
     svc = LabelService("res8", CHECKPOINT)  # device defaults to cuda
+    res_errs = {}
     with torch.inference_mode():
         feats = mfcc_kernel.mfcc_plain(audio[:BATCH])
         pooled = svc.model.stem(feats)
         packed = res_kernel.pack_res_params(svc.model)
-        got = res_kernel.res_stack(pooled, *packed)
         ref = res_kernel.res_stack_plain(pooled, *packed)
-        torch.cuda.synchronize()
-        res_err = max_err(got, ref)
-        if got.shape != (BATCH, 12) or not torch.isfinite(got).all():
-            fail(f"res_stack kernel: shape {tuple(got.shape)} or non-finite values")
-        if not close(got, ref, **RES_TOL):
-            fail(f"res_stack kernel disagrees with its plain version: max abs err {res_err:.3e}")
-        got1 = res_kernel.res_stack(pooled[:1].contiguous(), *packed)
-        if not close(got1, ref[:1], **RES_TOL):
-            fail(f"res_stack kernel at B=1: max abs err {max_err(got1, ref[:1]):.3e}")
-        # Random weights with randomized BN stats: res8-narrow (19 maps, shared
-        # memory) and res26-narrow (50x20 maps do not fit: global scratch path).
-        other_errs = {}
-        for conf in ("res8-narrow", "res26-narrow"):
+        for b in (1, 2, 3, 133, BATCH):
+            x = pooled[:b].contiguous()
+            got = res_kernel.res_stack(x, *packed)
+            torch.cuda.synchronize()
+            if got.shape != (b, 12) or not torch.isfinite(got).all():
+                fail(f"res_stack kernel, res8 B={b}: shape {tuple(got.shape)} or non-finite values")
+            err = max_err(got, ref[:b])
+            if not close(got, ref[:b], **RES_TOL):
+                fail(f"res_stack kernel disagrees with its plain version, res8 B={b}: max abs err {err:.3e}")
+            res_errs[f"res8 B={b}"] = (err, res_kernel.geometry(x))
+        res_err = res_errs[f"res8 B={BATCH}"][0]
+        # Random weights with randomized BN stats: the narrow and the 26-layer models.
+        for conf in ("res8-narrow", "res26", "res26-narrow"):
             cfg = find_config(conf)
             torch.manual_seed(SEED)
             m = SpeechResModel(cfg)
@@ -459,17 +512,20 @@ def main() -> int:
                 bn.running_mean.normal_(0, 0.1)
                 bn.running_var.uniform_(0.5, 1.0)
             m = m.to(dev).eval()
-            pooled_m = m.stem(feats[:3])
             packed_m = res_kernel.pack_res_params(m)
-            got_m = res_kernel.res_stack(pooled_m, *packed_m)
-            ref_m = res_kernel.res_stack_plain(pooled_m, *packed_m)
-            torch.cuda.synchronize()
-            other_errs[conf] = max_err(got_m, ref_m)
-            if not close(got_m, ref_m, **RES_TOL):
-                fail(f"res_stack kernel, {conf} B=3: max abs err {other_errs[conf]:.3e}")
-    print(f"[res_stack] res8 B={BATCH} max abs err {res_err:.3e} (atol {RES_TOL['atol']}, "
-          f"rtol {RES_TOL['rtol']}); B=1 ok; B=3 max abs err "
-          + ", ".join(f"{k} {v:.3e}" for k, v in other_errs.items()))
+            for b in (1, 3):
+                pooled_m = m.stem(feats[:b])
+                got_m = res_kernel.res_stack(pooled_m, *packed_m)
+                ref_m = res_kernel.res_stack_plain(pooled_m, *packed_m)
+                torch.cuda.synchronize()
+                err = max_err(got_m, ref_m)
+                if not close(got_m, ref_m, **RES_TOL):
+                    fail(f"res_stack kernel, {conf} B={b}: max abs err {err:.3e}")
+                res_errs[f"{conf} B={b}"] = (err, res_kernel.geometry(pooled_m))
+    print(f"[res_stack] max abs err against the plain version (atol {RES_TOL['atol']}, rtol {RES_TOL['rtol']}), "
+          "cluster geometry: " + "; ".join(f"{k} {e:.3e} cluster {g['cluster']} x {g['threads']} threads, "
+                                          f"{g['rows_per_cta']} rows, {g['smem_bytes']} B smem"
+                                          for k, (e, g) in res_errs.items()))
 
     # 5. The service on cuda against the same service on the CPU.
     cpu = LabelService("res8", CHECKPOINT, device="cpu")
@@ -580,12 +636,13 @@ def main() -> int:
     # the serving path's 8 requests (phase 6). ms / plain_ms / bound_ms are at
     # "batch"; the other keys give the other sizes of the two paths.
     kernels = []
-    for kname, src, replaces, work, err in (
-        ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work, mfcc_err),
-        ("res_stack", "honk_tpu_torch/ops/csrc/res_stack.cu", "honk_tpu/ops/res_kernel.py:139", res_work, res_err),
+    for kname, src, replaces, work, err, tf32x3 in (
+        ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work, mfcc_err, False),
+        ("res_stack", "honk_tpu_torch/ops/csrc/res_stack.cu", "honk_tpu/ops/res_kernel.py:139", res_work, res_err,
+         True),
     ):
-        b256, by = bound(*work(BATCH), name)
-        b1, by1 = bound(*work(1), name)
+        b256, by = bound(*work(BATCH), name, tf32x3)
+        b1, by1 = bound(*work(1), name, tf32x3)
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": train_launches[kname], "launches_listen": launches[kname], "max_abs_err": err,

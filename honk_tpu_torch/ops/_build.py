@@ -5,7 +5,11 @@ function returns the ``cudaError_t`` of its launch), so it compiles in
 seconds without PyTorch's headers. A library is built at first use, into
 ``honk_tpu_torch/_build/`` (listed in ``.gitignore``), under a name keyed by
 a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is reused. ``build`` starts one nvcc per source, all at once.
+unchanged one is reused. Each kernel is one self-contained ``.cu`` that
+includes only the CUDA toolkit's headers, so that hash covers everything
+its library is built from; a shared ``csrc/*.cuh`` would have to join the
+hash of every source that includes it. ``build`` starts one nvcc per
+source, all at once.
 
 No ``--use_fast_math``: the MFCC kernel's masked log must be ``logf``, and
 every kernel here is held to float32 parity gates.

@@ -3,12 +3,15 @@
 Hopper counterpart of ``honk_tpu/ops/res_kernel.py`` (Pallas
 ``_res_stack_call`` / ``_make_kernel``, packer ``pack_res_params``). The
 CUDA source is ``csrc/res_stack.cu``; its header says what bounds it on the
-card (f32 FMAs, about 71.1 MFLOP per res8 utterance) and how the design
-meets that. Shapes follow PyTorch: the input is the pooled activation
-``(B, C, H, W)`` (res8: ``(B, 45, 25, 13)``), the output ``(B, n_labels)``
-logits. Any batch size, ``C <= 64``, and any ``H``, ``W`` and layer count
-(res8, res8-narrow, res26, res26-narrow); res15's dilated convs are not
-covered, as on the TPU.
+card (the convolutions' products, run on the tensor cores in 3xTF32) and
+how the design meets that: a small kernel packs and splits the weights,
+then a thread block cluster per utterance, each CTA a band of rows in
+shared memory, runs each conv as an implicit GEMM with ``wgmma``. Shapes follow
+PyTorch: the input is the pooled activation ``(B, C, H, W)`` (res8:
+``(B, 45, 25, 13)``), the output ``(B, n_labels)`` logits. Any batch size,
+``C <= 64``, any layer count, and maps whose rows split into at most 8
+bands that each fit the kernel (``cluster_size``): res8, res8-narrow, res26
+and res26-narrow. res15's dilated convs are not covered, as on the TPU.
 
 ``res_stack`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``res_stack_plain``, the same function as
@@ -19,7 +22,10 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,9 +34,14 @@ from . import _build
 launches = 0
 BN_EPS = 1e-5
 MAX_MAPS = 64
-# Shared memory one block may use on sm_90 (the only target the kernel is
-# built for), less the kernel's static 64-float feature buffer.
-_SMEM_BYTES = 232_448 - 4 * MAX_MAPS
+# Launch geometry of csrc/res_stack.cu (its WARPS, STAGES and MAX_CLUSTER).
+WARPS = 16
+MAX_TILES = WARPS  # 16-pixel rows of M tiles one CTA's band may have (4 warpgroups x 64)
+STAGES = 3  # per-tap weight stages in shared memory
+MAX_CLUSTER = 8
+# Dynamic shared memory one CTA may use on sm_90, less the kernel's static
+# partial sums, features and BN constants (MAX_CLUSTER * 64 + 64 + 128 floats).
+SMEM_LIMIT = 232_448 - 4 * (MAX_CLUSTER + 3) * MAX_MAPS
 
 
 @torch.no_grad()
@@ -66,6 +77,66 @@ def pack_res_params(model: torch.nn.Module) -> tuple[torch.Tensor, ...]:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def fragment_index(C: int) -> np.ndarray:
+    """Where each value of the kernel's B tiles of one tap comes from.
+
+    Shape ``(NT, NT, 2, 8, 4)`` int32 with ``NT = ceil(C / 8)``: for K
+    chunk ``kc``, N block ``j``, K half ``h``, row ``r`` and column ``k``,
+    the value at that place of the chunk's tile, which ``wgmma`` reads as
+    ``B[k = 4h + k][n = 8j + r]`` (no swizzle: core matrices of 8 rows of
+    4 values, K halves 128 B apart, N blocks 256 B apart), is the weight of
+    input channel ``kc*8 + 4h + k`` and output channel ``8j + r``. The
+    entry is that weight's offset in the tap's ``(C, C)`` block of ``w_all``
+    (``ic*C + oc``), or -1 for the zero padding of channels ``>= C``. The
+    source's pack kernel gathers ``w_all`` by it, once per call, and splits
+    each value for 3xTF32.
+    """
+    nt = -(-C // 8)
+    kc, j, h, r, k = np.meshgrid(np.arange(nt), np.arange(nt), np.arange(2), np.arange(8), np.arange(4),
+                                 indexing="ij")
+    ic, oc = kc * 8 + 4 * h + k, 8 * j + r
+    return np.where((ic < C) & (oc < C), ic * C + oc, -1).astype(np.int32)
+
+
+def smem_bytes(C: int, H: int, W: int, cluster: int) -> int:
+    """Dynamic shared memory of one CTA (``res_stack_smem_bytes`` in the source)."""
+    nt = -(-C // 8)
+    stride, band = nt * 8 + 4, -(-H // cluster)
+    act = -(-((band + 2) * (W + 2) * stride) // 4) * 4
+    return 4 * (2 * act + band * W * stride + STAGES * nt * nt * 128)
+
+
+def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132) -> int:
+    """CTAs per utterance: the rows of an utterance split into that many bands.
+
+    Among the cluster sizes 1, 2, 4, 8 (at most ``H``) whose bands fit the
+    kernel (at most ``MAX_TILES`` tiles of 16 pixels, ``SMEM_LIMIT`` bytes),
+    the one with the least cost, ties to the larger cluster. One CTA runs
+    on an SM at a time (its 512 threads take the SM's registers), and its
+    warps work side by side, so a CTA takes about as long with 4 tiles as
+    with 11 (0.08 and 0.11 ms for res8 on an H100,
+    scripts/probe_torch_res_stack.py): the cost counts waves of
+    ``n_sm`` CTAs, each weighted by ``16 + tiles``. So B=1 spreads over 8
+    SMs, and a large batch takes the largest bands that fit, in the fewest
+    waves. Raises ``ValueError`` if none fits.
+    """
+    best = None
+    for cs in (1, 2, 4, 8):
+        tiles = -(-(-(-H // cs) * W) // 16)
+        if cs > H or tiles > MAX_TILES or smem_bytes(C, H, W, cs) > SMEM_LIMIT:
+            continue
+        cost = math.ceil(B * cs / n_sm) * (MAX_TILES + tiles)
+        if best is None or cost <= best[0]:
+            best = (cost, cs)
+    if best is None:
+        raise ValueError(
+            f"res_stack: maps of {H}x{W} with {C} channels do not split into at most "
+            f"{MAX_CLUSTER} bands of at most {MAX_TILES * 16} pixels in shared memory"
+        )
+    return best[1]
+
+
 def res_stack_plain(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
     """(B, C, H, W) pooled activation -> (B, n_labels) logits as plain PyTorch ops."""
     C = x.shape[1]
@@ -99,6 +170,7 @@ def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
         )
     if any(a.dtype != torch.float32 or not a.is_contiguous() or a.device != x.device for a in args):
         raise ValueError("res_stack takes contiguous float32 tensors on one device")
+    cluster_size(B, C, H, W)  # the same maps are refused on every device
     if x.device.type == "cpu":
         return res_stack_plain(*args)
     if x.device.type != "cuda":
@@ -106,27 +178,42 @@ def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
     return _launch(*args)
 
 
-def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _device_index(C: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fragment_index(C)).to(device)
+
+
+def geometry(x: torch.Tensor) -> dict:
+    """The launch the kernel gets for the pooled activation ``x`` on its CUDA device."""
+    B, C, H, W = x.shape
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    cs = cluster_size(B, C, H, W, n_sm)
+    return {"cluster": cs, "ctas": B * cs, "threads": 32 * WARPS, "rows_per_cta": -(-H // cs),
+            "smem_bytes": smem_bytes(C, H, W, cs), "n_sm": n_sm}
+
+
+def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, cluster: int | None = None) -> torch.Tensor:
+    """The kernel on checked CUDA operands; ``cluster`` overrides the
+    wrapper's choice (scripts/probe_torch_res_stack.py compares them)."""
     global launches
     lib = _build.load("res_stack")
     fn = lib.res_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, C, H, W = x.shape
     L, n_labels = w_all.shape[0], dense_w.shape[1]
-    # Per utterance: two zero-bordered activation buffers and the residual carry.
-    per_utt = 2 * C * (H + 2) * (W + 2) + C * H * W
-    scratch = None
-    if 4 * per_utt > _SMEM_BYTES:
-        scratch = torch.empty(B * per_utt, dtype=torch.float32, device=x.device)
+    cs = cluster or geometry(x)["cluster"]
+    idx = _device_index(C, x.device)
+    nt = -(-C // 8)
+    # The split B tiles: (L, 9 taps, NT K chunks, big and small, NT * 64) floats.
+    wpack = torch.empty(L * 9 * nt * nt * 128, dtype=torch.float32, device=x.device)
     out = torch.empty((B, n_labels), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            x.data_ptr(), w_all.data_ptr(), bn_scale.data_ptr(), bn_offset.data_ptr(),
-            dense_w.data_ptr(), dense_b.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            B, C, H, W, L, n_labels, stream,
+            x.data_ptr(), w_all.data_ptr(), idx.data_ptr(), bn_scale.data_ptr(),
+            bn_offset.data_ptr(), dense_w.data_ptr(), dense_b.data_ptr(), out.data_ptr(),
+            wpack.data_ptr(), B, C, H, W, L, n_labels, cs, stream,
         )
     _build.check(err, "res_stack")
     launches += 1
