@@ -39,7 +39,36 @@ nvcc. Phases, in order; any failure exits non-zero:
 11. timings with CUDA events: the assembly kernel and its plain version
     at B=64 and B=1024, the MFCC at B=64, and one train step at B=64 in
     float32 and bf16, split into assembly, MFCC and forward + backward +
-    update.
+    update;
+
+then the rest of the model family (res15, res15-narrow, cnn-trad-pool2),
+which runs on cuDNN and cuBLAS between the MFCC and assembly kernels:
+
+12. the eval forward of zoo_hard_v2/res15.pt, res15-narrow.pt and
+    cnn-trad-pool2.pt through LabelService at B=256 on cuda and on the
+    CPU: logits within 2e-4, equal labels, exactly one MFCC launch per
+    batch and no res-stack launch;
+13. /listen for res15 and cnn-trad-pool2: one server per model, 4
+    requests each, each answer equal to the CPU service's; MFCC launches
+    exactly 4 per model, res stack 0;
+14. hard_v2 clip by clip: the corpus regenerated from
+    zoo_hard_v2/MANIFEST.json's corpus_recipe, loaded with dev_pct=10,
+    test_pct=80 (the MANIFEST's split sizes), and all seven zoo_hard_v2
+    checkpoints evaluated on the card at B=256 (res8 and res26 through the
+    res-stack kernel, res15 and cnn-trad-pool2 through cuDNN): each
+    model's per-clip correctness must agree with its committed
+    <model>_test_correct.npy on at least 9,550 of the 9,559 test clips,
+    and its accuracy be within 0.1 points of test_acc_recheck;
+15. three float32 train steps of res15 (B=16) and cnn-trad-pool2 (B=64) on
+    cuda and on the CPU from the same weights, draws and dropout masks,
+    compared like phase 9; then honk_tpu_torch.cli.train trains each (bf16,
+    B=64) for one epoch on phase 10's corpus with exact MFCC and assembly
+    launch counts (res stack 0), and --type eval of each best.pt gives the
+    same accuracy on cuda and on the CPU;
+16. timings for res15 and cnn-trad-pool2: the eval forward (MFCC + model)
+    at B=1 and B=256 with CUDA events, and one train step at B=64 in
+    float32 and bf16 on the host clock (50 steps) and as device time,
+    kernels per step and idle share (torch.profiler, 10 steps).
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -65,6 +94,14 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(ROOT, "zoo", "res8.pt")
+HARD_V2 = os.path.join(ROOT, "zoo_hard_v2")
+FAMILY = ("res15", "res15-narrow", "cnn-trad-pool2")  # the configs the res-stack kernel does not run
+N_LISTEN_FAMILY = 4
+# Phase 14: clips of the 9,559 that may disagree with the committed vectors
+# (each is a near-tie whose argmax flips between two f32 runtimes), and the
+# accuracy gap allowed against test_acc_recheck (0.1 points).
+HARD_V2_MIN_AGREE = 9550
+HARD_V2_ACC_ATOL = 1e-3
 SEED = 0
 BATCH = 256
 N_LISTEN = 8
@@ -221,10 +258,9 @@ def phase_assemble(torch, dev, A, K):
     return max(e for e, _, _ in errs.values()), exact, cfg
 
 
-def phase_train_steps(torch, dev, A):
-    """9. Three float32 res8 train steps on cuda and on the CPU, same weights, same draws."""
-    from honk_tpu_torch.models import SpeechResModel, find_config
-    from honk_tpu_torch.models.res import init_weights
+def phase_train_steps(torch, dev, A, conf: str = "res8", batch: int = TRAIN_BATCH):
+    """9 and 15. Three float32 train steps on cuda and on the CPU: same weights, same draws, same dropout masks."""
+    from honk_tpu_torch.models import find_config, find_model, init_weights
     from honk_tpu_torch.train import create_train_state, make_optimizer
     from honk_tpu_torch.train.steps import make_train_step
 
@@ -236,20 +272,27 @@ def phase_train_steps(torch, dev, A):
     cfg = A.AugmentConfig(n_silence=n // 10)
     sides = {}
     for side, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        model = init_weights(SpeechResModel(find_config("res8")), torch.Generator().manual_seed(SEED)).to(d)
+        model = init_weights(find_model(conf)(find_config(conf)), torch.Generator().manual_seed(SEED)).to(d)
         tx = make_optimizer(lrs=(0.01, 0.001), boundaries=(2,))  # the ladder switches at update 2
-        sides[side] = (create_train_state(model, tx), make_train_step(tx, TRAIN_BATCH, cfg),
+        sides[side] = (create_train_state(model, tx), make_train_step(tx, batch, cfg),
                        A.prepare_train_arrays(raw, labels, noise, cfg, device=d))
     losses = {k: [] for k in sides}
     for step in range(3):
-        draws = A.draw_batch(A.step_generator(SEED + 1, step, "cpu"), sides["cpu"][2], TRAIN_BATCH, cfg)
+        # The draws, then the dropout masks, from one CPU generator (the two
+        # devices' generators differ), as a train step draws them from its own.
+        gen = A.step_generator(SEED + 1, step, "cpu")
+        draws = A.draw_batch(gen, sides["cpu"][2], batch, cfg)
+        cpu_model = sides["cpu"][0].model
+        masks = cpu_model.keep_masks(batch, gen) if hasattr(cpu_model, "keep_masks") else None
         for k, (state, train_step, arrays) in sides.items():
-            moved = A.Draws(*(t.to(arrays.pool.device) for t in draws))
-            _, m = train_step.apply_batch(state, *A.assemble_batch(moved, arrays, cfg))
+            d = arrays.pool.device
+            moved = A.Draws(*(t.to(d) for t in draws))
+            dropout = None if masks is None else [m.to(d) for m in masks]
+            _, m = train_step.apply_batch(state, *A.assemble_batch(moved, arrays, cfg), dropout=dropout)
             losses[k].append(float(m["loss"]))
     loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     if not all(math.isfinite(v) for v in losses["cuda"]) or loss_err > TRAIN_LOSS_ATOL:
-        fail(f"train steps cuda vs cpu: losses {losses}")
+        fail(f"{conf} train steps cuda vs cpu: losses {losses}")
     gpu_sd, cpu_sd = (sides[k][0].model.state_dict() for k in ("cuda", "cpu"))
     param_err, gate_share = 0.0, 0.0
     for name, ref in cpu_sd.items():
@@ -259,8 +302,9 @@ def phase_train_steps(torch, dev, A):
         limit = TRAIN_PARAM_TOL["atol"] + TRAIN_PARAM_TOL["rtol"] * ref.abs()
         gate_share = max(gate_share, float(((got - ref).abs() / limit).max()))
         if not close(got, ref, **TRAIN_PARAM_TOL):
-            fail(f"train steps cuda vs cpu: {name} max abs err {max_err(got, ref):.3e}")
-    print(f"[train_steps] res8 B={TRAIN_BATCH} f32, 3 steps: losses cuda {losses['cuda']} cpu {losses['cpu']}; "
+            fail(f"{conf} train steps cuda vs cpu: {name} max abs err {max_err(got, ref):.3e}")
+    print(f"[train_steps] {conf} B={batch} f32, 3 steps{', dropout masks made on the CPU' if masks else ''}: "
+          f"losses cuda {losses['cuda']} cpu {losses['cpu']}; "
           f"loss max abs err {loss_err:.3e} (atol {TRAIN_LOSS_ATOL}); weights and BN stats max abs err "
           f"{param_err:.3e} (atol {TRAIN_PARAM_TOL['atol']}, rtol {TRAIN_PARAM_TOL['rtol']}), "
           f"at most {gate_share:.2f} of an element's limit")
@@ -281,22 +325,27 @@ def final_accuracy(out: str) -> float:
     return float(lines[0].split(":", 1)[1])
 
 
-def phase_entry_point(torch, tmp, counters):
-    """10. honk_tpu_torch.cli.train: train res8 on cuda with exact launch counts, then eval cuda vs cpu."""
-    from honk_tpu_torch.cli.train import main as cli_main
-    from honk_tpu_torch.data import generate_dataset, load_speech_commands
+def uses_res_stack(conf: str) -> bool:
+    """Whether a config's eval forward runs the res-stack kernel (res8, res26 and their -narrow forms)."""
+    from honk_tpu_torch.models import find_config
 
-    root = os.path.join(tmp, "corpus")
-    generate_dataset(root, clips_per_word=40, n_speakers=8)
+    return conf.startswith("res") and not find_config(conf).get("use_dilation")
+
+
+def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags=()):
+    """10 and 15. honk_tpu_torch.cli.train: train on cuda with exact launch counts, then eval cuda vs cpu."""
+    from honk_tpu_torch.cli.train import main as cli_main
+    from honk_tpu_torch.data import load_speech_commands
+
     ds = load_speech_commands(root)  # the CLI's defaults: the same splits it will train on
-    n_epochs, eval_b = 2, 256
+    eval_b = 256
     n_train = len(ds.train)
     steps = n_epochs * math.ceil((n_train + int(0.1 * n_train)) / TRAIN_BATCH)
     evals = n_epochs * math.ceil(len(ds.dev) / eval_b) + math.ceil(len(ds.test) / eval_b)
-    expect = {"assemble": steps, "mfcc": steps + evals, "res_stack": evals}
-    out_dir, metrics = os.path.join(tmp, "run"), os.path.join(tmp, "metrics.jsonl")
-    argv = ["--type", "train", "--model", "res8", "--batch_size", str(TRAIN_BATCH), "--n_epochs", str(n_epochs),
-            "--dev_every", "1", "--data_dir", root, "--output_dir", out_dir, "--metrics_jsonl", metrics]
+    expect = {"assemble": steps, "mfcc": steps + evals, "res_stack": evals if uses_res_stack(conf) else 0}
+    out_dir, metrics = os.path.join(tmp, f"run-{conf}"), os.path.join(tmp, f"metrics-{conf}.jsonl")
+    argv = ["--type", "train", "--model", conf, "--batch_size", str(TRAIN_BATCH), "--n_epochs", str(n_epochs),
+            "--dev_every", "1", "--data_dir", root, "--output_dir", out_dir, "--metrics_jsonl", metrics, *flags]
     for mod in counters.values():
         mod.launches = 0
     t0 = time.perf_counter()
@@ -319,14 +368,14 @@ def phase_entry_point(torch, tmp, counters):
         fail(f"cli.train epoch records: {epochs}")
     accs = {}
     for d in ("cuda", "cpu"):
-        rc, out = run_cli(cli_main, ["--type", "eval", "--model", "res8", "--data_dir", root,
+        rc, out = run_cli(cli_main, ["--type", "eval", "--model", conf, "--data_dir", root,
                                      "--input_file", best, "--device", d])
         if rc != 0:
             fail(f"cli.train --type eval --device {d} returned {rc}")
         accs[d] = final_accuracy(out)
     if accs["cuda"] != accs["cpu"]:
         fail(f"--type eval of best.pt: cuda {accs['cuda']} != cpu {accs['cpu']}")
-    print(f"[train_cli] res8 bf16 B={TRAIN_BATCH}, {n_epochs} epochs on {n_train} clips "
+    print(f"[train_cli] {conf} bf16 B={TRAIN_BATCH} {' '.join(flags)}, {n_epochs} epochs on {n_train} clips "
           f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} (exact); "
           f"epochs " + "; ".join(f"loss {r['loss']:.4f} acc {r['acc']:.4f} audio_s_per_s {r['audio_s_per_s']}"
                                  for r in epochs)
@@ -336,8 +385,7 @@ def phase_entry_point(torch, tmp, counters):
 
 def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
     """11. The assembly kernel, plain, at B=64 and 1024; the MFCC at B=64; one train step split."""
-    from honk_tpu_torch.models import SpeechResModel, find_config
-    from honk_tpu_torch.models.res import init_weights
+    from honk_tpu_torch.models import SpeechResModel, find_config, init_weights
     from honk_tpu_torch.train import create_train_state, make_optimizer
     from honk_tpu_torch.train.steps import make_train_step
 
@@ -366,18 +414,190 @@ def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
             "fwd_bwd_update": time_ms(torch, lambda: step.apply_features(state, feats, labels), 50),
             "step": time_ms(torch, lambda: step(state, SEED, arrays), 50),
         }
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(50):
-            step(state, SEED, arrays)
-        torch.cuda.synchronize()
-        parts["step_wall"] = (time.perf_counter() - t0) * 1e3 / 50
-        parts.update(profile_steps(torch, lambda: step(state, SEED, arrays), 10))
+        parts.update(step_clocks(torch, lambda: step(state, SEED, arrays)))
         steps[dtype_name] = parts
     print("[step_times] ms per call (CUDA events behind a spin kernel; step_wall: host clock over 50 steps; "
           "device_ms and top_kernels_ms: torch.profiler over 10 steps): "
           + json.dumps({"kernels": times, "train_step_b64": steps}))
     return times, steps, work
+
+
+def step_clocks(torch, step_fn, n_wall: int = 50, n_profile: int = 10) -> dict:
+    """A step's host ms over ``n_wall`` calls (synchronised at the ends), then
+    torch.profiler's device view of ``n_profile`` more."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_wall):
+        step_fn()
+    torch.cuda.synchronize()
+    return {"step_wall": (time.perf_counter() - t0) * 1e3 / n_wall, **profile_steps(torch, step_fn, n_profile)}
+
+
+def listen(svc, cpu, requests, counters, serve) -> tuple[list[float], dict]:
+    """POST each PCM16 request to /listen on a server of ``svc``; every answer must
+    equal the CPU service's. Returns the host seconds per request and the
+    kernel launches over the requests (counts set to 0 just before)."""
+    for mod in counters.values():
+        mod.launches = 0
+    httpd = serve(svc, port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/labels", timeout=60) as r:
+            if json.loads(r.read())["labels"] != svc.labels:
+                fail("GET /labels: wrong labels")
+        answers, listen_s = [], []
+        for pcm in requests:
+            t0 = time.perf_counter()
+            answers.append(post_json(f"{base}/listen", {"wav_data": base64.b64encode(pcm.tobytes()).decode()}))
+            listen_s.append(time.perf_counter() - t0)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    launches = {k: mod.launches for k, mod in counters.items()}
+    if th.is_alive():
+        fail("HTTP server thread did not stop")
+    for pcm, ans in zip(requests, answers):
+        label, prob = cpu.evaluate(pcm.astype(np.float32) / 32768.0)
+        if ans["label"] != label or abs(ans["prob"] - prob) > PROB_ATOL:
+            fail(f"/listen answered {ans}, the CPU service ({label}, {prob})")
+        if ans["contains_command"] != (label not in ("__silence__", "__unknown__")):
+            fail(f"/listen contains_command wrong: {ans}")
+    return listen_s, launches
+
+
+def phase_family_eval(torch, LabelService, counters, utts) -> tuple[dict, dict]:
+    """12. LabelService on cuda against the CPU, B=256, for the configs outside the res-stack kernel."""
+    services, errs = {}, {}
+    for conf in FAMILY:
+        path = os.path.join(HARD_V2, f"{conf}.pt")
+        gpu, cpu = LabelService(conf, path), LabelService(conf, path, device="cpu")
+        for mod in counters.values():
+            mod.launches = 0
+        got = gpu.logits(utts).cpu()
+        launches = {k: mod.launches for k, mod in counters.items()}
+        if launches != {"assemble": 0, "mfcc": 1, "res_stack": 0}:
+            fail(f"{conf} eval forward at B={len(utts)} launched {launches}: expected one mfcc, nothing else")
+        ref = cpu.logits(utts)
+        if got.shape != (len(utts), 12) or not torch.isfinite(got).all():
+            fail(f"{conf} eval forward on cuda: shape {tuple(got.shape)} or non-finite values")
+        errs[conf] = max_err(got, ref)
+        if errs[conf] > LOGIT_ATOL:
+            fail(f"{conf} LabelService cuda vs cpu: logits max abs err {errs[conf]:.3e} > {LOGIT_ATOL}")
+        if not torch.equal(got.argmax(-1), ref.argmax(-1)):
+            fail(f"{conf} LabelService cuda vs cpu: labels differ")
+        services[conf] = (gpu, cpu)
+    print(f"[family_eval] LabelService B={len(utts)} cuda vs cpu, labels equal, one mfcc launch and no res_stack "
+          "launch per batch; logits max abs err " + ", ".join(f"{c} {e:.3e}" for c, e in errs.items())
+          + f" (atol {LOGIT_ATOL})")
+    return services, errs
+
+
+def phase_hard_v2(torch, dev, counters, tmp) -> dict:
+    """14. The committed zoo_hard_v2 models on the card, clip by clip against their committed vectors."""
+    from honk_tpu_torch.data import generate_hard_dataset, load_speech_commands
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.models import find_config, find_model, load_honk_checkpoint
+
+    with open(os.path.join(HARD_V2, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    recipe = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in manifest["corpus_recipe"].items() if k != "generator"}
+    root = os.path.join(tmp, "hard_v2")
+    t0 = time.perf_counter()
+    generate_hard_dataset(root, **recipe)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = load_speech_commands(root, dev_pct=10, test_pct=80)
+    load_s = time.perf_counter() - t0
+    sizes = {"train": len(ds.train), "dev": len(ds.dev), "test": len(ds.test)}
+    if sizes != manifest["split_sizes"]:
+        fail(f"hard_v2 split sizes {sizes} != the MANIFEST's {manifest['split_sizes']}")
+    audio = torch.from_numpy(ds.test.audio).to(dev)
+    labels = np.asarray(ds.test.labels)
+    n = len(labels)
+    n_batches = math.ceil(n / BATCH)
+    results = {}
+    for name, entry in manifest["models"].items():
+        cfg = find_config(name)
+        cfg["n_labels"] = ds.n_labels
+        model = load_honk_checkpoint(os.path.join(HARD_V2, entry["pt"]), find_model(name)(cfg)).to(dev).eval()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            packed = model.eval_operands()
+            logits = torch.cat([model(compute_mfccs(audio[s:s + BATCH].float() / 32768.0), packed=packed)
+                                for s in range(0, n, BATCH)]).cpu()
+        eval_s = time.perf_counter() - t0
+        launches = {k: mod.launches for k, mod in counters.items()}
+        expect = {"assemble": 0, "mfcc": n_batches, "res_stack": n_batches if uses_res_stack(name) else 0}
+        if launches != expect:
+            fail(f"hard_v2 {name}: launched {launches}, expected {expect}")
+        if not torch.isfinite(logits).all():
+            fail(f"hard_v2 {name}: non-finite logits")
+        correct = logits.argmax(-1).numpy() == labels
+        want = np.load(os.path.join(HARD_V2, f"{name}_test_correct.npy"))
+        differ = np.flatnonzero(correct != want)
+        top2 = logits.topk(2, dim=-1).values
+        margins = (top2[:, 0] - top2[:, 1]).numpy()
+        acc = float(correct.mean())
+        results[name] = {
+            "acc": acc, "test_acc_recheck": entry["test_acc_recheck"], "clips_differ": int(differ.size),
+            "min_top2_margin_of_differing": float(margins[differ].min()) if differ.size else None,
+            "eval_s": eval_s, "launches": launches,
+        }
+        if want.shape != (n,) or n - differ.size < HARD_V2_MIN_AGREE:
+            fail(f"hard_v2 {name}: {differ.size} of {n} clips differ from {name}_test_correct.npy")
+        if abs(acc - entry["test_acc_recheck"]) > HARD_V2_ACC_ATOL:
+            fail(f"hard_v2 {name}: accuracy {acc} against test_acc_recheck {entry['test_acc_recheck']}")
+    print(f"[hard_v2] corpus generated in {gen_s:.1f} s, loaded in {load_s:.1f} s, splits {sizes} (the MANIFEST's); "
+          f"B={BATCH}, {n_batches} batches a model: "
+          + "; ".join(f"{k} acc {r['acc']:.4f} (recheck {r['test_acc_recheck']}), {r['clips_differ']} clips differ"
+                      + (f" (smallest top-2 margin {r['min_top2_margin_of_differing']:.3e})"
+                         if r["clips_differ"] else "")
+                      + f", {r['eval_s']:.2f} s, launches {r['launches']}"
+                      for k, r in results.items()))
+    return {"generate_s": gen_s, "load_s": load_s, "models": results}
+
+
+def phase_family_times(torch, dev, A, arrays, cfg) -> dict:
+    """16. res15 and cnn-trad-pool2: the eval forward at B=1 and 256, and a train step at B=64."""
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.models import find_config, find_model, init_weights, load_honk_checkpoint
+    from honk_tpu_torch.train import create_train_state, make_optimizer
+    from honk_tpu_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(SEED + 16)
+    audio = torch.from_numpy((rng.standard_normal((BATCH, 16000)) * 0.2).astype(np.float32)).to(dev)
+    out = {}
+    for conf in ("res15", "cnn-trad-pool2"):
+        model = load_honk_checkpoint(os.path.join(HARD_V2, f"{conf}.pt"), find_model(conf)(find_config(conf)))
+        model = model.to(dev).eval()
+        packed = model.eval_operands()
+        r = {}
+        with torch.inference_mode():
+            for b, iters in ((1, 100), (BATCH, 10)):
+                a = audio[:b].contiguous()
+                r[f"eval_forward_b{b}_ms"] = time_ms(torch, lambda: model(compute_mfccs(a), packed=packed), iters)
+            # One utterance as /listen sends it: the host clock of a synchronised
+            # forward, and the profiler's device view of the same calls.
+            a1 = audio[:1].contiguous()
+            r["eval_forward_b1_host"] = step_clocks(torch, lambda: model(compute_mfccs(a1), packed=packed), 20, 20)
+        for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            m = init_weights(find_model(conf)(find_config(conf), dtype=dtype), torch.Generator().manual_seed(SEED))
+            tx = make_optimizer(lrs=(0.01,), boundaries=())
+            state = create_train_state(m.to(dev), tx)
+            step = make_train_step(tx, TRAIN_BATCH, cfg)
+            step(state, SEED, arrays)  # warm up cuDNN's choices for these shapes
+            r[f"train_step_b{TRAIN_BATCH}_{dtype_name}"] = step_clocks(torch, lambda: step(state, SEED, arrays))
+        out[conf] = r
+    print("[family_times] eval_forward: MFCC + model, ms per call (CUDA events behind a spin kernel); "
+          "train step: step_wall host clock over 50 steps, device_ms and top_kernels_ms torch.profiler over 10: "
+          + json.dumps(out))
+    return out
 
 
 def profile_steps(torch, fn, n: int) -> dict:
@@ -400,7 +620,7 @@ def profile_steps(torch, fn, n: int) -> dict:
         kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / n
     device = sum(kernels.values())
     if device <= 0:
-        fail("torch.profiler recorded no device time for the train step")
+        fail("torch.profiler recorded no device time for the profiled calls")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_wall_ms": wall, "device_ms": device, "device_idle_share": max(0.0, 1 - device / wall),
             "device_kernels_per_step": len(records) / n,
@@ -419,6 +639,7 @@ def main() -> int:
     from honk_tpu_torch.frontend import filters as mfcc_filters
     from honk_tpu_torch.models import SpeechResModel, find_config
     from honk_tpu_torch.data import augment as A
+    from honk_tpu_torch.data import generate_dataset
     from honk_tpu_torch.ops import _build, assemble_kernel, mfcc_kernel, res_kernel
     from honk_tpu_torch.serve import LabelService, serve
 
@@ -541,44 +762,14 @@ def main() -> int:
     print(f"[service] evaluate_batch B={BATCH}: labels equal, logits max abs err {logit_err:.3e}")
 
     # 6. The main path: HTTP /listen through both kernels.
+    counters = {"assemble": assemble_kernel, "mfcc": mfcc_kernel, "res_stack": res_kernel}
     requests = [
         (rng.standard_normal(n) * 3000).astype(np.int16)
         for n in (16000, 12000, 20000, 16000, 8000, 16000, 24000, 16000)
     ]
-    mfcc_kernel.launches = 0
-    res_kernel.launches = 0
-    assemble_kernel.launches = 0
-    httpd = serve(svc, port=0)
-    port = httpd.server_address[1]
-    th = threading.Thread(target=httpd.serve_forever, daemon=True)
-    th.start()
-    try:
-        base = f"http://127.0.0.1:{port}"
-        with urllib.request.urlopen(f"{base}/labels", timeout=60) as r:
-            if json.loads(r.read())["labels"] != svc.labels:
-                fail("GET /labels: wrong labels")
-        answers, listen_s = [], []
-        for pcm in requests:
-            t0 = time.perf_counter()
-            answers.append(post_json(f"{base}/listen",
-                                     {"wav_data": base64.b64encode(pcm.tobytes()).decode()}))
-            listen_s.append(time.perf_counter() - t0)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        th.join(timeout=30)
-    launches = {"mfcc": mfcc_kernel.launches, "res_stack": res_kernel.launches,
-                "assemble": assemble_kernel.launches}
-    if th.is_alive():
-        fail("HTTP server thread did not stop")
+    listen_s, launches = listen(svc, cpu, requests, counters, serve)
     if launches != {"mfcc": N_LISTEN, "res_stack": N_LISTEN, "assemble": 0}:
         fail(f"/listen x{N_LISTEN} launched {launches}, expected {N_LISTEN} mfcc and res_stack, no assemble")
-    for pcm, ans in zip(requests, answers):
-        label, prob = cpu.evaluate(pcm.astype(np.float32) / 32768.0)
-        if ans["label"] != label or abs(ans["prob"] - prob) > PROB_ATOL:
-            fail(f"/listen answered {ans}, the CPU service ({label}, {prob})")
-        if ans["contains_command"] != (label not in ("__silence__", "__unknown__")):
-            fail(f"/listen contains_command wrong: {ans}")
     # The same utterances through LabelService.evaluate alone (no HTTP, JSON or
     # base64), to split the host time of a /listen between front end and service.
     evaluate_s = []
@@ -606,11 +797,39 @@ def main() -> int:
 
     # 8-11. The training path.
     assemble_err, arrays, aug = phase_assemble(torch, dev, A, assemble_kernel)
-    train_step_errs = phase_train_steps(torch, dev, A)
-    counters = {"assemble": assemble_kernel, "mfcc": mfcc_kernel, "res_stack": res_kernel}
+    train_step_errs = {"res8": phase_train_steps(torch, dev, A)}
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, epochs = phase_entry_point(torch, tmp, counters)
-    train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel, arrays, aug)
+        corpus = os.path.join(tmp, "corpus")
+        generate_dataset(corpus, clips_per_word=40, n_speakers=8)
+        train_launches, epochs = phase_entry_point(torch, corpus, tmp, counters)
+        train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel,
+                                                                 arrays, aug)
+
+        # 12-16. The rest of the model family, on cuDNN and cuBLAS between the kernels.
+        family_services, family_errs = phase_family_eval(torch, LabelService, counters, audio_np[:BATCH])
+        family_listen = {}
+        for conf in ("res15", "cnn-trad-pool2"):
+            gpu, cpu_svc = family_services[conf]
+            listen_ms, family_launches = listen(gpu, cpu_svc, requests[:N_LISTEN_FAMILY], counters, serve)
+            if family_launches != {"mfcc": N_LISTEN_FAMILY, "res_stack": 0, "assemble": 0}:
+                fail(f"{conf} /listen x{N_LISTEN_FAMILY} launched {family_launches}, "
+                     f"expected {N_LISTEN_FAMILY} mfcc, no res_stack or assemble")
+            evaluate_ms = []
+            for pcm in requests[:N_LISTEN_FAMILY]:
+                t0 = time.perf_counter()
+                gpu.evaluate(pcm.astype(np.float32) / 32768.0)
+                evaluate_ms.append((time.perf_counter() - t0) * 1e3)
+            family_listen[conf] = {"launches": family_launches, "host_ms": [t * 1e3 for t in listen_ms],
+                                   "evaluate_host_ms": evaluate_ms}
+        print(f"[family_listen] {N_LISTEN_FAMILY} requests per model answered like the CPU service; host ms per "
+              "request, then per evaluate() alone: " + json.dumps(family_listen))
+        hard_v2 = phase_hard_v2(torch, dev, counters, tmp)
+        family_train = {}
+        for conf, batch, flags in (("res15", 16, ()),
+                                   ("cnn-trad-pool2", TRAIN_BATCH, ("--lr", "0.003", "0.0003", "--schedule", "440"))):
+            train_step_errs[conf] = phase_train_steps(torch, dev, A, conf, batch)
+            family_train[conf] = phase_entry_point(torch, corpus, tmp, counters, conf, 1, flags)
+        family_times = phase_family_times(torch, dev, A, arrays, aug)
 
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
@@ -633,8 +852,15 @@ def main() -> int:
         return flops, nbytes
 
     # "launches" counts the training path's run (phase 10); "launches_listen"
-    # the serving path's 8 requests (phase 6). ms / plain_ms / bound_ms are at
-    # "batch"; the other keys give the other sizes of the two paths.
+    # the serving path's 8 requests (phase 6); "launches_by_path" every path
+    # the script drives with the counts set to 0 just before it. ms / plain_ms
+    # / bound_ms are at "batch"; the other keys give the other sizes of the paths.
+    by_path = {
+        "train_res8": train_launches, "listen_res8": launches,
+        **{f"listen_{c}": v["launches"] for c, v in family_listen.items()},
+        **{f"hard_v2_{c}": r["launches"] for c, r in hard_v2["models"].items()},
+        **{f"train_{c}": v[0] for c, v in family_train.items()},
+    }
     kernels = []
     for kname, src, replaces, work, err, tf32x3 in (
         ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work, mfcc_err, False),
@@ -645,7 +871,8 @@ def main() -> int:
         b1, by1 = bound(*work(1), name, tf32x3)
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train_launches[kname], "launches_listen": launches[kname], "max_abs_err": err,
+            "launches": train_launches[kname], "launches_listen": launches[kname],
+            "launches_by_path": {p: v[kname] for p, v in by_path.items()}, "max_abs_err": err,
             "ms": times[BATCH][kname], "plain_ms": times[BATCH][kname + "_plain"],
             "bound_ms": b256, "bound_by": by, "library_ms": None, "batch": BATCH,
             "ms_b1": times[1][kname], "plain_ms_b1": times[1][kname + "_plain"],
@@ -659,7 +886,8 @@ def main() -> int:
     kernels.append({
         "name": "assemble", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/assemble.cu",
         "replaces": "honk_tpu/ops/assemble_kernel.py:122", "launches": train_launches["assemble"],
-        "launches_listen": launches["assemble"], "max_abs_err": assemble_err,
+        "launches_listen": launches["assemble"],
+        "launches_by_path": {p: v["assemble"] for p, v in by_path.items()}, "max_abs_err": assemble_err,
         "ms": train_times["assemble_b64"], "plain_ms": train_times["assemble_plain_b64"],
         "bound_ms": a64, "bound_by": aby64, "library_ms": None, "batch": TRAIN_BATCH,
         "ms_b1024": train_times["assemble_b1024"], "plain_ms_b1024": train_times["assemble_plain_b1024"],
@@ -668,7 +896,10 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "listen_host_ms": [s * 1e3 for s in listen_s],
                       "evaluate_host_ms": [s * 1e3 for s in evaluate_s],
                       "train_steps_cuda_vs_cpu": train_step_errs,
-                      "train_epochs": epochs, "train_step_b64_ms": step_times}))
+                      "train_epochs": epochs, "train_step_b64_ms": step_times,
+                      "family_eval_logit_err": family_errs, "family_listen": family_listen, "hard_v2": hard_v2,
+                      "family_train_epochs": {c: v[1] for c, v in family_train.items()},
+                      "family_times": family_times}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -8,8 +8,10 @@ the latest. Files in a checkpoint directory:
 
 - ``step_XXXXXXXX.pt``: a resume payload. Written to a temporary name and
   renamed, so a half-written file is never taken for the latest.
-- ``best.pt``: a honk state dict (``conv{i}.weight``, ``bn{i}.running_*``,
-  ``output.*``), which ``LabelService`` and ``--input_file`` load.
+- ``best.pt``: a honk state dict (res: ``conv{i}.weight``,
+  ``bn{i}.running_*``, ``output.*``; cnn: ``conv1.*``, ``conv2.*``,
+  ``lin.*``, ``dnn1.*``, ``dnn2.*``, ``output.*``, weights and biases, no
+  BN), which ``LabelService`` and ``--input_file`` load.
 
 Everything is saved from CPU copies and loaded with ``weights_only=True``
 (tensors, numbers, strings and dicts; no pickled code). The JAX package's

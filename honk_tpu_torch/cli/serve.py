@@ -4,6 +4,10 @@ Counterpart of ``python -m honk_tpu.cli.serve``:
 
     python -m honk_tpu_torch.cli.serve --model res8 --checkpoint zoo/res8.pt \\
         [--port 16888] [--config config.json] [--device cuda|cpu]
+    python -m honk_tpu_torch.cli.serve --model res15 --checkpoint zoo_hard_v2/res15.pt
+    python -m honk_tpu_torch.cli.serve --model cnn-trad-pool2 --checkpoint zoo/cnn-trad-pool2.pt
+
+``--model`` is any of the 16 configs (res*, cnn-*).
 
 --config accepts a reference-style config.json with keys
 {"model_path": ..., "commands": "cmd1,cmd2,..."}. The checkpoint is a honk

@@ -6,11 +6,15 @@
     python -m honk_tpu_torch.cli.train --type eval --model res8 \\
         --data_dir data/speech_dataset --input_file ckpts/res8/best.pt
 
-Runs on ``--device cuda`` (the default; it raises where no CUDA device is
-present) or ``--device cpu``. ``--compute_dtype bfloat16`` (the default)
-runs the training convolutions with bf16 operands; ``float32`` is the
-parity mode and turns TF32 off. A train run writes ``<output_dir>/best.pt``
-(a honk state dict) and ``step_XXXXXXXX.pt`` resume checkpoints.
+``--model`` is any of the 16 configs: res8, res15, res26 and their
+-narrow forms, and the ten cnn-* (cnn-trad-pool2's recorded recipe is
+``--lr 0.003 0.0003 --schedule 440``). Runs on ``--device cuda`` (the
+default; it raises where no CUDA device is present) or ``--device cpu``.
+``--compute_dtype bfloat16`` (the default) runs the training convolutions
+(and a CNN's hidden dense layers) with bf16 operands; ``float32`` is the
+parity mode. TF32 is off either way. A train run writes
+``<output_dir>/best.pt`` (a honk state dict) and ``step_XXXXXXXX.pt``
+resume checkpoints.
 
 Refused, each naming its ROADMAP.md item, until the port has them:
 ``--coordinator`` / ``--process-id`` / ``--num-processes`` and
@@ -54,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_batch_size", type=int, default=t.eval_batch_size)
     p.add_argument(
         "--compute_dtype", choices=["bfloat16", "float32"], default=t.compute_dtype,
-        help="operand dtype of the training convolutions (float32 = strict parity mode)",
+        help="operand dtype of the training convs and hidden dense layers (float32 = strict parity mode)",
     )
     p.add_argument(
         "--steps_per_call", type=int, default=t.steps_per_call,

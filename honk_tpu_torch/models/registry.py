@@ -165,7 +165,7 @@ _configs: dict[ConfigType, dict[str, Any]] = {
     # Residual family (Tang & Lin, ICASSP 2018). conv0 3x3 bias-free, then
     # n_layers 3x3 bias-free convs with identity residual every 2 layers and
     # per-layer affine-free BatchNorm; res8/res26 average-pool after conv0;
-    # res15 uses dilation 2^(i//3).
+    # res15 uses dilation 2^((i-1)//3) on layer i (models/res.py).
     ConfigType.RES8: dict(
         n_labels=12, n_layers=6, n_feature_maps=45, res_pool=(4, 3), use_dilation=False
     ),
@@ -193,17 +193,11 @@ def find_config(conf: ConfigType | str) -> dict[str, Any]:
 
 
 def find_model(conf: ConfigType | str):
-    """The ``nn.Module`` class for a model type.
-
-    The cnn-* family is not in the port yet and raises ``NotImplementedError``.
-    """
+    """The ``nn.Module`` class for a model type: ``SpeechModel`` for cnn-*,
+    ``SpeechResModel`` for res*; both are built as ``cls(config, dtype=None)``."""
+    from .cnn import SpeechModel
     from .res import SpeechResModel
 
     if isinstance(conf, str):
         conf = ConfigType(conf)
-    if not conf.value.startswith("res"):
-        raise NotImplementedError(
-            f"{conf.value}: the cnn-* family comes with the port's model-family "
-            "slice (res15 / res26 / cnn-*, ROADMAP.md §1.4)"
-        )
-    return SpeechResModel
+    return SpeechResModel if conf.value.startswith("res") else SpeechModel

@@ -2,21 +2,28 @@
 
 Architecture per layer i in 0..n_layers (reference ``utils/model.py::SpeechResModel``):
 
-    y = relu(conv_i(x))            # 3x3, bias-free
+    y = relu(conv_i(x))            # 3x3, bias-free; res15: dilation d = 2**((i-1)//3), padding d
     i == 0: optional avg-pool (res8: 4x3, res26: 2x2); old_x = y
     i  > 0 and i even: x = y + old_x; old_x = x      (identity residual)
     else:              x = y
     i  > 0: x = batchnorm_i(x)     # affine-free, AFTER the add
 
 then the global mean over (time, freq) and a Dense(n_maps -> n_labels).
+res15's dilation follows the JAX package's code (``honk_tpu/models/res.py:63``,
+``(i - 1) // 3``: layers 1-3 take 1, ..., 10-12 take 8, 13 takes 16), not
+its comments (``2^(i//3)``).
 
 Parameter names are honk's state-dict names (``conv{i}.weight``,
 ``bn{i}.running_mean`` / ``running_var``, ``output.weight`` / ``bias``), so
 a honk ``.pt`` loads with no converter (``torch_compat``).
 
-The eval forward (``model.eval()``) runs conv0, ReLU and the pool as
-PyTorch ops (the JAX package leaves them to XLA outside its kernel too) and
-the rest through the res-stack kernel's wrapper, in float32.
+The eval forward (``model.eval()``) is float32. For res8 and res26 it runs
+conv0, ReLU and the pool as PyTorch ops (the JAX package leaves them to XLA
+outside its kernel too) and the rest through the res-stack kernel's
+wrapper. The kernel takes no dilated convs (nor does the TPU's), so res15
+runs every conv through cuDNN, with BN from the running statistics folded
+as the kernel's operands fold it (``fold_bn``); ``use_full_f32`` keeps those
+convs out of TF32.
 
 The training forward (``model.train()``) is plain PyTorch with autograd:
 the convolutions go through cuDNN (the JAX package has no Pallas kernel for
@@ -26,19 +33,19 @@ the biased batch variance as ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5,
 in float32, and running statistics updated by hand,
 ``r = 0.9 * r + 0.1 * batch`` with the *biased* variance (``nn.BatchNorm2d``
 would use the unbiased one). Params, BN, the mean, the Dense and the loss
-stay float32. res15's dilated convolutions come with a later slice.
+stay float32.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.res_kernel import BN_EPS, pack_res_params, res_stack
+from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_stack
+from .layers import conv
 
 BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batch
 
@@ -53,55 +60,58 @@ class SpeechResModel(nn.Module):
     def __init__(self, config: dict[str, Any], dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype or torch.float32
-        if config.get("use_dilation"):
-            raise NotImplementedError(
-                "dilated res models (res15, res15-narrow) come with the port's "
-                "model-family slice (res15 / res26 / cnn-*, ROADMAP.md)"
-            )
         self.n_maps = config["n_feature_maps"]
         self.n_layers = config["n_layers"]
         self.pool = tuple(config["res_pool"]) if "res_pool" in config else None
+        self.dilated = bool(config.get("use_dilation", False))
         self.conv0 = nn.Conv2d(1, self.n_maps, 3, padding=1, bias=False)
         for i in range(1, self.n_layers + 1):
-            self.add_module(f"conv{i}", nn.Conv2d(self.n_maps, self.n_maps, 3, padding=1, bias=False))
+            d = 2 ** ((i - 1) // 3) if self.dilated else 1
+            self.add_module(f"conv{i}", nn.Conv2d(self.n_maps, self.n_maps, 3, padding=d, dilation=d, bias=False))
             self.add_module(f"bn{i}", nn.BatchNorm2d(self.n_maps, affine=False))
         self.output = nn.Linear(self.n_maps, config["n_labels"])
 
-    def stem(self, x: torch.Tensor) -> torch.Tensor:
+    def eval_operands(self) -> tuple[torch.Tensor, ...]:
+        """What the eval forward takes from the weights, to prepare once per set
+        of weights: the res-stack kernel's operands (``pack_res_params``), or
+        for a dilated config the BN fold (``fold_bn``)."""
+        return fold_bn(self) if self.dilated else pack_res_params(self)
+
+    def stem(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """conv0 -> ReLU -> pool: (B, 101, 40) -> (B, C, H, W), the res stack's input."""
-        y = F.relu(self.conv0(x[:, None]))
+        y = F.relu(conv(self.conv0, x[:, None], dtype))
         if self.pool is not None:
             y = F.avg_pool2d(y, self.pool)
         return y.contiguous()
 
-    def forward(self, x: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None) -> torch.Tensor:
-        """Logits. Eval mode: ``packed`` is ``pack_res_params(self)``, computed here if None.
+    def forward(self, x: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None,
+                dropout: Any = None) -> torch.Tensor:
+        """Logits. Eval mode: ``packed`` is ``eval_operands()``, computed here if None.
 
-        Training mode also updates the BN running statistics in place.
+        Training mode also updates the BN running statistics in place. The
+        res family has no dropout: ``dropout`` (a CNN's keep masks or their
+        generator) is accepted and unused, so every model trains through one call.
         """
         if self.training:
-            return self._train_forward(x)
+            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}")))
         if packed is None:
-            packed = pack_res_params(self)
-        return res_stack(self.stem(x), *packed)
+            packed = self.eval_operands()
+        if not self.dilated:
+            return res_stack(self.stem(x), *packed)
+        scale, offset = (t[:, :, None, None] for t in packed)
+        return self._stack(x, torch.float32, lambda i, y: y * scale[i - 1] + offset[i - 1])
 
-    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype == torch.float32:
-            return conv(x)
-        return F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype), padding=1).float()
-
-    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self._conv(self.conv0, x[:, None]))
-        if self.pool is not None:
-            y = F.avg_pool2d(y, self.pool)
-        x = old = y
+    def _stack(self, x: torch.Tensor, dtype: torch.dtype,
+               norm: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """The whole model as PyTorch ops, convs in ``dtype``, BN of layer i as ``norm(i, x)``."""
+        x = old = self.stem(x, dtype)
         for i in range(1, self.n_layers + 1):
-            y = F.relu(self._conv(getattr(self, f"conv{i}"), x))
+            y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype))
             if i % 2 == 0:
                 x = old = y + old
             else:
                 x = y
-            x = batch_norm_train(x, getattr(self, f"bn{i}"))
+            x = norm(i, x)
         return self.output(x.mean(dim=(2, 3)))
 
 
@@ -113,26 +123,3 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     return (x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
-
-
-@torch.no_grad()
-def init_weights(model: SpeechResModel, generator: torch.Generator) -> SpeechResModel:
-    """The JAX package's initialisation, drawn from ``generator``.
-
-    Conv and Dense kernels: uniform in +-1/sqrt(fan_in) (flax's
-    ``variance_scaling(1/3, "fan_in", "uniform")``, which is also torch's
-    default for these layers); Dense bias 0 (flax's default); BN running
-    mean 0, variance 1.
-    """
-    for name, p in model.named_parameters():
-        if name.endswith("weight"):
-            bound = 1.0 / math.sqrt(p[0].numel())
-            p.copy_(torch.rand(p.shape, generator=generator, device=generator.device) * (2 * bound) - bound)
-        else:
-            p.zero_()
-    for name, b in model.named_buffers():
-        if name.endswith("running_mean"):
-            b.zero_()
-        elif name.endswith("running_var"):
-            b.fill_(1.0)
-    return model

@@ -11,7 +11,8 @@ PyTorch: the input is the pooled activation ``(B, C, H, W)`` (res8:
 ``(B, 45, 25, 13)``), the output ``(B, n_labels)`` logits. Any batch size,
 ``C <= 64``, any layer count, and maps whose rows split into at most 8
 bands that each fit the kernel (``cluster_size``): res8, res8-narrow, res26
-and res26-narrow. res15's dilated convs are not covered, as on the TPU.
+and res26-narrow. res15's dilated convs are not covered, as on the TPU:
+``SpeechResModel`` runs them through cuDNN.
 
 ``res_stack`` is the wrapper: on CUDA tensors it launches the kernel (or
 raises), on CPU tensors it runs ``res_stack_plain``, the same function as
@@ -45,22 +46,13 @@ SMEM_LIMIT = 232_448 - 4 * (MAX_CLUSTER + 3) * MAX_MAPS
 
 
 @torch.no_grad()
-def pack_res_params(model: torch.nn.Module) -> tuple[torch.Tensor, ...]:
-    """Fold a res model's eval-mode weights into the kernel's operands.
+def fold_bn(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
+    """A res model's eval-mode BN as ``(scale (L, C), offset (L, C))``.
 
-    Returns ``(w_all (L, 9C, C), bn_scale (L, C), bn_offset (L, C),
-    dense_w (C, n_labels), dense_b (n_labels,))`` on the model's device.
-    ``w_all`` is tap-major like the TPU packer's: row ``(dy*3 + dx)*C + ic``,
-    column ``oc``. BN is affine-free: ``scale = 1/sqrt(var + 1e-5)``,
-    ``offset = -mean * scale``.
+    BN is affine-free: ``scale = 1/sqrt(var + 1e-5)``, ``offset = -mean * scale``.
     """
-    n_layers = model.n_layers
-    w_all = torch.stack([
-        getattr(model, f"conv{i}").weight.permute(2, 3, 1, 0).reshape(-1, model.n_maps)
-        for i in range(1, n_layers + 1)
-    ])
     scales, offsets = [], []
-    for i in range(1, n_layers + 1):
+    for i in range(1, model.n_layers + 1):
         bn = getattr(model, f"bn{i}")
         # sqrt in float64, then rounded: PyTorch's vectorized float32 CPU sqrt
         # is off by one ulp for some inputs, the IEEE (numpy, CUDA) one is not.
@@ -68,10 +60,25 @@ def pack_res_params(model: torch.nn.Module) -> tuple[torch.Tensor, ...]:
         s = 1.0 / root
         scales.append(s)
         offsets.append(-bn.running_mean * s)
+    return torch.stack(scales).contiguous(), torch.stack(offsets).contiguous()
+
+
+@torch.no_grad()
+def pack_res_params(model: torch.nn.Module) -> tuple[torch.Tensor, ...]:
+    """Fold a res model's eval-mode weights into the kernel's operands.
+
+    Returns ``(w_all (L, 9C, C), bn_scale (L, C), bn_offset (L, C),
+    dense_w (C, n_labels), dense_b (n_labels,))`` on the model's device.
+    ``w_all`` is tap-major like the TPU packer's: row ``(dy*3 + dx)*C + ic``,
+    column ``oc``. The BN fold is ``fold_bn``'s.
+    """
+    w_all = torch.stack([
+        getattr(model, f"conv{i}").weight.permute(2, 3, 1, 0).reshape(-1, model.n_maps)
+        for i in range(1, model.n_layers + 1)
+    ])
     return (
         w_all.contiguous(),
-        torch.stack(scales).contiguous(),
-        torch.stack(offsets).contiguous(),
+        *fold_bn(model),
         model.output.weight.t().contiguous(),
         model.output.bias.detach().clone(),
     )

@@ -2,10 +2,13 @@
 
 Counterpart of ``honk_tpu.serve.service.LabelService`` (reference
 ``service.py::LabelService``): ``evaluate(audio)`` trims/pads to 1 s, runs
-MFCC + classifier, softmax, argmax. On ``cuda`` (the default) the forward
-is the fused MFCC kernel, conv0 + pool in PyTorch, and the res-stack
-kernel. It takes honk ``.pt`` checkpoints; the Orbax loader, long-audio
-evaluation, streaming and ``TrainingService`` come with later slices.
+MFCC + classifier, softmax, argmax, for any of the 16 model configs. On
+``cuda`` (the default) the forward is the MFCC kernel, then the model's
+eval forward: for res8 / res26 conv0 + pool in PyTorch and the res-stack
+kernel, for res15 and cnn-* cuDNN convs and cuBLAS dense layers, all in
+float32 with TF32 off. It takes honk ``.pt`` checkpoints; the Orbax
+loader, long-audio evaluation, streaming and ``TrainingService`` come with
+later slices.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from ..audio import AudioSnippet
 from ..data import DEFAULT_WANTED_WORDS, LABEL_SILENCE, LABEL_UNKNOWN
 from ..frontend import compute_mfccs
 from ..models import find_config, find_model, load_honk_checkpoint
-from ..ops import pack_res_params
 
 
 def default_labels(wanted_words: Sequence[str] = DEFAULT_WANTED_WORDS) -> list[str]:
@@ -44,14 +46,14 @@ class LabelService:
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
-        use_full_f32()  # conv0 is a cuDNN convolution: keep it out of TF32
+        use_full_f32()  # cuDNN convolutions and dense layers: keep them out of TF32
         cfg = find_config(model_name)
         self.labels = list(labels or default_labels())
         cfg["n_labels"] = len(self.labels)
         self.model = find_model(model_name)(cfg)
         load_honk_checkpoint(checkpoint, self.model)
         self.model.to(self.device).eval()
-        self._packed = pack_res_params(self.model)
+        self._packed = self.model.eval_operands()
         self._lock = threading.Lock()
 
     def logits(self, audio: np.ndarray) -> torch.Tensor:

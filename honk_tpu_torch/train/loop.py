@@ -29,8 +29,7 @@ from ..config import ExperimentConfig
 from ..data import AugmentConfig, load_speech_commands, prepare_train_arrays
 from ..data.dataset import PackedDataset, PackedSplit
 from ..metrics import MetricsLogger
-from ..models import find_config, find_model, load_honk_checkpoint, load_state_dict
-from ..models.res import init_weights
+from ..models import find_config, find_model, init_weights, load_honk_checkpoint, load_state_dict
 from .state import create_train_state, make_optimizer
 from .steps import make_eval_sweep, make_train_scan
 
@@ -77,17 +76,18 @@ def train(
 ) -> dict[str, Any]:
     """Full training run. Returns {'state', 'best', 'best_dev_acc', 'test_acc', 'model', 'dataset'}.
 
-    ``device`` defaults to cuda (and raises without one). With
-    ``compute_dtype="float32"`` the run is the parity mode and turns TF32
-    off (``use_full_f32``). ``cfg.train.input_file`` (a honk ``.pt``)
+    ``device`` defaults to cuda (and raises without one). Any model of the
+    registry trains. ``compute_dtype`` is the operand dtype of the training
+    convs (and a CNN's hidden dense layers); ``float32`` is the parity
+    mode. TF32 is off either way (``use_full_f32``): what runs in float32,
+    the eval sweeps included, stays float32. ``cfg.train.input_file`` (a honk ``.pt``)
     warm-starts the weights. With ``checkpoint_dir``: a step checkpoint
     every ``save_every_epochs`` epochs and at the end, and resume from the
     latest when ``resume``.
     """
     device = resolve_device(device)
     dtype = COMPUTE_DTYPES[cfg.train.compute_dtype]
-    if dtype == torch.float32:
-        use_full_f32()
+    use_full_f32()
     logger = logger or MetricsLogger()
     if dataset is None:
         dataset = _load_dataset(cfg)

@@ -1,11 +1,16 @@
 """Train and eval steps on one device (counterpart of ``honk_tpu.train.steps``).
 
 A train step is: draw the batch on the device from the step's generator,
-assemble it (assembly kernel), MFCC (MFCC kernel), the training forward,
-the mean cross-entropy, backward (cuDNN through autograd), and the SGD
-update. The only host-to-device traffic per step is the generator's seed;
-the packed corpus stays on the device for the whole run. Eval sweeps run
-the MFCC kernel and the res-stack kernel on fixed-size batches.
+assemble it (assembly kernel), MFCC (MFCC kernel), the training forward
+(its dropout masks, for a CNN, drawn from the same generator after the
+batch), the mean cross-entropy, backward (cuDNN through autograd), and the
+SGD update. The only host-to-device traffic per step is the generator's
+seed; the packed corpus stays on the device for the whole run. Eval sweeps
+run the MFCC kernel and the model's eval forward (res8 / res26: the
+res-stack kernel) on fixed-size batches, with the model's eval operands
+(``model.eval_operands()``) prepared once per sweep. Every model trains
+and evaluates through the same calls; a model without BN (cnn-*) has no
+running statistics to update, as the JAX step's ``has_bn``.
 
 PyTorch runs eagerly, so there is nothing to compile: a "scan" of N steps
 is a Python loop (graph capture of it is ROADMAP.md §1.3's open item).
@@ -22,7 +27,6 @@ import torch.nn.functional as F
 
 from ..data.augment import AugmentConfig, TrainArrays, eval_batch, sample_train_batch, step_generator
 from ..frontend.mfcc import compute_mfccs
-from ..ops import pack_res_params
 from .state import SGD, TrainState
 
 
@@ -30,34 +34,36 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig):
     """Build the train step.
 
     ``step(state, key, arrays) -> (state, {"loss", "acc"})``: the batch of
-    step ``state.step`` is drawn from ``step_generator(key, state.step)``
-    (JAX: ``fold_in(key, state.step)``), so it depends on the key and the
-    step count alone. ``step.apply_batch(state, audio, labels)`` is the
-    same step on a given batch (tests feed it the JAX package's batches),
-    and ``step.apply_features(state, feats, labels)`` the step after the
-    MFCC: forward, loss, backward and update.
+    step ``state.step`` and then the model's dropout masks are drawn from
+    ``step_generator(key, state.step)`` (JAX: ``fold_in(key, state.step)``),
+    so they depend on the key and the step count alone.
+    ``step.apply_batch(state, audio, labels, dropout)`` is the same step on
+    a given batch and ``dropout`` (the keep masks, or a generator to draw
+    them from; tests feed it the JAX package's batches and masks), and
+    ``step.apply_features(state, feats, labels, dropout)`` the step after
+    the MFCC: forward, loss, backward and update.
     """
 
-    def apply_features(state: TrainState, feats: torch.Tensor, labels: torch.Tensor):
+    def apply_features(state: TrainState, feats: torch.Tensor, labels: torch.Tensor, dropout=None):
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
-        logits = model(feats)
+        logits = model(feats, dropout=dropout)
         loss = F.cross_entropy(logits, labels)
         loss.backward()
         tx.apply(state)
         acc = (logits.detach().argmax(dim=-1) == labels).float().mean()
         return state, {"loss": loss.detach(), "acc": acc}
 
-    def apply_batch(state: TrainState, audio: torch.Tensor, labels: torch.Tensor):
+    def apply_batch(state: TrainState, audio: torch.Tensor, labels: torch.Tensor, dropout=None):
         with torch.no_grad():
             feats = compute_mfccs(audio)
-        return apply_features(state, feats, labels)
+        return apply_features(state, feats, labels, dropout)
 
     def train_step(state: TrainState, key: int, arrays: TrainArrays):
         gen = step_generator(key, state.step, arrays.pool.device)
         audio, labels = sample_train_batch(gen, arrays, batch_size, aug_cfg)
-        return apply_batch(state, audio, labels)
+        return apply_batch(state, audio, labels, dropout=gen)
 
     train_step.apply_batch = apply_batch
     train_step.apply_features = apply_features
@@ -88,8 +94,9 @@ def make_eval_sweep(batch_size: int) -> Callable:
 
     ``sweep(model, audio_i16, labels) -> (correct, total)`` device scalars:
     ``ceil(n / B)`` fixed-size batches (``eval_batch``, the tail masked),
-    each one MFCC kernel launch and one res-stack kernel launch, counts
-    accumulated on the device. The model is put in eval mode.
+    each one MFCC kernel launch and one eval forward (res8 / res26: one
+    res-stack kernel launch), counts accumulated on the device. The model
+    is put in eval mode.
     """
 
     eval_step = make_eval_step()
@@ -97,7 +104,7 @@ def make_eval_sweep(batch_size: int) -> Callable:
     @torch.no_grad()
     def sweep(model, audio_i16: torch.Tensor, labels: torch.Tensor):
         model.eval()
-        packed = pack_res_params(model)
+        packed = model.eval_operands()
         n = audio_i16.shape[0]
         correct = torch.zeros((), dtype=torch.int64, device=audio_i16.device)
         total = torch.zeros_like(correct)
@@ -112,7 +119,7 @@ def make_eval_sweep(batch_size: int) -> Callable:
 
 def make_eval_step() -> Callable:
     """``eval_step(model, audio_f32, labels, valid, packed=None) -> (n_correct, n_valid)``
-    device scalars; ``packed`` is ``pack_res_params(model)``, computed if None."""
+    device scalars; ``packed`` is ``model.eval_operands()``, computed if None."""
 
     @torch.no_grad()
     def eval_step(model, audio, labels, valid, packed=None):

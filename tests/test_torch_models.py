@@ -1,7 +1,8 @@
-"""Port's model registry and checkpoint loading against the JAX package, on the CPU."""
+"""Port's model registry, eval forwards and checkpoint loading against the JAX package, on the CPU."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from honk_tpu.models import flax_to_torch_state_dict
 from honk_tpu.models import load_honk_checkpoint as jload_honk_checkpoint
 from honk_tpu_torch.models import (
     ConfigType,
+    SpeechModel,
     SpeechResModel,
     find_config,
     find_model,
@@ -34,22 +36,50 @@ def test_find_config_equal_for_every_config_type():
         assert find_config(c) == jfind_config(c.value), c.value
 
 
+def _flax_init(conf, seed=0):
+    """A flax model at full precision and its variables from a seed, with
+    randomized BN statistics where it has BN, as numpy arrays."""
+    model = jfind_model(conf)(config=jfind_config(conf), precision="highest")
+    init = jax.jit(lambda k: model.init(k, jnp.zeros((1, 101, 40), jnp.float32), train=False))
+    variables = jax.tree.map(np.asarray, dict(init(jax.random.PRNGKey(seed))))
+    rng = np.random.default_rng(seed)
+    if "batch_stats" in variables:
+        variables["batch_stats"] = {
+            k: {"mean": rng.normal(0, 0.1, v["mean"].shape).astype(np.float32),
+                "var": (rng.random(v["var"].shape) * 0.5 + 0.5).astype(np.float32)}
+            for k, v in variables["batch_stats"].items()
+        }
+    return model, variables
+
+
+def _eval_logits_match_jax(conf):
+    """Eval logits of the port against flax on the same random weights and
+    features, within the reference's checkpoint gate (2e-4)."""
+    fmodel, variables = _flax_init(conf)
+    feats = (np.random.default_rng(1).standard_normal((3, 101, 40)) * 3).astype(np.float32)
+    ref = np.asarray(fmodel.apply(variables, jnp.asarray(feats), train=False))
+    model = load_state_dict(find_model(conf)(find_config(conf)), from_flax_variables(variables)).eval()
+    with torch.no_grad():
+        got = model(torch.from_numpy(feats)).numpy()
+    assert np.abs(ref).max() > 1e-3  # the weights reach the logits
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=0)
+
+
 @pytest.mark.parametrize("conf", ["res15", "res15-narrow"])
-def test_dilated_res_models_not_ported_yet(conf):
-    with pytest.raises(NotImplementedError, match="res15"):
-        find_model(conf)(find_config(conf))
+def test_dilated_res_eval_logits_match_jax(conf):
+    assert find_model(conf) is SpeechResModel
+    _eval_logits_match_jax(conf)
 
 
 @pytest.mark.parametrize("conf", [c.value for c in ConfigType if c.value.startswith("cnn")])
-def test_cnn_models_not_ported_yet(conf):
-    with pytest.raises(NotImplementedError, match="cnn"):
-        find_model(conf)
+def test_cnn_eval_logits_match_jax(conf):
+    assert find_model(conf) is SpeechModel
+    _eval_logits_match_jax(conf)
 
 
-def test_training_forward_not_ported_yet():
-    """The training forward is ported now (tests/test_torch_train.py holds it
-    against flax): in training mode a forward gives logits and moves the BN
-    running statistics, where it used to raise."""
+def test_training_forward_moves_bn_statistics():
+    """In training mode a forward gives logits with a gradient and moves the
+    BN running statistics (tests/test_torch_train.py holds it against flax)."""
     model = SpeechResModel(find_config("res8-narrow"))  # nn.Modules start in training mode
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 101, 40)).astype(np.float32))
     logits = model(x)

@@ -36,7 +36,7 @@ from honk_tpu.train import state as JS
 from honk_tpu.train import steps as JT
 from honk_tpu_torch.data import augment as A
 from honk_tpu_torch.models import SpeechResModel, find_config, from_flax_variables, load_state_dict
-from honk_tpu_torch.models.res import init_weights
+from honk_tpu_torch.models import init_weights
 from honk_tpu_torch.train import create_train_state, lr_ladder, make_optimizer
 from honk_tpu_torch.frontend import compute_mfccs
 from honk_tpu_torch.train.steps import make_eval_step, make_eval_sweep, make_forward, make_train_scan, make_train_step
