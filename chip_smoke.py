@@ -68,7 +68,30 @@ which runs on cuDNN and cuBLAS between the MFCC and assembly kernels:
 16. timings for res15 and cnn-trad-pool2: the eval forward (MFCC + model)
     at B=1 and B=256 with CUDA events, and one train step at B=64 in
     float32 and bf16 on the host clock (50 steps) and as device time,
-    kernels per step and idle share (torch.profiler, 10 steps).
+    kernels per step and idle share (torch.profiler, 10 steps);
+
+then streaming, on the ground-truth track of tests/test_stream.py (60 s of
+noise with six keywords planted at known positions, zoo/res8.pt):
+
+17. the MFCC kernel's causal framing (the online step) against its plain
+    version at 8 x (480 + 3200), 1 x (480 + 160) and 64 x (480 + 16000), and
+    its center framing on one 60 s and one 10 min waveform; times and bounds;
+18. offline: LabelService.evaluate_long and stream_file on the track, cuda
+    against cpu (smoothed within 1e-4, equal events, the planted positions),
+    exactly one mfcc and one res_stack launch; POST /stream against the CPU
+    service; a 10 min track on cuda (wall time, audio-s per s); the res stack
+    at B=8 and at B = the 10 min track's windows, against plain and timed;
+19. online: a Streamer over the track on cuda against the CPU, chunk by
+    chunk, one mfcc and one res_stack launch a step;
+20. the stream hub over HTTP with the serving CLI's defaults (8 slots,
+    3200-sample chunks, 2 ms coalescing), one session on the track and seven
+    on noise, run four times (sync, pipelined, the int16 wire, push_bin):
+    every answer equal to a CPU hub's on the same chunks, the planted
+    keywords found and no event on the noise; host ms per tick and per push
+    (the first on a new keep-alive connection apart), device ms and kernels
+    per tick (torch.profiler over 20 ticks), launches per tick;
+21. res15 and cnn-trad-pool2 through stream_file and a 3-slot BatchStreamer
+    on the track (60 steps), cuda against cpu.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -128,6 +151,17 @@ ASSEMBLE_ATOL = 1e-6
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)
 TRAIN_BATCH = 64
+# Streaming (phases 17-21): the ground-truth track of tests/test_stream.py,
+# keywords planted at known positions in 60 s of noise, and its detection
+# config; smoothed posteriors cuda against cpu within 1e-4 (probabilities
+# from logits within the 2e-4 gate, averaged).
+STREAM_KEYWORDS = ("yes", "stop", "go", "left", "no", "right")
+STREAM_CFG = dict(min_gap_windows=10, smoothing_window=3, detection_threshold=0.6)
+STREAM_ATOL = 1e-4
+CHUNK = 3200  # 200 ms, the serving CLI's default
+HUB_SLOTS = 8  # the serving CLI's default
+LONG_TRACK_S = 600  # the offline phase's long track: 10 min
+FAMILY_STREAM_STEPS = 60  # res15 / cnn BatchStreamer steps (12 s of the track): the CPU side is the slow one
 
 
 def fail(msg: str) -> None:
@@ -600,8 +634,12 @@ def phase_family_times(torch, dev, A, arrays, cfg) -> dict:
     return out
 
 
-def profile_steps(torch, fn, n: int) -> dict:
-    """Device time per call from torch.profiler's kernel records, and the busiest kernels."""
+def profile_steps(torch, fn, n: int, required: bool = True) -> dict:
+    """Device time per call from torch.profiler's kernel records, and the busiest kernels.
+
+    With ``required=False`` a window with no device record gives ``device_ms``
+    None ("not measured") instead of failing: the hub's kernels are launched
+    from the HTTP server's threads, not the profiling one."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -620,11 +658,465 @@ def profile_steps(torch, fn, n: int) -> dict:
         kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3 / n
     device = sum(kernels.values())
     if device <= 0:
+        if not required:
+            return {"profiled_wall_ms": wall, "device_ms": None, "device_idle_share": None,
+                    "device_kernels_per_step": 0, "top_kernels_ms": []}
         fail("torch.profiler recorded no device time for the profiled calls")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"profiled_wall_ms": wall, "device_ms": device, "device_idle_share": max(0.0, 1 - device / wall),
             "device_kernels_per_step": len(records) / n,
             "top_kernels_ms": [[name[:60], ms] for name, ms in top]}
+
+
+def mfcc_work(n_frames: int, n_samples: int) -> tuple[float, float]:
+    """(operations, bytes) the MFCC function needs for ``n_frames`` frames of
+    ``n_samples`` input samples, whatever the kernel does: per frame the Hann
+    window, a real FFT of 480 points (2.5 N log2 N), |X|^2 of 241 bins, the mel
+    filters' nonzero taps, 40 logs and the 40x40 DCT. Bytes: audio in, MFCCs
+    out, the window, the mel taps and the DCT."""
+    from honk_tpu_torch.frontend import filters
+
+    mel_taps = int(np.count_nonzero(filters.frontend_constants(np.float32)["mel"]))
+    per_frame = 480 + 2.5 * 480 * math.log2(480) + 3 * 241 + 2 * mel_taps + 40 + 2 * 40 * 40
+    nbytes = 4 * (n_samples + n_frames * 40 + 480 + mel_taps + 40 * 40)
+    return n_frames * per_frame, nbytes
+
+
+def res_work(b: int, C: int, H: int, W: int, L: int, n_lab: int) -> tuple[float, float]:
+    """(operations, bytes) of the res stack at batch ``b``: the convs' products,
+    the dense layer; the pooled input, the weights and the logits."""
+    flops = 2 * b * L * H * W * 9 * C * C + 2 * b * C * n_lab
+    nbytes = 4 * (b * C * H * W + L * 9 * C * C + 2 * L * C + C * n_lab + n_lab + b * n_lab)
+    return flops, nbytes
+
+
+def reset(counters) -> None:
+    for mod in counters.values():
+        mod.launches = 0
+
+
+def read(counters) -> dict:
+    return {k: mod.launches for k, mod in counters.items()}
+
+
+def check_ground_truth(what: str, events, positions, labels) -> None:
+    """Every planted keyword detected once, with its label, within 250 ms; nothing else."""
+    got = [(round(e.time_s, 3), labels[e.label]) for e in events]
+    if len(events) != len(positions) or any(
+            labels[e.label] != w or abs(e.time_s - t) > 0.25 for e, (t, w) in zip(events, positions)):
+        fail(f"{what}: detections {got}, planted {positions}")
+
+
+def check_same_events(what: str, got, ref) -> None:
+    """Label and time exactly, score within STREAM_ATOL."""
+    if [(e.time_s, e.label) for e in got] != [(e.time_s, e.label) for e in ref] or any(
+            abs(g.score - r.score) > STREAM_ATOL for g, r in zip(got, ref)):
+        fail(f"{what}: cuda events {got} != cpu events {ref}")
+
+
+def phase_causal_mfcc(torch, dev, mfcc_kernel, name) -> dict:
+    """17. The MFCC kernel's causal framing (the online step) and its center
+    framing on long waveforms (offline streaming), against the plain version."""
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for key, b, n, k, iters in (("causal_b8", 8, 480 + CHUNK, CHUNK // 160, 200),
+                                ("causal_b1_hop", 1, 480 + 160, 1, 200),
+                                ("causal_b64", 64, 480 + 16000, 100, 100),
+                                ("center_60s", 1, 60 * 16000, None, 50),
+                                ("center_10min", 1, 600 * 16000, None, 20)):
+        center = k is None
+        a = torch.from_numpy((rng.standard_normal((b, n)) * 0.2).astype(np.float32)).to(dev)
+        got = mfcc_kernel.mfcc(a, center=center, n_frames=k)
+        ref = mfcc_kernel.mfcc_plain(a, center=center, n_frames=k)
+        torch.cuda.synchronize()
+        frames = 1 + n // 160 if center else k
+        if got.shape != (b, frames, 40) or not torch.isfinite(got).all():
+            fail(f"mfcc kernel, {key}: shape {tuple(got.shape)} or non-finite values")
+        err = max_err(got, ref)
+        if not close(got, ref, **MFCC_TOL):
+            fail(f"mfcc kernel disagrees with its plain version, {key}: max abs err {err:.3e}")
+        bnd, by = bound(*mfcc_work(b * frames, b * n), name)
+        out[key] = {
+            "batch": b, "n_samples": n, "frames": frames, "center": center, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: mfcc_kernel.mfcc(a, center=center, n_frames=k), iters),
+            "plain_ms": time_ms(torch, lambda: mfcc_kernel.mfcc_plain(a, center=center, n_frames=k), iters),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "geometry": mfcc_kernel.geometry(a, center=center, n_frames=k),
+        }
+    print(f"[causal_mfcc] kernel against its plain version (atol {MFCC_TOL['atol']}, rtol {MFCC_TOL['rtol']}), "
+          "ms per call (CUDA events behind a spin kernel): " + json.dumps(out))
+    return out
+
+
+def phase_offline(torch, svc, cpu, counters, serve, track, positions, name) -> dict:
+    """18. Offline streaming: evaluate_long / stream_file on the 60 s track, cuda
+    against cpu, exact launches; POST /stream; then a 10 min track on cuda."""
+    from honk_tpu_torch.cli.demo import synthesize_long_audio
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.ops import res_kernel
+    from honk_tpu_torch.stream import frame_mfccs, stream_file
+
+    cfg = StreamConfig(**STREAM_CFG)
+    cpu_sm, cpu_ev = stream_file(cpu.model, None, track, cfg, packed=cpu._packed)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = svc.evaluate_long(track, cfg)  # the service's entry point
+    wall_60s = time.perf_counter() - t0
+    launches = read(counters)
+    if launches != {"assemble": 0, "mfcc": 1, "res_stack": 1}:
+        fail(f"evaluate_long of the 60 s track launched {launches}: expected one mfcc and one res_stack")
+    gpu_sm, gpu_ev = stream_file(svc.model, None, track, cfg, packed=svc._packed)
+    err = float(np.abs(gpu_sm - cpu_sm).max())
+    if gpu_sm.shape != cpu_sm.shape or not np.isfinite(gpu_sm).all() or err > STREAM_ATOL:
+        fail(f"stream_file cuda vs cpu: shape {gpu_sm.shape} vs {cpu_sm.shape}, max abs err {err:.3e}")
+    check_same_events("stream_file on the track", gpu_ev, cpu_ev)
+    check_ground_truth("stream_file on the track (cuda)", gpu_ev, positions, svc.labels)
+    if [(e["time_s"], e["label"]) for e in events] != [(e.time_s, svc.labels[e.label]) for e in gpu_ev]:
+        fail(f"evaluate_long {events} != stream_file {gpu_ev}")
+
+    # POST /stream (the service's default StreamConfig) against the CPU service on the same PCM16.
+    pcm = np.clip(np.round(track * 32767), -32768, 32767).astype(np.int16)
+    httpd = serve(svc, port=0, n_stream_slots=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        reset(counters)
+        t0 = time.perf_counter()
+        answer = post_json(f"http://127.0.0.1:{httpd.server_address[1]}/stream",
+                           {"wav_data": base64.b64encode(pcm.tobytes()).decode()})["detections"]
+        post_s = time.perf_counter() - t0
+        post_launches = read(counters)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    want = cpu.evaluate_long(pcm.astype(np.float32) / 32768.0)
+    if [(e["time_s"], e["label"]) for e in answer] != [(e["time_s"], e["label"]) for e in want] or any(
+            abs(a["prob"] - w["prob"]) > STREAM_ATOL for a, w in zip(answer, want)):
+        fail(f"POST /stream answered {answer}, the CPU service {want}")
+    planted = dict((w, t) for t, w in positions)
+    if not answer or any(abs(planted.get(e["label"], -9.0) - e["time_s"]) > 0.5 for e in answer):
+        fail(f"POST /stream: detections {answer} are not at the planted keywords {positions}")
+    if post_launches != {"assemble": 0, "mfcc": 1, "res_stack": 1}:
+        fail(f"POST /stream launched {post_launches}")
+
+    # 10 minutes on cuda: wall time, audio-s per s, the res stack at B = n_windows.
+    long_track, long_pos = synthesize_long_audio(list(STREAM_KEYWORDS) * 10, seconds=LONG_TRACK_S, seed=8,
+                                                 gap_s=8.0, noise_amp=0.01)
+    stream_file(svc.model, None, long_track, cfg, packed=svc._packed)  # warm up cuDNN for this batch
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    long_sm, long_ev = stream_file(svc.model, None, long_track, cfg, packed=svc._packed)
+    wall_10min = time.perf_counter() - t0
+    long_launches = read(counters)
+    if long_launches != {"assemble": 0, "mfcc": 1, "res_stack": 1}:
+        fail(f"stream_file of 10 min launched {long_launches}")
+    found = sum(any(abs(e.time_s - t) <= 0.25 and svc.labels[e.label] == w for e in long_ev) for t, w in long_pos)
+    # Where the 10 min call's time goes: the device's part (torch.profiler over 3 calls).
+    long_prof = profile_steps(torch, lambda: stream_file(svc.model, None, long_track, cfg, packed=svc._packed), 3)
+    # The res stack at the offline batch (every window of 10 min) and at the
+    # hub's (8 slots), kernel against plain, timed.
+    with torch.inference_mode():
+        feats = frame_mfccs(torch.from_numpy(long_track).to(svc.device))
+        windows = feats.unfold(0, 101, cfg.hop_samples // 160).transpose(1, 2).contiguous()
+        pooled = svc.model.stem(windows)
+        packed = svc._packed
+        C, H, W = pooled.shape[1:]
+        L, n_lab = packed[0].shape[0], packed[3].shape[1]
+        res = {}
+        for b, iters in ((HUB_SLOTS, 200), (pooled.shape[0], 5)):
+            x = pooled[:b].contiguous()
+            got = res_kernel.res_stack(x, *packed)
+            ref = res_kernel.res_stack_plain(x, *packed)
+            torch.cuda.synchronize()
+            e = max_err(got, ref)
+            if not close(got, ref, **RES_TOL):
+                fail(f"res_stack kernel at B={b}: max abs err {e:.3e}")
+            bnd, by = bound(*res_work(b, C, H, W, L, n_lab), name, tf32x3=True)
+            res[b] = {"max_abs_err": e, "ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed), iters),
+                      "plain_ms": time_ms(torch, lambda: res_kernel.res_stack_plain(x, *packed), iters),
+                      "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                      "geometry": res_kernel.geometry(x)}
+    out = {"wall_ms_60s": wall_60s * 1e3, "smoothed_max_abs_err": err, "launches": launches,
+           "events": [(round(e.time_s, 3), svc.labels[e.label], round(e.score, 4)) for e in gpu_ev],
+           "post_stream_host_ms": post_s * 1e3, "post_stream_detections": answer,
+           "post_stream_launches": post_launches, "n_windows_10min": int(long_sm.shape[0]),
+           "wall_ms_10min": wall_10min * 1e3, "audio_s_per_s_10min": LONG_TRACK_S / wall_10min,
+           "launches_10min": long_launches, "events_10min": len(long_ev),
+           "planted_10min": len(long_pos), "planted_found_10min": int(found),
+           "profile_10min": {k: long_prof[k] for k in ("profiled_wall_ms", "device_ms", "device_idle_share",
+                                                       "device_kernels_per_step", "top_kernels_ms")}}
+    print("[offline] " + json.dumps(out))
+    print("[offline] res_stack at the streaming batches (CUDA events): " + json.dumps(res))
+    return out, res
+
+
+def phase_online(torch, svc, cpu, counters, track, positions) -> dict:
+    """19. Streamer over the 60 s track on cuda against the CPU, chunk by chunk;
+    events against the planted positions; launches and host ms per step."""
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.stream import Streamer, detect_stream
+
+    cfg = StreamConfig(**STREAM_CFG)
+    n = len(track) // CHUNK
+    chunks = track[: n * CHUNK].reshape(n, CHUNK)
+    series = {}
+    for side, s in (("cpu", cpu), ("cuda", svc)):
+        st = Streamer(s.model, None, cfg, CHUNK)
+        state = st.reset()
+        if side == "cuda":
+            torch.cuda.synchronize()
+            reset(counters)
+            t0 = time.perf_counter()
+        posts = []
+        for c in chunks:
+            state, post = st.process(state, c)
+            posts.append(post)
+        series[side] = torch.stack(posts).cpu().numpy()  # waits for the card
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    # Device time of a step (torch.profiler over 20 more steps of the same stream).
+    more = iter(chunks[:20])
+    prof = profile_steps(torch, lambda: st.process(state, next(more)), 20)
+    if launches != {"assemble": 0, "mfcc": n, "res_stack": n}:
+        fail(f"Streamer over {n} chunks launched {launches}: expected one mfcc and one res_stack a step")
+    err = float(np.abs(series["cuda"] - series["cpu"]).max())
+    if not np.isfinite(series["cuda"]).all() or err > STREAM_ATOL:
+        fail(f"Streamer cuda vs cpu: max abs err {err:.3e}")
+    events = detect_stream(series["cuda"], cfg, CHUNK)
+    check_same_events("Streamer on the track", events, detect_stream(series["cpu"], cfg, CHUNK))
+    check_ground_truth("Streamer on the track (cuda)", events, positions, svc.labels)
+    out = {"steps": n, "smoothed_max_abs_err": err, "launches": launches,
+           "launches_per_step": {k: v / n for k, v in launches.items()}, "host_ms_per_step": wall * 1e3 / n,
+           "device_ms_per_step": prof["device_ms"], "device_kernels_per_step": prof["device_kernels_per_step"],
+           "device_idle_share": prof["device_idle_share"], "top_kernels_ms": prof["top_kernels_ms"][:4],
+           "events": [(round(e.time_s, 3), svc.labels[e.label], round(e.score, 4)) for e in events]}
+    print("[online] " + json.dumps(out))
+    return out
+
+
+def hub_streams(track) -> np.ndarray:
+    """The hub phase's 8 PCM16 streams: the track, then seven of noise."""
+    rng = np.random.default_rng(SEED + 20)
+    noise = rng.standard_normal((HUB_SLOTS - 1, len(track))) * 0.01
+    audio = np.concatenate([track[None], noise]).astype(np.float32)
+    return np.clip(np.round(audio * 32767), -32768, 32767).astype(np.int16)
+
+
+def phase_hub(torch, svc, cpu, counters, serve, track, positions) -> dict:
+    """20. The stream hub over HTTP: serve() with the serving CLI's defaults (8
+    slots, 3200-sample chunks, 2 ms coalescing), one session on the track and
+    seven on noise, four times: sync, pipelined, the int16 wire, push_bin."""
+    import http.client
+    from concurrent.futures import ThreadPoolExecutor
+
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.serve import StreamHub
+
+    cfg = StreamConfig(**STREAM_CFG)
+    pcm = hub_streams(track)
+    n_ticks = pcm.shape[1] // CHUNK
+    rows = [pcm[:, t * CHUNK:(t + 1) * CHUNK] for t in range(n_ticks)]
+
+    # The CPU hub on the same chunks: per-tick results and each session's events.
+    ref_hub = StreamHub(cpu, HUB_SLOTS, cfg, CHUNK)
+    ref_sids = [ref_hub.open() for _ in range(HUB_SLOTS)]
+    ref_ticks = [ref_hub.push_rows(ref_sids, r) for r in rows]
+    ref_ticks = [[res[s] for s in ref_sids] for res in ref_ticks]
+    ref_events = [ref_hub.close(s)["events"] for s in ref_sids]
+
+    def same_events(a, b):
+        return [(e["time_s"], e["label"]) for e in a] == [(e["time_s"], e["label"]) for e in b] and all(
+            abs(x["prob"] - y["prob"]) <= 2 * STREAM_ATOL for x, y in zip(a, b))
+
+    results = {}
+    for run, kw in (("sync", {}), ("pipelined", {"stream_pipelined": True}),
+                    ("int16_wire", {"stream_wire_dtype": "int16"}), ("push_bin", {})):
+        httpd = serve(svc, port=0, n_stream_slots=HUB_SLOTS, stream_cfg=cfg, chunk_samples=CHUNK,
+                      stream_coalesce_ms=2.0, **kw)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        port = httpd.server_address[1]
+        local, conns = threading.local(), []
+        lock = threading.Lock()
+
+        def request(path, body, ctype="application/json"):
+            # One keep-alive connection per client thread.
+            conn = getattr(local, "conn", None)
+            if conn is None:
+                conn = local.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                with lock:
+                    conns.append(conn)
+            t0 = time.perf_counter()
+            conn.request("POST", path, body, {"Content-Type": ctype})
+            r = conn.getresponse()
+            data = json.loads(r.read())
+            if r.status != 200:
+                fail(f"hub {run}: {path} answered {r.status} {data}")
+            return data, time.perf_counter() - t0
+
+        try:
+            n_clients = 1 if run == "push_bin" else HUB_SLOTS
+            with ThreadPoolExecutor(max_workers=n_clients) as pool:
+                sids = [request("/stream/open", b"{}")[0]["stream_id"] for _ in range(HUB_SLOTS)]
+
+                def push(i, t):
+                    body = json.dumps({"stream_id": sids[i],
+                                       "wav_data": base64.b64encode(rows[t][i].tobytes()).decode()}).encode()
+                    return request("/stream/push", body)
+
+                def push_bin(t):
+                    header = json.dumps({"stream_ids": sids, "posterior": True}).encode()
+                    out, dt = request("/stream/push_bin",
+                                      len(header).to_bytes(4, "little") + header + rows[t].astype("<i2").tobytes(),
+                                      "application/octet-stream")
+                    return [(out["results"][s], dt) for s in sids]
+
+                answers, tick_ms, push_ms = [], [], []
+
+                def tick(t):
+                    t0 = time.perf_counter()
+                    if run == "push_bin":
+                        got = pool.submit(push_bin, t).result()
+                    else:
+                        got = [f.result() for f in [pool.submit(push, i, t) for i in range(HUB_SLOTS)]]
+                    tick_ms.append((time.perf_counter() - t0) * 1e3)
+                    push_ms.append([dt * 1e3 for _, dt in got])
+                    answers.append([a for a, _ in got])
+
+                reset(counters)
+                prof_at = 100
+                for t in range(prof_at):
+                    tick(t)
+                it = iter(range(prof_at, prof_at + 20))
+                prof = profile_steps(torch, lambda: tick(next(it)), 20, required=False)
+                for t in range(prof_at + 20, n_ticks):
+                    tick(t)
+                closed = [request("/stream/close", json.dumps({"stream_id": s}).encode())[0] for s in sids]
+                launches = read(counters)
+        finally:
+            for conn in conns:
+                conn.close()
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+        if th.is_alive():
+            fail(f"hub {run}: the server thread did not stop")
+
+        # Results: the CPU hub's, tick by tick (pipelined: one tick late) and session by session.
+        lag = 1 if run == "pipelined" else 0
+        post_err = 0.0
+        for t, ans in enumerate(answers):
+            if t < lag:
+                if not all(a.get("pending") for a in ans):
+                    fail(f"hub {run}: the first push is not pending: {ans[0]}")
+                continue
+            for a, r in zip(ans, ref_ticks[t - lag]):
+                if a["label"] != r["label"] or not same_events(a["events"], r["events"]):
+                    fail(f"hub {run}, tick {t}: {a['label']} {a['events']} != cpu {r['label']} {r['events']}")
+                post_err = max(post_err, float(np.abs(np.asarray(a["posterior"]) - r["posterior"]).max()))
+        if post_err > STREAM_ATOL:
+            fail(f"hub {run}: posteriors against the CPU hub's, max abs err {post_err:.3e}")
+        for i, c in enumerate(closed):
+            if not same_events(c["events"], ref_events[i]):
+                fail(f"hub {run}: session {i} closed with {c['events']}, the CPU hub's {ref_events[i]}")
+        planted = [(e["time_s"], e["label"]) for e in closed[0]["events"]]
+        if len(planted) != len(positions) or any(
+                lab != w or abs(ts - t) > 0.25 for (ts, lab), (t, w) in zip(planted, positions)):
+            fail(f"hub {run}: track session's events {planted}, planted {positions}")
+        if any(c["events"] for c in closed[1:]):
+            fail(f"hub {run}: false alarms on the noise sessions: {[c['events'] for c in closed[1:]]}")
+        if launches["mfcc"] != launches["res_stack"] or not n_ticks <= launches["mfcc"] <= HUB_SLOTS * n_ticks \
+                or launches["assemble"]:
+            fail(f"hub {run}: launched {launches} over {n_ticks} ticks")
+        if run == "push_bin" and launches["mfcc"] != n_ticks:
+            fail(f"hub push_bin: one frame a tick must be one dispatch, launched {launches}")
+        first = push_ms[0]
+        steady = [ms for row in push_ms[prof_at + 20:] for ms in row]
+        results[run] = {
+            "ticks": n_ticks, "launches": launches, "launches_per_tick": launches["mfcc"] / n_ticks,
+            "posterior_max_abs_err": post_err,
+            "track_events": planted, "host_ms_per_tick_median": float(np.median(tick_ms)),
+            "host_ms_per_tick_p99": float(np.percentile(tick_ms, 99)),
+            "push_ms_first_on_new_connection": first,
+            "push_ms_steady_median": float(np.median(steady)), "push_ms_steady_p99": float(np.percentile(steady, 99)),
+            "device_ms_per_tick": prof["device_ms"], "device_kernels_per_tick": prof["device_kernels_per_step"],
+            "device_idle_share": prof["device_idle_share"], "top_kernels_ms": prof["top_kernels_ms"][:4],
+        }
+    print("[hub] 8 sessions (the track and 7 of noise), "
+          f"{n_ticks} ticks each run, results equal to the CPU hub's: " + json.dumps(results))
+    return results
+
+
+def phase_stream_family(torch, family_services, counters, track) -> dict:
+    """21. res15 and cnn-trad-pool2 (cuDNN / cuBLAS) through stream_file and a
+    3-slot BatchStreamer on the track, cuda against cpu."""
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.stream import BatchStreamer, stream_file
+
+    cfg = StreamConfig(**STREAM_CFG)
+    rng = np.random.default_rng(SEED + 21)
+    three = np.concatenate([track[None], rng.standard_normal((2, len(track))) * 0.01]).astype(np.float32)
+    out = {}
+    for conf in ("res15", "cnn-trad-pool2"):
+        gpu, cpu_svc = family_services[conf]
+        smoothed, launches = {}, {}
+        for side, s in (("cpu", cpu_svc), ("cuda", gpu)):
+            reset(counters)
+            smoothed[side], _ = stream_file(s.model, None, track, cfg, packed=s._packed)
+            launches[side] = read(counters)
+        if launches["cuda"] != {"assemble": 0, "mfcc": 1, "res_stack": 0}:
+            fail(f"{conf} stream_file launched {launches['cuda']}")
+        off_err = float(np.abs(smoothed["cuda"] - smoothed["cpu"]).max())
+        if off_err > STREAM_ATOL:
+            fail(f"{conf} stream_file cuda vs cpu: max abs err {off_err:.3e}")
+        series = {}
+        for side, s in (("cpu", cpu_svc), ("cuda", gpu)):
+            bs = BatchStreamer(s.model, None, 3, cfg, CHUNK)
+            state = bs.reset()
+            reset(counters)
+            posts = []
+            for t in range(FAMILY_STREAM_STEPS):
+                state, post = bs.process(state, three[:, t * CHUNK:(t + 1) * CHUNK])
+                posts.append(post)
+            series[side] = torch.stack(posts).cpu().numpy()
+            launches[f"batch_{side}"] = read(counters)
+        if launches["batch_cuda"] != {"assemble": 0, "mfcc": FAMILY_STREAM_STEPS, "res_stack": 0}:
+            fail(f"{conf} BatchStreamer launched {launches['batch_cuda']}")
+        on_err = float(np.abs(series["cuda"] - series["cpu"]).max())
+        if not np.isfinite(series["cuda"]).all() or on_err > STREAM_ATOL:
+            fail(f"{conf} BatchStreamer cuda vs cpu: max abs err {on_err:.3e}")
+        out[conf] = {"stream_file_max_abs_err": off_err, "batch_streamer_max_abs_err": on_err,
+                     "launches_stream_file": launches["cuda"], "launches_batch_streamer": launches["batch_cuda"],
+                     "batch_steps": FAMILY_STREAM_STEPS}
+    print(f"[stream_family] cuda vs cpu (atol {STREAM_ATOL}): " + json.dumps(out))
+    return out
+
+
+def phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name) -> dict:
+    """17-21 on the 60 s ground-truth track; returns each phase's results and
+    the kernels' launches on each streaming path."""
+    from honk_tpu_torch.cli.demo import synthesize_long_audio
+
+    t0 = time.perf_counter()
+    mfcc = phase_causal_mfcc(torch, dev, mfcc_kernel, name)
+    track, positions = synthesize_long_audio(list(STREAM_KEYWORDS), seconds=60, seed=7, gap_s=8.0, noise_amp=0.01)
+    offline, res_stack = phase_offline(torch, svc, cpu, counters, serve, track, positions, name)
+    online = phase_online(torch, svc, cpu, counters, track, positions)
+    hub = phase_hub(torch, svc, cpu, counters, serve, track, positions)
+    family = phase_stream_family(torch, family_services, counters, track)
+    by_path = {
+        "stream_offline_res8": offline["launches"], "stream_post_res8": offline["post_stream_launches"],
+        "stream_offline_10min_res8": offline["launches_10min"], "stream_online_res8": online["launches"],
+        **{f"stream_hub_{run}_res8": r["launches"] for run, r in hub.items()},
+        **{f"stream_offline_{c}": r["launches_stream_file"] for c, r in family.items()},
+        **{f"stream_batch3_{c}": r["launches_batch_streamer"] for c, r in family.items()},
+    }
+    print(f"[streaming] phases 17-21 took {time.perf_counter() - t0:.1f} s")
+    return {"mfcc": mfcc, "res_stack": res_stack, "offline": offline, "online": online, "hub": hub,
+            "family": family, "launches_by_path": by_path}
 
 
 def main() -> int:
@@ -831,25 +1323,17 @@ def main() -> int:
             family_train[conf] = phase_entry_point(torch, corpus, tmp, counters, conf, 1, flags)
         family_times = phase_family_times(torch, dev, A, arrays, aug)
 
+    # 17-21. Streaming: the MFCC kernel's causal framing, offline, online, the hub over HTTP, res15 and cnn.
+    streaming = phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name)
+
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
 
-    mel_taps = int(np.count_nonzero(mfcc_filters.frontend_constants(np.float32)["mel"]))
+    def mfcc_work_b(b):  # b utterances of 1 s
+        return mfcc_work(b * 101, b * 16000)
 
-    def mfcc_work(b):
-        # What the function needs, not what the kernel does (two dense DFT
-        # products): per frame the Hann window, a real FFT of 480 points
-        # (2.5 N log2 N), |X|^2 of 241 bins, the mel filters' nonzero taps,
-        # 40 logs and the 40x40 DCT. Bytes: audio in, MFCCs out, the window,
-        # the mel taps and the DCT.
-        per_frame = 480 + 2.5 * 480 * math.log2(480) + 3 * 241 + 2 * mel_taps + 40 + 2 * 40 * 40
-        nbytes = 4 * (b * 16000 + b * 101 * 40 + 480 + mel_taps + 40 * 40)
-        return b * 101 * per_frame, nbytes
-
-    def res_work(b):
-        flops = 2 * b * L * H * W * 9 * C * C + 2 * b * C * n_lab
-        nbytes = 4 * (b * C * H * W + L * 9 * C * C + 2 * L * C + C * n_lab + n_lab + b * n_lab)
-        return flops, nbytes
+    def res_work_b(b):
+        return res_work(b, C, H, W, L, n_lab)
 
     # "launches" counts the training path's run (phase 10); "launches_listen"
     # the serving path's 8 requests (phase 6); "launches_by_path" every path
@@ -860,11 +1344,12 @@ def main() -> int:
         **{f"listen_{c}": v["launches"] for c, v in family_listen.items()},
         **{f"hard_v2_{c}": r["launches"] for c, r in hard_v2["models"].items()},
         **{f"train_{c}": v[0] for c, v in family_train.items()},
+        **streaming["launches_by_path"],
     }
     kernels = []
     for kname, src, replaces, work, err, tf32x3 in (
-        ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work, mfcc_err, False),
-        ("res_stack", "honk_tpu_torch/ops/csrc/res_stack.cu", "honk_tpu/ops/res_kernel.py:139", res_work, res_err,
+        ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work_b, mfcc_err, False),
+        ("res_stack", "honk_tpu_torch/ops/csrc/res_stack.cu", "honk_tpu/ops/res_kernel.py:139", res_work_b, res_err,
          True),
     ):
         b256, by = bound(*work(BATCH), name, tf32x3)
@@ -878,9 +1363,10 @@ def main() -> int:
             "ms_b1": times[1][kname], "plain_ms_b1": times[1][kname + "_plain"],
             "bound_ms_b1": b1, "bound_by_b1": by1,
         })
-    b64, by64 = bound(*mfcc_work(TRAIN_BATCH), name)
+    b64, by64 = bound(*mfcc_work_b(TRAIN_BATCH), name)
     kernels[0].update({"ms_b64": train_times["mfcc_b64"], "plain_ms_b64": train_times["mfcc_plain_b64"],
-                       "bound_ms_b64": b64, "bound_by_b64": by64})
+                       "bound_ms_b64": b64, "bound_by_b64": by64, "streaming": streaming["mfcc"]})
+    kernels[1]["streaming"] = streaming["res_stack"]
     a64, aby64 = bound(*assemble_ops[TRAIN_BATCH], name)
     a1024, aby1024 = bound(*assemble_ops[1024], name)
     kernels.append({
@@ -899,7 +1385,8 @@ def main() -> int:
                       "train_epochs": epochs, "train_step_b64_ms": step_times,
                       "family_eval_logit_err": family_errs, "family_listen": family_listen, "hard_v2": hard_v2,
                       "family_train_epochs": {c: v[1] for c, v in family_train.items()},
-                      "family_times": family_times}))
+                      "family_times": family_times,
+                      "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@
 Counterpart of ``python -m honk_tpu.cli.serve``:
 
     python -m honk_tpu_torch.cli.serve --model res8 --checkpoint zoo/res8.pt \\
-        [--port 16888] [--config config.json] [--device cuda|cpu]
+        [--port 16888] [--config config.json] [--device cuda|cpu] \\
+        [--stream-slots 8] [--chunk-samples 3200] [--coalesce-ms 2] \\
+        [--wire-dtype float32|int16] [--pipelined]
     python -m honk_tpu_torch.cli.serve --model res15 --checkpoint zoo_hard_v2/res15.pt
     python -m honk_tpu_torch.cli.serve --model cnn-trad-pool2 --checkpoint zoo/cnn-trad-pool2.pt
 
@@ -12,9 +14,8 @@ Counterpart of ``python -m honk_tpu.cli.serve``:
 --config accepts a reference-style config.json with keys
 {"model_path": ..., "commands": "cmd1,cmd2,..."}. The checkpoint is a honk
 ``.pt`` file. ``--device`` defaults to cuda and fails where no CUDA device
-is present. /train answers 501 in this port, so ``--no-train`` changes
-nothing; the streaming flags of the JAX CLI are refused until streaming
-is ported.
+is present; the stream hub (``/stream/*``) runs on the same device.
+/train answers 501 in this port, so ``--no-train`` changes nothing.
 """
 
 from __future__ import annotations
@@ -22,11 +23,9 @@ from __future__ import annotations
 import argparse
 import json
 
-# Flags of honk_tpu.cli.serve that belong to the stream hub.
-_STREAM_FLAGS = ("--stream-slots", "--chunk-samples", "--coalesce-ms", "--wire-dtype", "--pipelined")
 
-
-def main(argv: list[str] | None = None) -> int:
+def make_server(argv: list[str] | None = None):
+    """Parse the CLI flags and build the service and its HTTP server (not started)."""
     p = argparse.ArgumentParser(prog="honk_tpu_torch.serve", description=__doc__)
     p.add_argument("--model", default="res8")
     p.add_argument("--checkpoint", required=False, default="")
@@ -35,12 +34,29 @@ def main(argv: list[str] | None = None) -> int:
                    help="accepted for compatibility: /train is not in this port yet (501)")
     p.add_argument("--config", default="", help="reference-style config.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args, rest = p.parse_known_args(argv)
-    stream = [a for a in rest if a.split("=", 1)[0] in _STREAM_FLAGS]
-    if stream:
-        p.error(f"{stream[0].split('=', 1)[0]}: streaming is not in this port yet")
-    if rest:
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    p.add_argument(
+        "--stream-slots", type=int, default=8,
+        help="concurrent /stream sessions sharing one batched slab (0 disables)",
+    )
+    p.add_argument("--chunk-samples", type=int, default=3200)
+    p.add_argument(
+        "--coalesce-ms", type=float, default=2.0,
+        help="tick leader waits this long for other open sessions to join "
+             "before dispatching the slab (0 disables; no wait when every "
+             "open session already joined)",
+    )
+    p.add_argument(
+        "--wire-dtype", choices=["float32", "int16"], default="float32",
+        help="int16 ships raw PCM16 chunks to the device and decodes them "
+             "there: half the host->device bytes (PCM16-derived audio "
+             "round-trips exactly)",
+    )
+    p.add_argument(
+        "--pipelined", action="store_true",
+        help="each push returns the session's PREVIOUS chunk's result "
+             "(exact lag-1), hiding the result fetch behind the next tick",
+    )
+    args = p.parse_args(argv)
 
     labels = None
     checkpoint = args.checkpoint
@@ -54,8 +70,22 @@ def main(argv: list[str] | None = None) -> int:
     from ..serve import LabelService, serve
 
     service = LabelService(args.model, checkpoint, labels=labels, device=args.device)
-    httpd = serve(service, port=args.port)
-    print(f"listening on :{args.port} model={args.model} device={service.device} labels={service.labels}")
+    httpd = serve(
+        service,
+        port=args.port,
+        n_stream_slots=args.stream_slots,
+        chunk_samples=args.chunk_samples,
+        stream_coalesce_ms=args.coalesce_ms,
+        stream_pipelined=args.pipelined,
+        stream_wire_dtype=args.wire_dtype,
+    )
+    print(f"listening on :{args.port} model={args.model} device={service.device} labels={service.labels} "
+          f"stream_slots={args.stream_slots}")
+    return httpd
+
+
+def main(argv: list[str] | None = None) -> int:
+    httpd = make_server(argv)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

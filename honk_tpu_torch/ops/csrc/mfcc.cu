@@ -1,17 +1,23 @@
 // Fused MFCC kernel for Hopper (sm_90a): raw audio (B, n_samples) f32 ->
-// MFCC (B, n_frames, 40) f32, with n_frames = 1 + n_samples / 160.
+// MFCC (B, n_frames, 40) f32. Frame t reads samples t * 160 - pad ..
+// t * 160 - pad + 479 of its row, in one of two framings:
+//   pad 240: center framing with reflect padding, n_frames = 1 + n_samples / 160
+//            (the utterance frontend and offline streaming);
+//   pad 0:   causal framing, no padding, n_frames given by the caller with
+//            (n_frames - 1) * 160 + 480 <= n_samples (the online streaming step,
+//            whose rows are [480-sample tail | chunk]).
 //
 // Replaces the TPU kernel honk_tpu/ops/mfcc_kernel.py::_mfcc_rows (Pallas
 // body _mfcc_kernel), which takes the DFT as two dense products against
 // cos / -sin bases and the mel projection as a dense product. Like it, no
 // intermediate leaves the chip. Unlike it, the frames are built here from
-// the audio with center reflect padding (240 samples, no edge repeat), so
-// no (B, 101, 480) frame tensor is written to HBM, and the transform is a
+// the audio (center reflect padding of 240 samples with no edge repeat, or
+// causal with none), so no (B, 101, 480) frame tensor is written to HBM, and the transform is a
 // real FFT that computes only the bins the mel filters use.
 //
 // Per frame, one warp (FRAMES warps a block, so B=1's 101 frames take 26
 // blocks):
-//   1. the 480 windowed samples, read with the reflect index by the warp's
+//   1. the 480 windowed samples, read (with the reflect index) by the warp's
 //      lanes from consecutive addresses, packed as 240 complex values
 //      z[n] = x[2n] + i x[2n+1] in shared memory;
 //   2. a Stockham FFT of 240 points, radices 4, 4, 3, 5 (one pass each,
@@ -128,7 +134,7 @@ __global__ void __launch_bounds__(THREADS)
 mfcc_kernel(const float* __restrict__ audio, const float* __restrict__ window,
             const float2* __restrict__ twiddle, const int* __restrict__ mel_runs,
             const float* __restrict__ mel_taps, const float* __restrict__ dct,
-            float* __restrict__ out, int n_rows, int n_samples, int n_frames) {
+            float* __restrict__ out, int n_rows, int n_samples, int n_frames, int pad) {
   __shared__ float2 bufs[FRAMES][2][N_CPLX];
   __shared__ float power[FRAMES][N_BINS];
   __shared__ float logmel[FRAMES][N_MELS];
@@ -143,8 +149,8 @@ mfcc_kernel(const float* __restrict__ audio, const float* __restrict__ window,
   float* f = reinterpret_cast<float*>(z);
   const float* a = audio + (long long)b * n_samples;
   for (int n = lane; n < N_FFT; n += 32) {
-    int p = t * HOP + n - N_FFT / 2;
-    if (p < 0) p = -p;                                      // reflect, no edge repeat
+    int p = t * HOP + n - pad;
+    if (p < 0) p = -p;                                      // reflect, no edge repeat (pad 240 only)
     else if (p >= n_samples) p = 2 * (n_samples - 1) - p;
     f[n] = a[p] * __ldg(window + n);
   }
@@ -184,15 +190,16 @@ mfcc_kernel(const float* __restrict__ audio, const float* __restrict__ window,
   }
 }
 
-// Launches on `stream`, one warp per frame; returns the cudaError_t of the
-// launch (0 = success).
+// Launches on `stream`, one warp per frame; `pad` is 240 (center, reflect)
+// or 0 (causal). Returns the cudaError_t of the launch (0 = success).
 extern "C" int mfcc_forward(const float* audio, const float* window, const float* twiddle,
                             const int* mel_runs, const float* mel_taps, const float* dct,
-                            float* out, int batch, int n_samples, int n_frames, void* stream) {
+                            float* out, int batch, int n_samples, int n_frames, int pad,
+                            void* stream) {
   const int n_rows = batch * n_frames;
   const int grid = (n_rows + FRAMES - 1) / FRAMES;
   mfcc_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       audio, window, reinterpret_cast<const float2*>(twiddle), mel_runs, mel_taps, dct, out,
-      n_rows, n_samples, n_frames);
+      n_rows, n_samples, n_frames, pad);
   return (int)cudaGetLastError();
 }

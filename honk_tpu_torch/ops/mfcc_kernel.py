@@ -1,4 +1,4 @@
-"""Fused MFCC kernel: reflect framing -> window -> real FFT -> power -> mel -> log -> DCT.
+"""Fused MFCC kernel: framing -> window -> real FFT -> power -> mel -> log -> DCT.
 
 Hopper counterpart of ``honk_tpu/ops/mfcc_kernel.py`` (Pallas
 ``_mfcc_rows`` / ``_mfcc_kernel``). The CUDA source is ``csrc/mfcc.cu``;
@@ -11,7 +11,9 @@ bounds it on the card. This module builds the kernel's tables on the host:
 
 ``mfcc`` is the wrapper: on a CUDA tensor it launches the kernel (or
 raises), on a CPU tensor it runs ``mfcc_plain``, the same function as
-plain PyTorch ops. ``launches`` counts kernel launches.
+plain PyTorch ops. Both take the framing: center (reflect padding, the
+utterance frontend and offline streaming) or causal (no padding, the online
+streaming step). ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -82,13 +84,44 @@ def _tables(device: torch.device) -> dict[str, torch.Tensor]:
     }
 
 
-def mfcc_plain(audio: torch.Tensor) -> torch.Tensor:
+def _check_framing(n_samples: int, center: bool, n_frames: int | None) -> int:
+    """The frame count of ``n_samples`` in the given framing; raises if it does not fit."""
+    if center:
+        want = 1 + n_samples // C.HOP_LENGTH
+        if n_frames not in (None, want):
+            raise ValueError(f"center framing of {n_samples} samples has {want} frames, not {n_frames}")
+        return want
+    if n_frames is None or n_frames < 1 or (n_frames - 1) * C.HOP_LENGTH + C.N_FFT > n_samples:
+        raise ValueError(
+            f"causal framing needs 1 <= n_frames and (n_frames - 1) * {C.HOP_LENGTH} + {C.N_FFT} "
+            f"<= n_samples; got n_frames {n_frames}, {n_samples} samples"
+        )
+    return n_frames
+
+
+def frames_plain(audio: torch.Tensor, center: bool = True, n_frames: int | None = None) -> torch.Tensor:
+    """(B, n_samples) -> (B, n_frames, 480): reflect-padded center frames, or
+    causal frames at offsets 0, 160, ... with no pad (``n_frames`` of them)."""
+    if center:
+        return frame_audio(audio)
+    return audio.unfold(-1, C.N_FFT, C.HOP_LENGTH)[:, :n_frames]
+
+
+def mfcc_plain(audio: torch.Tensor, center: bool = True, n_frames: int | None = None) -> torch.Tensor:
     """(B, n_samples) f32 -> (B, n_frames, 40) f32 as plain PyTorch ops."""
-    return mel_log(power_spectrum(frame_audio(audio))) @ constants(audio.device)["dct"]
+    frames = frames_plain(audio, center, n_frames)
+    return mel_log(power_spectrum(frames)) @ constants(audio.device)["dct"]
 
 
-def mfcc(audio: torch.Tensor) -> torch.Tensor:
-    """(B, n_samples) f32 -> (B, n_frames, 40) f32: the kernel on CUDA, plain on CPU."""
+def mfcc(audio: torch.Tensor, center: bool = True, n_frames: int | None = None) -> torch.Tensor:
+    """(B, n_samples) f32 -> (B, n_frames, 40) f32: the kernel on CUDA, plain on CPU.
+
+    ``center=True`` frames with 240 samples of reflect padding on each side
+    (``n_frames = 1 + n_samples // 160``). ``center=False`` is the online
+    streaming step's causal framing: ``n_frames`` frames at offsets 0, 160,
+    ... with no padding, as from a ``(N, 480 + chunk)`` buffer of the last
+    480 samples and a chunk.
+    """
     if audio.ndim != 2 or audio.dtype != torch.float32 or not audio.is_contiguous():
         raise ValueError(
             f"mfcc takes contiguous float32 audio (B, n_samples); got "
@@ -96,28 +129,28 @@ def mfcc(audio: torch.Tensor) -> torch.Tensor:
         )
     if audio.shape[0] == 0 or audio.shape[1] <= C.N_FFT // 2:
         raise ValueError(f"mfcc needs B >= 1 and more than {C.N_FFT // 2} samples; got {tuple(audio.shape)}")
+    n_frames = _check_framing(audio.shape[1], center, n_frames)
     if audio.device.type == "cpu":
-        return mfcc_plain(audio)
+        return mfcc_plain(audio, center, n_frames)
     if audio.device.type != "cuda":
         raise ValueError(f"mfcc runs on cuda or cpu tensors, not {audio.device}")
-    return _launch(audio)
+    return _launch(audio, center, n_frames)
 
 
-def geometry(audio: torch.Tensor) -> dict:
-    """The launch the kernel gets for ``audio`` (B, n_samples)."""
-    rows = audio.shape[0] * (1 + audio.shape[1] // C.HOP_LENGTH)
+def geometry(audio: torch.Tensor, center: bool = True, n_frames: int | None = None) -> dict:
+    """The launch the kernel gets for ``audio`` (B, n_samples) in the given framing."""
+    rows = audio.shape[0] * _check_framing(audio.shape[1], center, n_frames)
     return {"frames_per_block": FRAMES_PER_BLOCK, "threads": 32 * FRAMES_PER_BLOCK,
-            "blocks": -(-rows // FRAMES_PER_BLOCK)}
+            "blocks": -(-rows // FRAMES_PER_BLOCK), "frames": rows}
 
 
-def _launch(audio: torch.Tensor) -> torch.Tensor:
+def _launch(audio: torch.Tensor, center: bool, n_frames: int) -> torch.Tensor:
     global launches
     lib = _build.load("mfcc")
     fn = lib.mfcc_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, n_samples = audio.shape
-    n_frames = 1 + n_samples // C.HOP_LENGTH
     c, t = constants(audio.device), _tables(audio.device)
     out = torch.empty((B, n_frames, C.N_DCT), dtype=torch.float32, device=audio.device)
     with torch.cuda.device(audio.device):
@@ -125,7 +158,7 @@ def _launch(audio: torch.Tensor) -> torch.Tensor:
         err = fn(
             audio.data_ptr(), c["window"].data_ptr(), t["twiddle"].data_ptr(),
             t["mel_runs"].data_ptr(), t["mel_taps"].data_ptr(), c["dct"].data_ptr(),
-            out.data_ptr(), B, n_samples, n_frames, stream,
+            out.data_ptr(), B, n_samples, n_frames, C.N_FFT // 2 if center else 0, stream,
         )
     _build.check(err, "mfcc")
     launches += 1

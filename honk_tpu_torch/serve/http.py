@@ -1,21 +1,37 @@
-"""Minimal HTTP serving front end for the label service.
+"""Minimal HTTP serving front end for the label service and the stream hub.
 
 Counterpart of ``honk_tpu.serve.http`` (the reference's root server entry,
-``python .`` on port 16888), with the same framing and keep-alive
-behaviour. Endpoints in this port:
+``python .`` on port 16888), with the same framing, JSON shapes and
+keep-alive behaviour. Endpoints in this port:
 
     POST /listen   {"wav_data": <base64 PCM16 16 kHz mono>, "method": "all"}
         -> {"contains_command": bool, "label": str, "prob": float}
     GET  /labels   -> {"labels": [...]}
-    GET  /         -> the browser demo page
+    GET  /         -> the browser demo page (1 s capture and LIVE streaming)
+    POST /stream   {"wav_data": <base64 PCM16, any length>} -> {"detections": [...]}
+    POST /stream/open  {"chunk_samples"?}        -> {"stream_id", "chunk_samples"}
+    POST /stream/push  {"stream_id","wav_data"}  -> {"posterior","label","prob","events"}
+    POST /stream/push_many {"chunks": {sid: wav_data}} -> {"results": {sid: ...}}
+    POST /stream/push_bin  (binary frame, below) -> {"results": {sid: ...}}
+    POST /stream/close {"stream_id"}             -> {"events"}
 
-``/train``, ``/stream`` and ``/stream/*`` answer 501 "not in this port
-yet": personalization and streaming come with later slices of the port.
+``/stream/push_bin`` is the gateway path: the body is
+``u32 LE header_len | header JSON | raw PCM16 LE samples``, the header
+``{"stream_ids": [...], "posterior": false?}``, the payload
+``len(stream_ids) * chunk_samples`` samples in stream_ids order. The
+response is push_many's without the per-label posterior unless asked.
+``/stream/open`` answers 503 when every slot is taken, the session
+endpoints 404 for an unknown session, and all of ``/stream/*`` 503 when
+the hub is disabled (``n_stream_slots=0``).
 
-stdlib http.server only. The server is THREADED (ThreadingHTTPServer) and
-speaks HTTP/1.1 with keep-alive (every response carries Content-Length);
-``LabelService`` serializes the device forward with a lock. Start via
-``python -m honk_tpu_torch.cli.serve``.
+``/train`` answers 501 "not in this port yet": personalization comes with
+a later slice of the port.
+
+stdlib http.server only. The server is THREADED (ThreadingHTTPServer, a
+thread per connection) and speaks HTTP/1.1 with keep-alive (every response
+carries Content-Length); ``LabelService`` serializes its device forward with
+a lock, and the hub coalesces concurrent pushes into slab dispatches on
+one CUDA stream. Start via ``python -m honk_tpu_torch.cli.serve``.
 """
 
 from __future__ import annotations
@@ -28,6 +44,7 @@ from typing import Any
 import numpy as np
 
 from .service import LabelService
+from .streams import StreamHub
 
 _NOT_PORTED = {"error": "not in this port yet"}
 
@@ -177,7 +194,7 @@ addEventListener('pagehide', () => {
 """
 
 
-def make_handler(service: LabelService):
+def make_handler(service: LabelService, hub: StreamHub | None):
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1: keep-alive connections (every response sets
         # Content-Length, which 1.1 requires for reuse).
@@ -233,8 +250,11 @@ def make_handler(service: LabelService):
             body = self._read_body()
             if body is None:
                 return
-            if self.path in ("/train", "/stream") or self.path.startswith("/stream/"):
+            if self.path == "/train":
                 self._send(501, _NOT_PORTED)
+                return
+            if self.path == "/stream/push_bin":
+                self._handle_push_bin(body)
                 return
             try:
                 payload = json.loads(body or b"{}")
@@ -256,8 +276,86 @@ def make_handler(service: LabelService):
                         "prob": prob,
                     },
                 )
+            elif self.path == "/stream":
+                # Continuous detection over long audio: overlapping windows +
+                # posterior smoothing (stream module), events as JSON.
+                try:
+                    audio = _decode_pcm16(payload["wav_data"])
+                except (KeyError, ValueError) as e:
+                    self._send(400, {"error": f"wav_data missing/invalid: {e}"})
+                    return
+                self._send(200, {"detections": service.evaluate_long(audio)})
+            elif self.path.startswith("/stream/"):
+                self._handle_stream(payload)
             else:
                 self._send(404, {"error": "unknown endpoint"})
+
+        def _handle_push_bin(self, body: bytes) -> None:
+            """Binary gateway tick: header JSON + raw PCM16, no base64.
+
+            Frame: u32 LE header length | header JSON | PCM16 samples (one
+            ``hub.chunk``-sample block per stream id, in header order). The
+            body was read by do_POST even on error paths (keep-alive framing).
+            """
+            if hub is None:
+                self._send(503, {"error": "streaming disabled"})
+                return
+            try:
+                hlen = int.from_bytes(body[:4], "little")
+                header = json.loads(body[4 : 4 + hlen])
+                if not isinstance(header, dict) or not isinstance(header.get("stream_ids"), list):
+                    raise ValueError("header must be a JSON object with a stream_ids list")
+                sids = header["stream_ids"]
+                pcm = np.frombuffer(body[4 + hlen :], dtype="<i2")
+                if pcm.size != len(sids) * hub.chunk:
+                    raise ValueError(
+                        f"payload has {pcm.size} samples, expected {len(sids)} x {hub.chunk}"
+                    )
+                # Raw int16 to the hub: verbatim to the device with the int16
+                # wire (decoded there), converted once with the float wire.
+                rows = pcm.reshape(len(sids), hub.chunk)
+            except (KeyError, ValueError, json.JSONDecodeError) as e:
+                self._send(400, {"error": f"bad binary frame: {e}"})
+                return
+            try:
+                results = hub.push_rows(sids, rows, want_posterior=bool(header.get("posterior", False)))
+            except KeyError as e:
+                self._send(404, {"error": f"unknown stream_id: {e}"})
+                return
+            except (ValueError, RuntimeError) as e:
+                self._send(400, {"error": str(e)})
+                return
+            self._send(200, {"results": results})
+
+        def _handle_stream(self, payload: dict[str, Any]) -> None:
+            if hub is None:
+                self._send(503, {"error": "streaming disabled"})
+                return
+            try:
+                if self.path == "/stream/open":
+                    try:
+                        sid = hub.open()
+                    except RuntimeError as e:
+                        # Capacity, not malformed input: "retry later".
+                        self._send(503, {"error": str(e)})
+                        return
+                    self._send(200, {"stream_id": sid, "chunk_samples": hub.chunk})
+                elif self.path == "/stream/push":
+                    chunk = _decode_pcm16(payload["wav_data"])
+                    self._send(200, hub.push(payload["stream_id"], chunk))
+                elif self.path == "/stream/push_many":
+                    # {"chunks": {stream_id: <b64 pcm16>}}: one masked slab
+                    # dispatch advances every listed session.
+                    chunks = {sid: _decode_pcm16(b64) for sid, b64 in payload["chunks"].items()}
+                    self._send(200, {"results": hub.push_many(chunks)})
+                elif self.path == "/stream/close":
+                    self._send(200, hub.close(payload["stream_id"]))
+                else:
+                    self._send(404, {"error": "unknown stream endpoint"})
+            except KeyError as e:
+                self._send(404, {"error": f"unknown/missing stream_id: {e}"})
+            except (ValueError, RuntimeError) as e:
+                self._send(400, {"error": str(e)})
 
         def log_message(self, fmt, *args):  # quiet by default
             pass
@@ -265,6 +363,42 @@ def make_handler(service: LabelService):
     return Handler
 
 
-def serve(service: LabelService, port: int = 16888) -> ThreadingHTTPServer:
-    """Start the HTTP front end (returns the server; call serve_forever)."""
-    return ThreadingHTTPServer(("0.0.0.0", port), make_handler(service))
+def serve(
+    service: LabelService,
+    port: int = 16888,
+    n_stream_slots: int = 8,
+    stream_cfg=None,
+    chunk_samples: int = 3200,
+    stream_coalesce_ms: float = 2.0,
+    stream_pipelined: bool = False,
+    stream_wire_dtype: str = "float32",
+) -> ThreadingHTTPServer:
+    """Start the HTTP front end (returns the server; call serve_forever).
+
+    The stream hub (``n_stream_slots`` sessions on one slab, 0 disables)
+    runs on the service's device. ``stream_coalesce_ms``: how long a tick
+    leader waits for the remaining open sessions to join.
+    ``stream_pipelined``: each push returns the session's PREVIOUS chunk's
+    result (exact lag-1), hiding the result fetch behind the next tick.
+    ``server_close()`` also stops the hub's fetcher threads.
+    """
+    hub = (
+        StreamHub(
+            service, n_stream_slots, stream_cfg, chunk_samples,
+            coalesce_ms=stream_coalesce_ms, pipelined=stream_pipelined,
+            wire_dtype=stream_wire_dtype,
+        )
+        if n_stream_slots > 0
+        else None
+    )
+    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service, hub))
+    httpd.hub = hub
+    if hub is not None:
+        orig_close = httpd.server_close
+
+        def _close_all():
+            hub.shutdown()
+            orig_close()
+
+        httpd.server_close = _close_all
+    return httpd

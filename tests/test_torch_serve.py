@@ -127,9 +127,13 @@ def test_http_listen_labels_and_errors(services):
         assert _request(f"{base}/listen", b"not json")[0] == 400
         assert _request(f"{base}/listen", b'{"method": "all"}')[0] == 400  # no wav_data
         assert _request(f"{base}/listen", b'{"wav_data": "AAA"}')[0] == 400  # bad base64
-        for path in ("/train", "/stream", "/stream/open", "/stream/push_bin"):
-            code, body = _request(f"{base}{path}", b"{}")
-            assert code == 501 and json.loads(body) == {"error": "not in this port yet"}, path
+        code, body = _request(f"{base}/train", b"{}")
+        assert code == 501 and json.loads(body) == {"error": "not in this port yet"}
+        assert _request(f"{base}/stream", b"{}")[0] == 400  # no wav_data
+        assert _request(f"{base}/stream/push_bin", b"{}")[0] == 400  # not a binary frame
+        assert _request(f"{base}/stream/push", b'{"stream_id": "nope", "wav_data": ""}')[0] == 404
+        code, body = _request(f"{base}/stream/open", b"{}")
+        assert code == 200 and json.loads(body)["chunk_samples"] == 3200
         assert _request(f"{base}/nope", b"{}")[0] == 404
 
         code, body = _request(f"{base}/")
@@ -143,11 +147,24 @@ def test_http_listen_labels_and_errors(services):
 
 @pytest.mark.parametrize("flag", [["--stream-slots", "4"], ["--pipelined"], ["--wire-dtype=int16"], ["--bogus"]])
 def test_cli_refuses_flags_of_later_slices(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli_serve.main(["--device", "cpu", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert ("streaming is not in this port yet" in err) != (flag == ["--bogus"])
+    """The stream hub's flags parse and reach the hub; an unknown flag is refused."""
+    argv = ["--device", "cpu", "--checkpoint", ZOO_RES8, "--port", "0", *flag]
+    if flag == ["--bogus"]:
+        with pytest.raises(SystemExit) as e:
+            cli_serve.make_server(argv)
+        assert e.value.code == 2 and "unrecognized arguments: --bogus" in capsys.readouterr().err
+        return
+    httpd = cli_serve.make_server(argv)
+    try:
+        hub = httpd.hub
+        assert hub.n_slots == (4 if flag[0] == "--stream-slots" else 8) and hub.chunk == 3200
+        assert hub.pipelined == (flag == ["--pipelined"])
+        assert hub.wire_dtype == (np.int16 if flag == ["--wire-dtype=int16"] else np.float32)
+    finally:
+        httpd.server_close()
+    httpd = cli_serve.make_server(["--device", "cpu", "--checkpoint", ZOO_RES8, "--port", "0", "--stream-slots", "0"])
+    httpd.server_close()
+    assert httpd.hub is None
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -191,7 +208,8 @@ def test_port_source_imports_no_jax(path):
 
 def test_port_runtime_loads_no_jax():
     code = (
-        "import honk_tpu_torch.serve.http, honk_tpu_torch.cli.serve, sys; "
+        "import honk_tpu_torch.serve.http, honk_tpu_torch.serve.streams, honk_tpu_torch.stream, "
+        "honk_tpu_torch.cli.serve, honk_tpu_torch.cli.demo, sys; "
         "assert not any(m=='jax' or m=='honk_tpu' or m.startswith(('jax.','honk_tpu.')) "
         "for m in sys.modules)"
     )
