@@ -93,6 +93,23 @@ noise with six keywords planted at known positions, zoo/res8.pt):
 21. res15 and cnn-trad-pool2 through stream_file and a 3-slot BatchStreamer
     on the track (60 steps), cuda against cpu.
 
+then personalization and the dataset generator, on zoo/res8.pt:
+
+22. TrainingService.fine_tune of three positives (the generator's word "cat"
+    as "yes"): 3 steps on cuda against the CPU from the same weights (loss
+    and weights as phase 9), then the default 60 steps on both; exactly one
+    mfcc launch and nothing else per fine-tune; torch.profiler over a 10-step
+    fine-tune; then a server with 8 stream slots: POST /train (one mfcc
+    launch), /listen of the positives and 8 utterances against a CPU service
+    given the same new weights (one mfcc and one res_stack launch each), a
+    hub session opened before /train against a CPU hub swapped at the same
+    chunk; POST /train on a --no-train server answers 503;
+23. the datagen CLI with --eval_checkpoint zoo/res8.pt on the 60 s and 10 min
+    tracks with a caption at each planted keyword (66 clips), on cuda and on
+    the CPU: the same clip files and verdicts, probabilities within 1e-4,
+    ceil(66 / 256) launches of the MFCC and the res stack; clips scored per
+    second.
+
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
@@ -111,6 +128,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -162,6 +180,14 @@ CHUNK = 3200  # 200 ms, the serving CLI's default
 HUB_SLOTS = 8  # the serving CLI's default
 LONG_TRACK_S = 600  # the offline phase's long track: 10 min
 FAMILY_STREAM_STEPS = 60  # res15 / cnn BatchStreamer steps (12 s of the track): the CPU side is the slow one
+# Personalization (phase 22): an unknown word of the synthetic generator takes
+# over a keyword's label slot, as the reference's web demo personalizes one.
+PERSONALIZE_WORD = "cat"
+PERSONALIZE_LABEL = "yes"
+# TrainingService's defaults (the JAX package's: lr 0.01, momentum 0.9, 60
+# steps, BN frozen) diverge on zoo/res8.pt; the swap over HTTP is checked
+# with a trainer at this rate, which converges (0.41 after 60 steps on the CPU).
+PERSONALIZE_LR = 0.001
 
 
 def fail(msg: str) -> None:
@@ -1119,6 +1145,310 @@ def phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc
             "family": family, "launches_by_path": by_path}
 
 
+def personalize_positives() -> list[np.ndarray]:
+    """Phase 22's three positives as PCM16: the synthetic generator's word
+    "cat" (an unknown word to the zoo models) by three speakers, each over a
+    0.01 noise floor."""
+    from honk_tpu_torch.data.synthetic import DEFAULT_WORDS, UNKNOWN_WORDS, _word_signal
+
+    idx = len(DEFAULT_WORDS) + UNKNOWN_WORDS.index(PERSONALIZE_WORD)
+    out = []
+    for s in range(3):
+        rng = np.random.default_rng(SEED + 22 + s)
+        clip = _word_signal(idx, speaker=s, n=0, sr=16000, rng=rng) + rng.standard_normal(16000) * 0.01
+        out.append(np.clip(np.round(clip * 32767), -32768, 32767).astype(np.int16))
+    return out
+
+
+def request_status(url: str, obj) -> tuple[int, dict]:
+    """POST JSON; the status and the JSON answer, error statuses included."""
+    try:
+        req = urllib.request.Request(url, data=json.dumps(obj).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def train_over_http(httpd, counters, pcm, utts, chunks) -> dict:
+    """Against a running-to-be server with a stream hub: open a session, push a
+    chunk, POST /train with the positives, push the next chunk, then /listen
+    the positives and the utterances; launches of /train and of the /listens."""
+    b64 = lambda a: base64.b64encode(a.tobytes()).decode()  # noqa: E731
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    out = {}
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        sid = post_json(f"{base}/stream/open", {})["stream_id"]
+        out["push_before"] = post_json(f"{base}/stream/push", {"stream_id": sid, "wav_data": b64(chunks[0])})
+        reset(counters)
+        t0 = time.perf_counter()
+        out["code"], out["answer"] = request_status(f"{base}/train", {"positives": [b64(p) for p in pcm],
+                                                                       "label": PERSONALIZE_LABEL})
+        out["train_ms"] = (time.perf_counter() - t0) * 1e3
+        out["train_launches"] = read(counters)
+        out["push_after"] = post_json(f"{base}/stream/push", {"stream_id": sid, "wav_data": b64(chunks[1])})
+        reset(counters)
+        out["listens"] = [post_json(f"{base}/listen", {"wav_data": b64(p)}) for p in pcm + utts]
+        out["listen_launches"] = read(counters)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    if th.is_alive():
+        fail("the /train server's thread did not stop")
+    return out
+
+
+def check_served(what, run, listen_svc, hub_svc, requests, chunks, swap=None) -> tuple[float, float]:
+    """A train_over_http run against the CPU: its /listens against ``listen_svc``,
+    its session's two posteriors against a CPU hub on ``hub_svc`` given ``swap``
+    (new weights) between the chunks. Returns the max abs errors (probs, posteriors)."""
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.serve import StreamHub
+
+    n = len(requests)
+    if run["listen_launches"] != {"assemble": 0, "mfcc": n, "res_stack": n}:
+        fail(f"{what}: /listen x{n} launched {run['listen_launches']}: expected {n} mfcc and res_stack")
+    prob_err = 0.0
+    for p, ans in zip(requests, run["listens"]):
+        label, prob = listen_svc.evaluate(p.astype(np.float32) / 32768.0)
+        prob_err = max(prob_err, abs(ans["prob"] - prob))
+        if ans["label"] != label or abs(ans["prob"] - prob) > PROB_ATOL:
+            fail(f"{what}: /listen answered {ans}, the CPU service ({label}, {prob})")
+    ref = StreamHub(hub_svc, HUB_SLOTS, StreamConfig(**STREAM_CFG), CHUNK)
+    rsid = ref.open()
+    want = [ref.push(rsid, chunks[0])]
+    if swap is not None:
+        ref.set_variables(swap)
+    want.append(ref.push(rsid, chunks[1]))
+    hub_err = max(float(np.abs(np.asarray(run[k]["posterior"]) - w["posterior"]).max())
+                  for k, w in zip(("push_before", "push_after"), want))
+    if hub_err > STREAM_ATOL:
+        fail(f"{what}: the hub session's posteriors against a CPU hub's, max abs err {hub_err:.3e}")
+    return prob_err, hub_err
+
+
+def phase_personalize(torch, counters, serve) -> dict:
+    """22. Personalization of zoo/res8.pt at full width: TrainingService on cuda
+    against the CPU (3 steps; 60 at the defaults and at PERSONALIZE_LR), exact
+    launches; POST /train on servers with 8 stream slots (the defaults, which
+    diverge on res8, then PERSONALIZE_LR), /listen and a hub session opened
+    before /train against the CPU; --no-train."""
+    from http.server import ThreadingHTTPServer
+
+    from honk_tpu_torch.cli import serve as cli_serve
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.serve import LabelService, StreamHub, TrainingService
+    from honk_tpu_torch.serve.http import make_handler
+
+    pcm = personalize_positives()
+    pos = [p.astype(np.float32) / 32768.0 for p in pcm]
+    gpu, cpu = LabelService("res8", CHECKPOINT), LabelService("res8", CHECKPOINT, device="cpu")
+    one_mfcc = {"assemble": 0, "mfcc": 1, "res_stack": 0}
+
+    def fine_tune(svc, **kw):
+        trainer = TrainingService(svc, **kw)
+        reset(counters)
+        t0 = time.perf_counter()
+        out = trainer.fine_tune(pos, PERSONALIZE_LABEL)
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, read(counters)
+        if svc is gpu and launches != one_mfcc:
+            fail(f"fine_tune ({trainer.steps} steps) launched {launches}: expected one mfcc, nothing else")
+        return out, wall * 1e3, launches
+
+    def weight_errs(a, b):
+        """Max abs weight difference and the largest share of an element's limit (NaN if any weight is)."""
+        err, share = [], []
+        for k, ref in b["variables"].items():
+            got, ref = a["variables"][k].cpu().double(), ref.cpu().double()
+            diff = (got - ref).abs()
+            err.append(diff.max())
+            share.append((diff / (TRAIN_PARAM_TOL["atol"] + TRAIN_PARAM_TOL["rtol"] * ref.abs())).max())
+        return float(torch.stack(err).max()), float(torch.stack(share).max())
+
+    runs = {}
+    for key, kw in (("steps3", {"steps": 3}), ("steps60_defaults", {}),
+                    ("steps60_lr", {"learning_rate": PERSONALIZE_LR})):
+        (g, g_ms, launches), (c, c_ms, _) = fine_tune(gpu, **kw), fine_tune(cpu, **kw)
+        err, share = weight_errs(g, c)
+        runs[key] = {"final_loss": {"cuda": g["final_loss"], "cpu": c["final_loss"]}, "weight_max_abs_err": err,
+                     "weight_gate_share": share, "launches": launches, "host_ms": {"cuda": g_ms, "cpu": c_ms}}
+        if key == "steps3" and (abs(g["final_loss"] - c["final_loss"]) > TRAIN_LOSS_ATOL or not share <= 1.0):
+            fail(f"fine_tune 3 steps cuda vs cpu: loss {g['final_loss']} vs {c['final_loss']}, "
+                 f"weights at {share:.2f} of their limit")
+        if key == "steps60_lr" and not (math.isfinite(g["final_loss"]) and math.isfinite(c["final_loss"])):
+            fail(f"fine_tune at lr {PERSONALIZE_LR}: final losses {runs[key]['final_loss']}")
+    diverges = not math.isfinite(runs["steps60_defaults"]["final_loss"]["cuda"])
+    if diverges != (not math.isfinite(runs["steps60_defaults"]["final_loss"]["cpu"])):
+        fail(f"fine_tune at the defaults: cuda and cpu disagree on divergence: {runs['steps60_defaults']}")
+    # Device view of a 10-step fine-tune at the defaults (the copy of the model and the MFCC included).
+    steps_prof = 10
+    prof = profile_steps(torch, lambda: TrainingService(gpu, steps=steps_prof).fine_tune(pos, PERSONALIZE_LABEL), 1)
+
+    rng = np.random.default_rng(SEED + 22)
+    utts = [(rng.standard_normal(n) * 3000).astype(np.int16)
+            for n in (16000, 12000, 20000, 16000, 8000, 16000, 24000, 16000)]
+    chunks = [np.clip(np.round(rng.standard_normal(CHUNK) * 0.05 * 32767), -32768, 32767).astype(np.int16)
+              for _ in range(2)]
+    requests = pcm + utts
+    base_labels = [cpu.evaluate(p)[0] for p in pos]
+    cfg = StreamConfig(**STREAM_CFG)
+
+    # serve() as the CLI builds it (TrainingService's defaults): on res8 they diverge, so 422 and no swap.
+    before_model = gpu.model
+    run_default = train_over_http(serve(gpu, port=0, n_stream_slots=HUB_SLOTS, stream_cfg=cfg, chunk_samples=CHUNK),
+                                  counters, pcm, utts, chunks)
+    want_code = 422 if diverges else 200
+    if run_default["code"] != want_code or run_default["train_launches"] != one_mfcc:
+        fail(f"POST /train at the defaults answered {run_default['code']} {run_default['answer']}, launched "
+             f"{run_default['train_launches']}: expected {want_code} and one mfcc")
+    if diverges:
+        if gpu.model is not before_model:
+            fail("a diverged POST /train swapped the service's model")
+        check_served("after a diverged /train", run_default, cpu, cpu, requests, chunks)
+    else:
+        gpu.set_variables({k: v for k, v in before_model.state_dict().items()})
+
+    # The same handler with the trainer at PERSONALIZE_LR: 200, and the weights swapped everywhere.
+    hub = StreamHub(gpu, HUB_SLOTS, cfg, CHUNK, coalesce_ms=2.0)
+    trainer = TrainingService(gpu, learning_rate=PERSONALIZE_LR)
+    before_model = gpu.model
+    try:
+        run = train_over_http(ThreadingHTTPServer(("127.0.0.1", 0), make_handler(gpu, trainer, hub)),
+                              counters, pcm, utts, chunks)
+    finally:
+        hub.shutdown()
+    if run["code"] != 200 or run["train_launches"] != one_mfcc:
+        fail(f"POST /train at lr {PERSONALIZE_LR} answered {run['code']} {run['answer']}, launched "
+             f"{run['train_launches']}: expected 200 and one mfcc")
+    if gpu.model is before_model:
+        fail("POST /train did not swap the service's model")
+    new_sd = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+    prob_err, hub_err = check_served("after /train", run, LabelService("res8", new_sd, device="cpu"), cpu,
+                                     requests, chunks, swap=new_sd)
+
+    httpd = cli_serve.make_server(["--no-train", "--checkpoint", CHECKPOINT, "--port", "0", "--stream-slots", "0"])
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        no_train, _ = request_status(f"http://127.0.0.1:{httpd.server_address[1]}/train",
+                                     {"positives": [base64.b64encode(pcm[0].tobytes()).decode()],
+                                      "label": PERSONALIZE_LABEL})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    if no_train != 503:
+        fail(f"POST /train on a --no-train server answered {no_train}")
+
+    out = {
+        "positives": f"{len(pcm)} x the generator's {PERSONALIZE_WORD!r} as {PERSONALIZE_LABEL!r}",
+        "batch": 2 * 4 * len(pcm), "fine_tune": runs, "defaults_diverge": diverges,
+        "profile_10_steps": {"device_ms_per_step": prof["device_ms"] / steps_prof,
+                             "device_kernels_per_step": prof["device_kernels_per_step"] / steps_prof,
+                             "device_idle_share": prof["device_idle_share"],
+                             "profiled_wall_ms_per_step": prof["profiled_wall_ms"] / steps_prof,
+                             "top_kernels_ms_per_call": prof["top_kernels_ms"][:5]},
+        "post_train_defaults": {"status": run_default["code"], "ms": run_default["train_ms"],
+                                "launches": run_default["train_launches"]},
+        "post_train": {"status": run["code"], "ms": run["train_ms"], "final_loss": run["answer"]["final_loss"],
+                       "launches": run["train_launches"]},
+        "train_launches": run["train_launches"], "listen_after_train_launches": run["listen_launches"],
+        "listen_after_train_prob_max_abs_err": prob_err, "hub_posterior_max_abs_err": hub_err,
+        "positives_labels_before": base_labels, "positives_labels_after": [a["label"] for a in run["listens"][:3]],
+        "no_train_status": no_train,
+    }
+    print("[personalize] " + json.dumps(out))
+    return out
+
+
+def _srt_time(t: float) -> str:
+    ms = int(round(t * 1000))
+    return f"{ms // 3600000:02d}:{ms // 60000 % 60:02d}:{ms // 1000 % 60:02d},{ms % 1000:03d}"
+
+
+def _tree(root: str) -> dict:
+    out = {}
+    for dp, _, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(dp, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(dp, f), root)] = fh.read()
+    return out
+
+
+def phase_datagen(torch, counters, tmp) -> dict:
+    """23. The dataset generator on the streaming phases' tracks (60 s and 10 min,
+    keywords planted at known times, one caption each): the CLI with
+    --eval_checkpoint zoo/res8.pt on cuda and on the CPU, then the scoring rate."""
+    from honk_tpu_torch.cli.demo import synthesize_long_audio
+    from honk_tpu_torch.data import write_wav
+    from honk_tpu_torch.datagen import (LocalFileSource, evaluate_clips, extract_clips,
+                                        find_keyword_occurrences)
+    from honk_tpu_torch.datagen.cli import main as datagen_main
+    from honk_tpu_torch.serve import LabelService
+
+    src = os.path.join(tmp, "datagen_src")
+    os.makedirs(src)
+    for stem, kw in (("track60s", dict(keywords=list(STREAM_KEYWORDS), seconds=60, seed=7)),
+                     ("track10min", dict(keywords=list(STREAM_KEYWORDS) * 10, seconds=LONG_TRACK_S, seed=8))):
+        audio, positions = synthesize_long_audio(gap_s=8.0, noise_amp=0.01, **kw)
+        write_wav(os.path.join(src, f"{stem}.wav"), audio, 16000)
+        with open(os.path.join(src, f"{stem}.srt"), "w") as f:
+            f.write("\n".join(f"{i + 1}\n{_srt_time(t)} --> {_srt_time(t + 1.0)}\n{w}\n"
+                              for i, (t, w) in enumerate(positions)))
+    runs = {}
+    for side in ("cuda", "cpu"):
+        out_dir, report = os.path.join(tmp, f"datagen_{side}"), os.path.join(tmp, f"datagen_{side}.json")
+        reset(counters)
+        t0 = time.perf_counter()
+        rc, _ = run_cli(datagen_main, ["--keywords", *STREAM_KEYWORDS, "--input_dir", src, "--out_dir", out_dir,
+                                       "--eval_checkpoint", CHECKPOINT, "--report_json", report, "--device", side])
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"datagen CLI --device {side} returned {rc}")
+        with open(report) as f:
+            runs[side] = {"files": _tree(out_dir), "report": json.load(f), "wall_s": wall, "launches": read(counters)}
+    got, want = runs["cuda"]["report"], runs["cpu"]["report"]
+    n = got["n_clips"]
+    if n != 11 * len(STREAM_KEYWORDS) or got["n_scored"] != n:  # every planted keyword of both tracks
+        fail(f"datagen: {n} clips, {got['n_scored']} scored; expected {11 * len(STREAM_KEYWORDS)}")
+    if runs["cuda"]["files"] != runs["cpu"]["files"] or len(runs["cuda"]["files"]) != n:
+        fail(f"datagen: the clip files differ between cuda and cpu ({len(runs['cuda']['files'])} files, {n} clips)")
+    batches = math.ceil(n / BATCH)
+    if runs["cuda"]["launches"] != {"assemble": 0, "mfcc": batches, "res_stack": batches}:
+        fail(f"datagen CLI on cuda launched {runs['cuda']['launches']} for {n} clips: expected {batches} each")
+    prob_err = 0.0
+    for g, w in zip(got["verdicts"], want["verdicts"]):
+        if (g["keyword"], g["pred"], g["accept"]) != (w["keyword"], w["pred"], w["accept"]):
+            fail(f"datagen verdict cuda {g} != cpu {w}")
+        prob_err = max(prob_err, abs(g["prob"] - w["prob"]), abs(g["keyword_prob"] - w["keyword_prob"]))
+    if len(got["verdicts"]) != len(want["verdicts"]) or prob_err > PROB_ATOL or got["per_keyword"] != want["per_keyword"]:
+        fail(f"datagen report cuda vs cpu: prob max abs err {prob_err:.3e}, {got['per_keyword']} vs {want['per_keyword']}")
+    accepted = sum(v["accept"] for v in got["verdicts"])
+
+    # Scoring rate on the card: the clips in one padded batch, and 4 full batches.
+    svc = LabelService("res8", CHECKPOINT)
+    clips = [c for item in LocalFileSource(src)
+             for c in extract_clips(item.audio, find_keyword_occurrences(item.captions, STREAM_KEYWORDS))]
+    rates = {}
+    for key, cl in (("clips", clips), ("full_batches_4", (clips * (4 * BATCH // len(clips) + 1))[:4 * BATCH])):
+        evaluate_clips(svc.model, None, svc.labels, cl)  # warm up cuDNN for the shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            evaluate_clips(svc.model, None, svc.labels, cl)
+        torch.cuda.synchronize()
+        rates[key] = {"n_clips": len(cl), "clips_per_s": 5 * len(cl) / (time.perf_counter() - t0)}
+    out = {"n_clips": n, "accepted": accepted, "per_keyword": got["per_keyword"], "prob_max_abs_err": prob_err,
+           "launches": runs["cuda"]["launches"], "cli_wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "scoring": rates}
+    print("[datagen] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1326,6 +1656,13 @@ def main() -> int:
     # 17-21. Streaming: the MFCC kernel's causal framing, offline, online, the hub over HTTP, res15 and cnn.
     streaming = phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name)
 
+    # 22-23. Personalization (TrainingService, POST /train) and the dataset generator's quality scoring.
+    t0 = time.perf_counter()
+    personalize = phase_personalize(torch, counters, serve)
+    with tempfile.TemporaryDirectory() as tmp:
+        datagen = phase_datagen(torch, counters, tmp)
+    print(f"[personalize+datagen] phases 22-23 took {time.perf_counter() - t0:.1f} s")
+
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
 
@@ -1345,6 +1682,9 @@ def main() -> int:
         **{f"hard_v2_{c}": r["launches"] for c, r in hard_v2["models"].items()},
         **{f"train_{c}": v[0] for c, v in family_train.items()},
         **streaming["launches_by_path"],
+        "train_personalize": personalize["train_launches"],
+        "listen_after_train": personalize["listen_after_train_launches"],
+        "datagen_quality": datagen["launches"],
     }
     kernels = []
     for kname, src, replaces, work, err, tf32x3 in (
@@ -1386,7 +1726,8 @@ def main() -> int:
                       "family_eval_logit_err": family_errs, "family_listen": family_listen, "hard_v2": hard_v2,
                       "family_train_epochs": {c: v[1] for c, v in family_train.items()},
                       "family_times": family_times,
-                      "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")}}))
+                      "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")},
+                      "personalize": personalize, "datagen": datagen}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,7 +15,7 @@ the latest. Files in a checkpoint directory:
 
 Everything is saved from CPU copies and loaded with ``weights_only=True``
 (tensors, numbers, strings and dicts; no pickled code). The JAX package's
-Orbax directories are not read: that loader is ROADMAP.md §1.1's Orbax
+Orbax directories are not read: that loader is ROADMAP.md §1.5's Orbax
 item, and a directory of them raises saying so.
 """
 
@@ -29,7 +29,7 @@ import torch
 
 ORBAX_MESSAGE = (
     "holds Orbax checkpoints of the JAX package; the port reads only its own "
-    ".pt checkpoints (the Orbax loader is the open Orbax item of ROADMAP.md §1.1)"
+    ".pt checkpoints (the Orbax loader is ROADMAP.md §1.5)"
 )
 
 

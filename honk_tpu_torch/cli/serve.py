@@ -3,7 +3,7 @@
 Counterpart of ``python -m honk_tpu.cli.serve``:
 
     python -m honk_tpu_torch.cli.serve --model res8 --checkpoint zoo/res8.pt \\
-        [--port 16888] [--config config.json] [--device cuda|cpu] \\
+        [--port 16888] [--no-train] [--config config.json] [--device cuda|cpu] \\
         [--stream-slots 8] [--chunk-samples 3200] [--coalesce-ms 2] \\
         [--wire-dtype float32|int16] [--pipelined]
     python -m honk_tpu_torch.cli.serve --model res15 --checkpoint zoo_hard_v2/res15.pt
@@ -14,8 +14,8 @@ Counterpart of ``python -m honk_tpu.cli.serve``:
 --config accepts a reference-style config.json with keys
 {"model_path": ..., "commands": "cmd1,cmd2,..."}. The checkpoint is a honk
 ``.pt`` file. ``--device`` defaults to cuda and fails where no CUDA device
-is present; the stream hub (``/stream/*``) runs on the same device.
-/train answers 501 in this port, so ``--no-train`` changes nothing.
+is present; the stream hub (``/stream/*``) and ``/train`` run on the same
+device. ``--no-train`` turns personalization off: ``/train`` answers 503.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ def make_server(argv: list[str] | None = None):
     p.add_argument("--model", default="res8")
     p.add_argument("--checkpoint", required=False, default="")
     p.add_argument("--port", type=int, default=16888)
-    p.add_argument("--no-train", action="store_true",
-                   help="accepted for compatibility: /train is not in this port yet (501)")
+    p.add_argument("--no-train", action="store_true", help="disable POST /train (it answers 503)")
     p.add_argument("--config", default="", help="reference-style config.json")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument(
@@ -73,6 +72,7 @@ def make_server(argv: list[str] | None = None):
     httpd = serve(
         service,
         port=args.port,
+        enable_training=not args.no_train,
         n_stream_slots=args.stream_slots,
         chunk_samples=args.chunk_samples,
         stream_coalesce_ms=args.coalesce_ms,

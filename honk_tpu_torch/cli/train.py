@@ -18,8 +18,8 @@ resume checkpoints.
 
 Refused, each naming its ROADMAP.md item, until the port has them:
 ``--coordinator`` / ``--process-id`` / ``--num-processes`` and
-``--n_devices`` above 1 (data parallel, §1.7), ``--profile-dir``
-(``metrics/profiling.py``, §1.8) and an Orbax ``--input_file`` (§1.1).
+``--n_devices`` above 1 (data parallel, §1.3), ``--profile-dir``
+(``metrics/profiling.py``, §1.4) and an Orbax ``--input_file`` (§1.5).
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--save_every_epochs", type=int, default=5,
         help="epochs between periodic step checkpoints (crash recovery)",
     )
-    p.add_argument("--profile-dir", default="", help="refused: not in the port yet (ROADMAP.md §1.8)")
+    p.add_argument("--profile-dir", default="", help="refused: not in the port yet (ROADMAP.md §1.4)")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic dataset into data_dir first (no-network dev)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -90,16 +90,16 @@ def _refuse_unported(p: argparse.ArgumentParser, args: argparse.Namespace) -> No
                         ("--num-processes", args.num_processes)):
         if value is not None:
             p.error(f"{flag}: multi-process training is not in the port yet "
-                    "(data parallel, ROADMAP.md §1.7)")
+                    "(data parallel, ROADMAP.md §1.3)")
     if args.n_devices not in (0, 1):
         p.error(f"--n_devices {args.n_devices}: the port trains on one device; data parallel "
-                "is ROADMAP.md §1.7")
+                "is ROADMAP.md §1.3")
     if args.profile_dir:
         p.error("--profile-dir: the torch.profiler port of metrics/profiling.py is "
-                "ROADMAP.md §1.8, not in the port yet")
+                "ROADMAP.md §1.4, not in the port yet")
     if args.input_file and is_orbax_path(args.input_file):
         p.error(f"--input_file {args.input_file}: the port reads honk .pt files; the Orbax "
-                "loader is the open Orbax item of ROADMAP.md §1.1")
+                "loader is ROADMAP.md §1.5")
     if args.type == "eval" and not args.input_file:
         p.error("--type eval needs --input_file (a honk .pt)")
 

@@ -15,7 +15,7 @@ silence clips so accuracy is reproducible.
 Files are decoded with the pure-Python reader (``wavio``). The JAX package
 decodes with its native batched reader where it can and falls back to the
 same reader, so the arrays are equal (``tests/test_torch_loop.py``); the
-native reader's port is ROADMAP.md §1.8.
+native reader's port is ROADMAP.md §1.4.
 """
 
 from __future__ import annotations

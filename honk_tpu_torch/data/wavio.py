@@ -3,7 +3,7 @@
 A copy of ``honk_tpu.data.wavio`` (numpy and the stdlib only). Reading
 returns float32 in [-1, 1] with the same int16/32768 scaling librosa uses
 for PCM16. The JAX package's native batched reader (``honk_tpu/native``)
-is not ported yet (ROADMAP.md §1.8); its fallback is this reader, so the
+is not ported yet (ROADMAP.md §1.4); its fallback is this reader, so the
 decoded arrays are the same.
 """
 

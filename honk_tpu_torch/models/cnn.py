@@ -16,7 +16,8 @@ names are honk's (``conv1.weight`` / ``bias``, ``conv2.*``, ``lin.*``,
 converter.
 
 The eval forward is float32 (cuDNN convs, cuBLAS dense layers; the JAX
-package has no Pallas kernel for this family either). The training forward
+package has no Pallas kernel for this family either); ``frozen_forward`` runs
+it in either mode, for personalization to differentiate. The training forward
 runs the convs and ``lin`` / ``dnn*`` with ``dtype`` operands (bf16 in,
 float32 out), the ``output`` layer in float32, and dropout with flax's
 arithmetic (``layers.apply_dropout``). Its keep masks come from an explicit
@@ -109,18 +110,26 @@ class SpeechModel(nn.Module):
         """Logits. Training mode needs ``dropout``: the generator to draw the
         keep masks from (``keep_masks``), or the masks themselves. ``packed``
         is ``eval_operands()``'s None, taken like the res family's."""
+        if not self.training:
+            return self._layers(x, torch.float32, [])
+        shapes = self.dropout_shapes(x.shape[0])
         masks: list[torch.Tensor] = []
-        dtype = torch.float32
-        if self.training:
-            dtype = self.dtype
-            shapes = self.dropout_shapes(x.shape[0])
-            if isinstance(dropout, torch.Generator):
-                masks = draw_keep_masks(dropout, shapes, self.keep_prob)
-            elif dropout is not None:
-                masks = list(dropout)
-            if len(masks) != len(shapes):
-                raise ValueError(f"the training forward applies {len(shapes)} dropout layers: "
-                                 f"pass a generator or as many keep masks, not {dropout!r}")
+        if isinstance(dropout, torch.Generator):
+            masks = draw_keep_masks(dropout, shapes, self.keep_prob)
+        elif dropout is not None:
+            masks = list(dropout)
+        if len(masks) != len(shapes):
+            raise ValueError(f"the training forward applies {len(shapes)} dropout layers: "
+                             f"pass a generator or as many keep masks, not {dropout!r}")
+        return self._layers(x, self.dtype, masks)
+
+    def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval forward's logits (float32, no dropout) under autograd, in
+        either mode: what a fine-tune differentiates (flax's ``train=False``).
+        The family has no BN, so nothing is frozen but the dropout."""
+        return self._layers(x, torch.float32, [])
+
+    def _layers(self, x: torch.Tensor, dtype: torch.dtype, masks: list[torch.Tensor]) -> torch.Tensor:
         keep = iter(masks)
 
         def drop(y: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,9 @@ outside its kernel too) and the rest through the res-stack kernel's
 wrapper. The kernel takes no dilated convs (nor does the TPU's), so res15
 runs every conv through cuDNN, with BN from the running statistics folded
 as the kernel's operands fold it (``fold_bn``); ``use_full_f32`` keeps those
-convs out of TF32.
+convs out of TF32. ``frozen_forward`` is the eval forward of every config as
+PyTorch ops under autograd, with that fold: personalization differentiates
+it (``serve.TrainingService``).
 
 The training forward (``model.train()``) is plain PyTorch with autograd:
 the convolutions go through cuDNN (the JAX package has no Pallas kernel for
@@ -98,7 +100,18 @@ class SpeechResModel(nn.Module):
             packed = self.eval_operands()
         if not self.dilated:
             return res_stack(self.stem(x), *packed)
-        scale, offset = (t[:, :, None, None] for t in packed)
+        return self._folded_stack(x, *packed)
+
+    def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval forward's logits as PyTorch ops under autograd, in either
+        mode: BN from the running statistics, folded as ``fold_bn`` folds them
+        (buffers only, so gradients reach the conv and Dense weights as through
+        flax's ``train=False``). This is what a fine-tune differentiates: the
+        res-stack kernel, like the TPU's, has no backward."""
+        return self._folded_stack(x, *fold_bn(self))
+
+    def _folded_stack(self, x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+        scale, offset = scale[:, :, None, None], offset[:, :, None, None]
         return self._stack(x, torch.float32, lambda i, y: y * scale[i - 1] + offset[i - 1])
 
     def _stack(self, x: torch.Tensor, dtype: torch.dtype,

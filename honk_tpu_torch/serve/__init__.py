@@ -1,5 +1,5 @@
 from .http import serve
-from .service import LabelService, default_labels
+from .service import LabelService, TrainingService, default_labels
 from .streams import StreamHub
 
-__all__ = ["LabelService", "StreamHub", "default_labels", "serve"]
+__all__ = ["LabelService", "StreamHub", "TrainingService", "default_labels", "serve"]

@@ -14,6 +14,7 @@ keep-alive behaviour. Endpoints in this port:
     POST /stream/push_many {"chunks": {sid: wav_data}} -> {"results": {sid: ...}}
     POST /stream/push_bin  (binary frame, below) -> {"results": {sid: ...}}
     POST /stream/close {"stream_id"}             -> {"events"}
+    POST /train    {"positives": [<base64 PCM16>...], "label": str} -> {"final_loss": float}
 
 ``/stream/push_bin`` is the gateway path: the body is
 ``u32 LE header_len | header JSON | raw PCM16 LE samples``, the header
@@ -24,8 +25,16 @@ response is push_many's without the per-label posterior unless asked.
 endpoints 404 for an unknown session, and all of ``/stream/*`` 503 when
 the hub is disabled (``n_stream_slots=0``).
 
-``/train`` answers 501 "not in this port yet": personalization comes with
-a later slice of the port.
+``/train`` fine-tunes the served model on the positives (``TrainingService``,
+on the handler's thread, without the service's lock, so ``/listen`` and the
+hub keep answering), then swaps the new weights into the service and the
+hub: ``/listen`` and every open and later stream session use them from
+their next request. It answers 400 for missing or malformed positives or
+label, for no positives and for a label the model does not have (the JAX
+server drops the connection on the last two), 422 when the fine-tune
+diverged (a non-finite loss or weight: the JAX server swaps such weights in,
+and then answers every request with NaN), and 503 when training is disabled
+(``enable_training=False``, the CLI's ``--no-train``).
 
 stdlib http.server only. The server is THREADED (ThreadingHTTPServer, a
 thread per connection) and speaks HTTP/1.1 with keep-alive (every response
@@ -38,15 +47,21 @@ from __future__ import annotations
 
 import base64
 import json
+import math
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
+import torch
 
-from .service import LabelService
+from .service import LabelService, TrainingService
 from .streams import StreamHub
 
-_NOT_PORTED = {"error": "not in this port yet"}
+
+def _finite(result: dict[str, Any]) -> bool:
+    """Whether a fine-tune's loss and every floating-point weight are finite."""
+    return math.isfinite(result["final_loss"]) and all(
+        bool(torch.isfinite(v).all()) for v in result["variables"].values() if v.is_floating_point())
 
 
 def _decode_pcm16(b64: str) -> np.ndarray:
@@ -194,7 +209,7 @@ addEventListener('pagehide', () => {
 """
 
 
-def make_handler(service: LabelService, hub: StreamHub | None):
+def make_handler(service: LabelService, trainer: TrainingService | None, hub: StreamHub | None):
     class Handler(BaseHTTPRequestHandler):
         # HTTP/1.1: keep-alive connections (every response sets
         # Content-Length, which 1.1 requires for reuse).
@@ -250,9 +265,6 @@ def make_handler(service: LabelService, hub: StreamHub | None):
             body = self._read_body()
             if body is None:
                 return
-            if self.path == "/train":
-                self._send(501, _NOT_PORTED)
-                return
             if self.path == "/stream/push_bin":
                 self._handle_push_bin(body)
                 return
@@ -287,8 +299,38 @@ def make_handler(service: LabelService, hub: StreamHub | None):
                 self._send(200, {"detections": service.evaluate_long(audio)})
             elif self.path.startswith("/stream/"):
                 self._handle_stream(payload)
+            elif self.path == "/train":
+                self._handle_train(payload)
             else:
                 self._send(404, {"error": "unknown endpoint"})
+
+        def _handle_train(self, payload: Any) -> None:
+            if trainer is None:
+                self._send(503, {"error": "training service disabled"})
+                return
+            try:
+                if not isinstance(payload["positives"], list):
+                    raise ValueError("positives must be a list of base64 PCM16 strings")
+                positives = [_decode_pcm16(p) for p in payload["positives"]]
+                target = payload["label"]
+            except (KeyError, TypeError, ValueError) as e:
+                self._send(400, {"error": f"positives/label missing or invalid: {e}"})
+                return
+            try:
+                result = trainer.fine_tune(positives, target)
+            except ValueError as e:  # an unknown label, no positives
+                self._send(400, {"error": str(e)})
+                return
+            if not _finite(result):
+                self._send(422, {"error": f"the fine-tune diverged (final loss {result['final_loss']}); "
+                                          "the served weights are unchanged"})
+                return
+            service.set_variables(result["variables"])
+            if hub is not None:
+                # Open and later stream sessions score with the new weights
+                # from their next chunk, as /listen does.
+                hub.set_variables(result["variables"])
+            self._send(200, {"final_loss": result["final_loss"]})
 
         def _handle_push_bin(self, body: bytes) -> None:
             """Binary gateway tick: header JSON + raw PCM16, no base64.
@@ -366,6 +408,7 @@ def make_handler(service: LabelService, hub: StreamHub | None):
 def serve(
     service: LabelService,
     port: int = 16888,
+    enable_training: bool = True,
     n_stream_slots: int = 8,
     stream_cfg=None,
     chunk_samples: int = 3200,
@@ -375,13 +418,16 @@ def serve(
 ) -> ThreadingHTTPServer:
     """Start the HTTP front end (returns the server; call serve_forever).
 
-    The stream hub (``n_stream_slots`` sessions on one slab, 0 disables)
-    runs on the service's device. ``stream_coalesce_ms``: how long a tick
-    leader waits for the remaining open sessions to join.
+    ``enable_training`` serves ``/train`` (``TrainingService`` with its
+    defaults); otherwise it answers 503. The stream hub (``n_stream_slots``
+    sessions on one slab, 0 disables) runs on the service's device.
+    ``stream_coalesce_ms``: how long a tick leader waits for the remaining
+    open sessions to join.
     ``stream_pipelined``: each push returns the session's PREVIOUS chunk's
     result (exact lag-1), hiding the result fetch behind the next tick.
     ``server_close()`` also stops the hub's fetcher threads.
     """
+    trainer = TrainingService(service) if enable_training else None
     hub = (
         StreamHub(
             service, n_stream_slots, stream_cfg, chunk_samples,
@@ -391,7 +437,7 @@ def serve(
         if n_stream_slots > 0
         else None
     )
-    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service, hub))
+    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service, trainer, hub))
     httpd.hub = hub
     if hub is not None:
         orig_close = httpd.server_close

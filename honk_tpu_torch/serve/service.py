@@ -1,21 +1,30 @@
-"""Label service: single-utterance and batch keyword classification.
+"""Label and training services: utterance classification and personalization.
 
-Counterpart of ``honk_tpu.serve.service.LabelService`` (reference
-``service.py::LabelService``): ``evaluate(audio)`` trims/pads to 1 s, runs
-MFCC + classifier, softmax, argmax, for any of the 16 model configs. On
-``cuda`` (the default) the forward is the MFCC kernel, then the model's
-eval forward: for res8 / res26 conv0 + pool in PyTorch and the res-stack
-kernel, for res15 and cnn-* cuDNN convs and cuBLAS dense layers, all in
-float32 with TF32 off. ``evaluate_long`` runs continuous detection over
-long audio (``stream.stream_file``: one MFCC launch for the whole
-waveform, one model call for all its windows), and ``make_batch_streamer``
-gives the online slab the stream hub serves from. It takes honk ``.pt``
-checkpoints; the Orbax loader and ``TrainingService`` come with later
-slices.
+Counterparts of ``honk_tpu.serve.service`` (reference
+``service.py::LabelService / TrainingService``):
+
+- ``LabelService.evaluate(audio)`` trims/pads to 1 s, runs MFCC +
+  classifier, softmax, argmax, for any of the 16 model configs. On ``cuda``
+  (the default) the forward is the MFCC kernel, then the model's eval
+  forward: for res8 / res26 conv0 + pool in PyTorch and the res-stack
+  kernel, for res15 and cnn-* cuDNN convs and cuBLAS dense layers, all in
+  float32 with TF32 off. ``evaluate_long`` runs continuous detection over
+  long audio (``stream.stream_file``: one MFCC launch for the whole
+  waveform, one model call for all its windows), and ``make_batch_streamer``
+  gives the online slab the stream hub serves from. It takes a honk ``.pt``
+  or a state dict in the port's names; ``set_variables`` swaps in new
+  weights. The Orbax loader is not in the port yet (ROADMAP.md §1.5).
+- ``TrainingService.fine_tune`` personalizes: the JAX method step for step
+  (positives, their contrastive scrambles as ``__unknown__``, SGD with
+  momentum on the mean cross-entropy, BN frozen), on a copy of the
+  service's current model. The features are one launch of the MFCC kernel
+  (the audio has no gradient); the steps differentiate the model's
+  ``frozen_forward``, because the res-stack kernel has no backward.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from typing import Any, Sequence
 
@@ -27,7 +36,7 @@ from ..audio import AudioSnippet
 from ..config import StreamConfig
 from ..data import DEFAULT_WANTED_WORDS, LABEL_SILENCE, LABEL_UNKNOWN
 from ..frontend import compute_mfccs
-from ..models import find_config, find_model, load_honk_checkpoint
+from ..models import find_config, find_model, load_honk_checkpoint, load_state_dict
 from ..stream import BatchStreamer, stream_file
 
 
@@ -41,12 +50,13 @@ class LabelService:
     ``device`` defaults to ``cuda`` and raises where no CUDA device is
     present; ``device="cpu"`` runs the kernels' plain versions. The device
     forward is serialized by a lock, because the HTTP server is threaded.
+    ``variables`` is a honk ``.pt`` path or a state dict in the port's names.
     """
 
     def __init__(
         self,
         model_name: str,
-        checkpoint: str,
+        variables: str | dict[str, torch.Tensor],
         labels: Sequence[str] | None = None,
         device: str | torch.device | None = None,
     ):
@@ -56,10 +66,28 @@ class LabelService:
         self.labels = list(labels or default_labels())
         cfg["n_labels"] = len(self.labels)
         self.model = find_model(model_name)(cfg)
-        load_honk_checkpoint(checkpoint, self.model)
+        if isinstance(variables, str):
+            load_honk_checkpoint(variables, self.model)
+        else:
+            load_state_dict(self.model, variables)
         self.model.to(self.device).eval()
         self._packed = self.model.eval_operands()
         self._lock = threading.Lock()
+
+    def set_variables(self, variables: dict[str, torch.Tensor]) -> None:
+        """Serve new weights (a state dict in the port's names) from the next request on.
+
+        The weights go into a new module and its ``eval_operands()`` are
+        computed before ``(model, operands)`` are swapped under the lock: the
+        old module is never written, so whatever still holds it (a stream
+        hub's ``Streamer`` until its own ``set_variables``) keeps one whole
+        model, never new convs against old packed operands.
+        """
+        new = load_state_dict(copy.deepcopy(self.model), variables).eval()
+        with torch.no_grad():
+            packed = new.eval_operands()
+        with self._lock:
+            self.model, self._packed = new, packed
 
     def logits(self, audio: np.ndarray) -> torch.Tensor:
         """(B, 16000) float32 -> (B, n_labels) logits on the service's device."""
@@ -111,3 +139,69 @@ class LabelService:
         device with its model: feed ``(n_streams, chunk_samples)`` chunks per
         call."""
         return BatchStreamer(self.model, None, n_streams, stream_cfg, chunk_samples, data_axis)
+
+
+class TrainingService:
+    """Few-shot personalization: fine-tune on user positives + contrastives.
+
+    The new keyword takes over an existing label slot (like the reference's
+    web demo, which personalizes one of the command words); negatives are
+    contrastive scrambles of the positives plus optional user negatives.
+    Runs on the base service's device.
+    """
+
+    def __init__(self, base: LabelService, learning_rate: float = 0.01, steps: int = 60):
+        self.base = base
+        self.lr = learning_rate
+        self.steps = steps
+
+    def fine_tune(
+        self,
+        positives: list[np.ndarray],
+        target_label: str,
+        negatives: list[np.ndarray] | None = None,
+        seed: int = 0,
+    ) -> dict[str, Any]:
+        """New weights adapted so `positives` score as `target_label`:
+        ``{"variables": <state dict in the port's names>, "final_loss": float}``.
+
+        ``final_loss`` is the loss of the last step's forward, before its
+        update, as in the JAX method. Raises ``ValueError`` for a label the
+        service does not have or for no positives (the JAX method fails on
+        both deeper down, in ``list.index`` and ``np.stack``).
+        """
+        labels = self.base.labels
+        if not isinstance(target_label, str) or target_label not in labels:
+            raise ValueError(f"unknown label {target_label!r}: the model's labels are {labels}")
+        if not positives:
+            raise ValueError("no positives: fine_tune needs at least one example of the keyword")
+        label_idx = labels.index(target_label)
+        unknown_idx = labels.index(LABEL_UNKNOWN)
+
+        pos = [AudioSnippet(p).trim_window(16000).pad_to(16000).data for p in positives]
+        negs = [n for p in positives for n in AudioSnippet(p).generate_contrastive(4, seed)]
+        neg = [AudioSnippet(n.data).pad_to(16000).data[:16000] for n in negs]
+        if negatives:
+            neg += [AudioSnippet(n).trim_window(16000).pad_to(16000).data for n in negatives]
+        # Balance classes: contrastive generation yields ~4 negatives per
+        # positive; unbalanced CE drags everything to __unknown__.
+        if len(pos) < len(neg):
+            reps = -(-len(neg) // len(pos))
+            pos = (pos * reps)[: len(neg)]
+
+        device = self.base.device
+        y = torch.tensor([label_idx] * len(pos) + [unknown_idx] * len(neg), dtype=torch.int64, device=device)
+        with torch.no_grad():  # one MFCC launch: the audio takes no gradient
+            feats = compute_mfccs(torch.from_numpy(np.stack(pos + neg)).to(device))
+
+        # A copy of the service's current model, trained in eval mode (BN
+        # frozen, no dropout); the service keeps answering meanwhile.
+        model = copy.deepcopy(self.base.model).eval()
+        opt = torch.optim.SGD(model.parameters(), lr=self.lr, momentum=0.9)  # = optax.sgd(lr, momentum=0.9)
+        loss = None
+        for _ in range(self.steps):
+            opt.zero_grad(set_to_none=True)
+            loss = torch.nn.functional.cross_entropy(model.frozen_forward(feats), y)
+            loss.backward()
+            opt.step()
+        return {"variables": model.state_dict(), "final_loss": loss.item()}

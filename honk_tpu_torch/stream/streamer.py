@@ -30,7 +30,7 @@ given weights, or swapping them with ``set_variables``, loads them into its
 own copy of the model, so the caller's model (a ``LabelService``'s) keeps
 its weights. The model's ``eval_operands()`` are computed once per set of
 weights. Data-parallel scoring (the JAX package's ``data_axis``) is not in
-the port yet (ROADMAP.md §1.7).
+the port yet (ROADMAP.md §1.3).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ WINDOW_FRAMES = F.N_FRAMES  # 101
 HOP = F.HOP_LENGTH  # 160
 NFFT = F.N_FFT  # 480
 
-_NO_DATA_AXIS = "data-parallel streaming (data_axis) is not in this port yet: ROADMAP.md §1.7"
+_NO_DATA_AXIS = "data-parallel streaming (data_axis) is not in this port yet: ROADMAP.md §1.3"
 
 
 def frame_mfccs(audio: torch.Tensor) -> torch.Tensor:

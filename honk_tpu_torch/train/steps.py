@@ -13,7 +13,7 @@ and evaluates through the same calls; a model without BN (cnn-*) has no
 running statistics to update, as the JAX step's ``has_bn``.
 
 PyTorch runs eagerly, so there is nothing to compile: a "scan" of N steps
-is a Python loop (graph capture of it is ROADMAP.md §1.3's open item).
+is a Python loop (graph capture of it is open speed work, ROADMAP.md §2).
 Steps update the state in place and also return it, in the JAX package's
 ``(state, metrics)`` shape; metrics stay on the device until read.
 """

@@ -190,11 +190,11 @@ def test_cli_without_device_raises_without_cuda(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--coordinator", "localhost:1234"], "§1.7"),
-    (["--process-id", "0"], "§1.7"),
-    (["--num-processes", "2"], "§1.7"),
-    (["--n_devices", "4"], "§1.7"),
-    (["--profile-dir", "trace"], "§1.8"),
+    (["--coordinator", "localhost:1234"], "§1.3"),
+    (["--process-id", "0"], "§1.3"),
+    (["--num-processes", "2"], "§1.3"),
+    (["--n_devices", "4"], "§1.3"),
+    (["--profile-dir", "trace"], "§1.4"),
     (["--input_file", "ckpts/run"], "Orbax"),
 ])
 def test_cli_refuses_what_the_port_cannot_honour(flags, item, capsys):

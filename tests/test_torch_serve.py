@@ -127,8 +127,8 @@ def test_http_listen_labels_and_errors(services):
         assert _request(f"{base}/listen", b"not json")[0] == 400
         assert _request(f"{base}/listen", b'{"method": "all"}')[0] == 400  # no wav_data
         assert _request(f"{base}/listen", b'{"wav_data": "AAA"}')[0] == 400  # bad base64
-        code, body = _request(f"{base}/train", b"{}")
-        assert code == 501 and json.loads(body) == {"error": "not in this port yet"}
+        code, body = _request(f"{base}/train", b"{}")  # training is on by default, as in JAX
+        assert code == 400 and "positives/label missing" in json.loads(body)["error"]
         assert _request(f"{base}/stream", b"{}")[0] == 400  # no wav_data
         assert _request(f"{base}/stream/push_bin", b"{}")[0] == 400  # not a binary frame
         assert _request(f"{base}/stream/push", b'{"stream_id": "nope", "wav_data": ""}')[0] == 404
@@ -138,6 +138,17 @@ def test_http_listen_labels_and_errors(services):
 
         code, body = _request(f"{base}/")
         assert code == 200 and b"keyword spotting" in body
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    assert not th.is_alive()
+    httpd = serve(port_svc, port=0, enable_training=False, n_stream_slots=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        code, body = _request(f"http://127.0.0.1:{httpd.server_address[1]}/train", b"{}")
+        assert code == 503 and json.loads(body) == {"error": "training service disabled"}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -209,7 +220,8 @@ def test_port_source_imports_no_jax(path):
 def test_port_runtime_loads_no_jax():
     code = (
         "import honk_tpu_torch.serve.http, honk_tpu_torch.serve.streams, honk_tpu_torch.stream, "
-        "honk_tpu_torch.cli.serve, honk_tpu_torch.cli.demo, sys; "
+        "honk_tpu_torch.cli.serve, honk_tpu_torch.cli.demo, honk_tpu_torch.cli.manage_audio, "
+        "honk_tpu_torch.datagen.cli, sys; "
         "assert not any(m=='jax' or m=='honk_tpu' or m.startswith(('jax.','honk_tpu.')) "
         "for m in sys.modules)"
     )

@@ -250,9 +250,9 @@ def test_stream_file_shorter_than_a_window(narrow, n):
 
 def test_data_axis_is_refused(narrow):
     _, _, model = narrow
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.3"):
         tstream.stream_file(model, None, _audio(32000, seed=7), data_axis="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.3"):
         tstream.BatchStreamer(model, None, 2, data_axis="data")
 
 

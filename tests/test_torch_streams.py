@@ -207,7 +207,7 @@ def test_stream_push_many_matches_individual_pushes(service):
 
 def test_http_demo_page_and_long_audio(service):
     """GET / serves the demo page with its LIVE mode; POST /stream runs
-    evaluate_long; /train is still 501; with no hub /stream/* is 503."""
+    evaluate_long; /train without positives is 400; with no hub /stream/* is 503."""
     with _Server(service, n_stream_slots=0) as srv:
         with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/", timeout=60) as r:
             assert r.headers["Content-Type"].startswith("text/html")
@@ -218,12 +218,12 @@ def test_http_demo_page_and_long_audio(service):
         out = _post(srv.port, "/stream", {"wav_data": _b64(audio)})
         decoded = (audio * 32767).astype("<i2").astype(np.float32) / 32768.0  # what the server decodes
         assert out == {"detections": service.evaluate_long(decoded)}
-        for path, code in (("/train", 501), ("/stream/open", 503), ("/stream/push_bin", 503)):
+        for path, code in (("/train", 400), ("/stream/open", 503), ("/stream/push_bin", 503)):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(srv.port, path, {})
             assert e.value.code == code, path
-            if code == 501:
-                assert json.loads(e.value.read()) == {"error": "not in this port yet"}
+            if path == "/train":
+                assert "positives/label missing" in json.loads(e.value.read())["error"]
 
 
 def test_stream_session_incremental_matches_batch_recompute(service):
