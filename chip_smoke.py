@@ -108,7 +108,34 @@ then personalization and the dataset generator, on zoo/res8.pt:
     tracks with a caption at each planted keyword (66 clips), on cuda and on
     the CPU: the same clip files and verdicts, probabilities within 1e-4,
     ceil(66 / 256) launches of the MFCC and the res stack; clips scored per
-    second.
+    second;
+
+then the device worker, data parallel, profiling and the native loader
+(25-27 run right after phase 11 on its corpus, 28 after phase 14 on the
+hard_v2 corpus, 24 last):
+
+24. the repair of the per-thread setup: for res8, res15 and cnn-trad-pool2,
+    30 /listen on a new connection each (a new server thread each): the
+    round trip, the service call inside it, GET /labels beside it; then
+    LabelService.evaluate on the main thread, on a new thread per call and
+    on one worker thread; the hub's first push on a new connection (phase
+    20) against its steady push;
+25. data parallel at world size 1 on NCCL: cli.train trains res8 as phase
+    10 did, with --coordinator / --num-processes 1 / --process-id 0; its
+    last step checkpoint must equal phase 10's within 1e-6 and its accuracy
+    be phase 10's; launch counts; then, in a world-1 NCCL group, a train
+    step's host ms with and without the mesh, in turns, the device time of
+    an NCCL all-reduce of res8's gradient (torch.profiler),
+    dryrun_multichip(1), stream_file and an 8-slot BatchStreamer (masked
+    every other step) with data_axis="data" bitwise equal to their
+    unsharded runs;
+26. each kernel on a rank's rows (2 and 4 ranks of a B=64 batch) against
+    the same rows of the unsharded launch: assembly and MFCC bitwise, the
+    res stack within its gate;
+27. cli.train --profile-dir: the traces of the first dispatch and the first
+    dev eval name the three kernels and the annotate ranges;
+28. the native WAV loader built with g++ here: the hard_v2 corpus loaded
+    through it equals the Python reader's, and the load times of both.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -134,6 +161,7 @@ import urllib.request
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START_TIME = time.time()
 CHECKPOINT = os.path.join(ROOT, "zoo", "res8.pt")
 HARD_V2 = os.path.join(ROOT, "zoo_hard_v2")
 FAMILY = ("res15", "res15-narrow", "cnn-trad-pool2")  # the configs the res-stack kernel does not run
@@ -188,6 +216,8 @@ PERSONALIZE_LABEL = "yes"
 # steps, BN frozen) diverge on zoo/res8.pt; the swap over HTTP is checked
 # with a trainer at this rate, which converges (0.41 after 60 steps on the CPU).
 PERSONALIZE_LR = 0.001
+# Phase 24: rounds of one call per column, taken in turns.
+N_WORKER_ROUNDS = 40
 
 
 def fail(msg: str) -> None:
@@ -440,7 +470,7 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
           f"epochs " + "; ".join(f"loss {r['loss']:.4f} acc {r['acc']:.4f} audio_s_per_s {r['audio_s_per_s']}"
                                  for r in epochs)
           + f"; final test accuracy {train_acc}; --type eval of best.pt cuda {accs['cuda']} = cpu {accs['cpu']}")
-    return launches, epochs
+    return launches, epochs, train_acc
 
 
 def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
@@ -968,10 +998,13 @@ def phase_hub(torch, svc, cpu, counters, serve, track, positions) -> dict:
         local, conns = threading.local(), []
         lock = threading.Lock()
 
-        def request(path, body, ctype="application/json"):
-            # One keep-alive connection per client thread.
+        def request(path, body, ctype="application/json", fresh=False):
+            # One keep-alive connection per client thread; ``fresh`` replaces it
+            # with a new one (a new server thread) before this request.
             conn = getattr(local, "conn", None)
-            if conn is None:
+            if fresh and conn is not None:
+                conn.close()
+            if conn is None or fresh:
                 conn = local.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
                 with lock:
                     conns.append(conn)
@@ -988,16 +1021,22 @@ def phase_hub(torch, svc, cpu, counters, serve, track, positions) -> dict:
             with ThreadPoolExecutor(max_workers=n_clients) as pool:
                 sids = [request("/stream/open", b"{}")[0]["stream_id"] for _ in range(HUB_SLOTS)]
 
+                # Mid-run, every client pushes once on a new connection: the
+                # first push on a new connection, with the clients' threads
+                # already running and the ticks already in phase.
+                prof_at = 100
+                reconnect_at = prof_at + 20 + 50
+
                 def push(i, t):
                     body = json.dumps({"stream_id": sids[i],
                                        "wav_data": base64.b64encode(rows[t][i].tobytes()).decode()}).encode()
-                    return request("/stream/push", body)
+                    return request("/stream/push", body, fresh=t == reconnect_at)
 
                 def push_bin(t):
                     header = json.dumps({"stream_ids": sids, "posterior": True}).encode()
                     out, dt = request("/stream/push_bin",
                                       len(header).to_bytes(4, "little") + header + rows[t].astype("<i2").tobytes(),
-                                      "application/octet-stream")
+                                      "application/octet-stream", fresh=t == reconnect_at)
                     return [(out["results"][s], dt) for s in sids]
 
                 answers, tick_ms, push_ms = [], [], []
@@ -1013,7 +1052,6 @@ def phase_hub(torch, svc, cpu, counters, serve, track, positions) -> dict:
                     answers.append([a for a, _ in got])
 
                 reset(counters)
-                prof_at = 100
                 for t in range(prof_at):
                     tick(t)
                 it = iter(range(prof_at, prof_at + 20))
@@ -1060,13 +1098,13 @@ def phase_hub(torch, svc, cpu, counters, serve, track, positions) -> dict:
         if run == "push_bin" and launches["mfcc"] != n_ticks:
             fail(f"hub push_bin: one frame a tick must be one dispatch, launched {launches}")
         first = push_ms[0]
-        steady = [ms for row in push_ms[prof_at + 20:] for ms in row]
+        steady = [ms for t, row in enumerate(push_ms) if t >= prof_at + 20 and t != reconnect_at for ms in row]
         results[run] = {
             "ticks": n_ticks, "launches": launches, "launches_per_tick": launches["mfcc"] / n_ticks,
             "posterior_max_abs_err": post_err,
             "track_events": planted, "host_ms_per_tick_median": float(np.median(tick_ms)),
             "host_ms_per_tick_p99": float(np.percentile(tick_ms, 99)),
-            "push_ms_first_on_new_connection": first,
+            "push_ms_first_on_new_connection": first, "push_ms_on_new_connection_mid_run": push_ms[reconnect_at],
             "push_ms_steady_median": float(np.median(steady)), "push_ms_steady_p99": float(np.percentile(steady, 99)),
             "device_ms_per_tick": prof["device_ms"], "device_kernels_per_tick": prof["device_kernels_per_step"],
             "device_idle_share": prof["device_idle_share"], "top_kernels_ms": prof["top_kernels_ms"][:4],
@@ -1449,6 +1487,319 @@ def phase_datagen(torch, counters, tmp) -> dict:
     return out
 
 
+# ---- 24-28: the device worker, data parallel, --profile-dir, the native loader ----
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ms_summary(ms: list[float]) -> dict:
+    return {"median_ms": float(np.median(ms)), "p99_ms": float(np.percentile(ms, 99)),
+            "min_ms": float(min(ms)), "max_ms": float(max(ms))}
+
+
+def phase_worker_thread(torch, services, serve, hub, smi) -> dict:
+    """24. The repair: /listen on a new connection per request (a new server thread
+    each): its round trip, the service call inside it on the handler's thread, and
+    GET /labels (no device work) on a new connection each; against
+    LabelService.evaluate on the main thread, on a new thread per call and on one
+    worker thread (scripts/probe_torch_listen_threads.py's three columns); the
+    hub's first push on a new connection against its steady push."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    x = (np.random.default_rng(SEED + 24).standard_normal(16000) * 0.1).astype(np.float32)
+    pcm = {"wav_data": base64.b64encode(np.round(x * 32767).astype(np.int16).tobytes()).decode()}
+    out = {}
+    with ThreadPoolExecutor(max_workers=1) as one_worker:
+        for conf, svc in services.items():
+            evaluate = svc.evaluate
+            call = lambda: evaluate(x)  # noqa: E731
+
+            def timed(fn=call):
+                t0 = time.perf_counter()
+                fn()
+                return (time.perf_counter() - t0) * 1e3
+
+            def on_new_thread():
+                box = []
+                th = threading.Thread(target=lambda: box.append(timed()))
+                th.start()
+                th.join(timeout=60)
+                if not box:
+                    fail(f"{conf}: a probe thread did not finish")
+                return box[0]
+
+            for _ in range(3):
+                call()
+                one_worker.submit(call).result()
+            in_server_ms, handler_threads = [], set()
+
+            def evaluate_timed(audio):  # the handler's service call, on the handler's thread
+                t0 = time.perf_counter()
+                try:
+                    return evaluate(audio)
+                finally:
+                    in_server_ms.append((time.perf_counter() - t0) * 1e3)
+                    handler_threads.add(threading.current_thread().name)
+
+            def labels():
+                with urllib.request.urlopen(f"{base}/labels", timeout=60) as r:
+                    r.read()
+
+            httpd = serve(svc, port=0, enable_training=False, n_stream_slots=0)
+            th = threading.Thread(target=httpd.serve_forever, daemon=True)
+            th.start()
+            svc.evaluate = evaluate_timed
+            cols = {k: [] for k in ("listen_new_connection", "labels_new_connection", "evaluate_main_thread",
+                                    "evaluate_new_thread_per_call", "evaluate_one_worker_thread")}
+            try:
+                base = f"http://127.0.0.1:{httpd.server_address[1]}"
+                ans = post_json(f"{base}/listen", pcm)  # warm up the server path
+                in_server_ms.clear()
+                # In turns, one of each a round: a drift of the shared host moves every column alike.
+                # urllib opens a new connection per request: a new server thread each.
+                for _ in range(N_WORKER_ROUNDS):
+                    cols["listen_new_connection"].append(timed(lambda: post_json(f"{base}/listen", pcm)))
+                    cols["labels_new_connection"].append(timed(labels))
+                    cols["evaluate_main_thread"].append(timed())
+                    cols["evaluate_new_thread_per_call"].append(on_new_thread())
+                    cols["evaluate_one_worker_thread"].append(one_worker.submit(timed).result())
+            finally:
+                del svc.evaluate
+                httpd.shutdown()
+                httpd.server_close()
+                th.join(timeout=30)
+            if ans["label"] != svc.evaluate(x)[0]:
+                fail(f"{conf} /listen on a new connection answered {ans}")
+            if len(in_server_ms) != N_WORKER_ROUNDS or threading.current_thread().name in handler_threads:
+                fail(f"{conf}: {len(in_server_ms)} service calls timed inside {N_WORKER_ROUNDS} /listen, "
+                     f"on {handler_threads}")
+            cols["service_call_in_listen"] = in_server_ms
+            r = out[conf] = {k: ms_summary(v) for k, v in cols.items()}
+            one = r["evaluate_one_worker_thread"]["median_ms"]
+            for k in ("listen_new_connection", "service_call_in_listen", "evaluate_new_thread_per_call"):
+                r[f"{k}_over_one_worker"] = r[k]["median_ms"] / one
+    first_push = {run: {"first_ms": r["push_ms_first_on_new_connection"],
+                        "mid_run_ms": r["push_ms_on_new_connection_mid_run"],
+                        "steady_median_ms": r["push_ms_steady_median"],
+                        "first_over_steady": max(r["push_ms_first_on_new_connection"]) / r["push_ms_steady_median"],
+                        "mid_run_over_steady": max(r["push_ms_on_new_connection_mid_run"]) / r["push_ms_steady_median"]}
+                  for run, r in hub.items()}
+    print(f"[worker_thread] {smi}: host ms, medians and p99 over {N_WORKER_ROUNDS} rounds of one /listen (a new "
+          "connection), one GET /labels (a new connection) and one evaluate() per column: " + json.dumps(out))
+    print(f"[worker_thread] {smi}: the hub's first push on each new connection against its steady push: "
+          + json.dumps(first_push))
+    return {"listen": out, "hub_first_push": first_push}
+
+
+def latest_step(out_dir: str) -> dict:
+    import torch
+
+    name = max(f for f in os.listdir(out_dir) if re.fullmatch(r"step_\d+\.pt", f))
+    return torch.load(os.path.join(out_dir, name), map_location="cpu", weights_only=True)
+
+
+def phase_data_parallel(torch, dev, root, tmp, counters, single_acc, smi, A, arrays, aug, svc) -> dict:
+    """25-26. Data parallel at world size 1 on NCCL: cli.train res8 as phase 10 with
+    --coordinator / --num-processes 1 / --process-id 0, weights and accuracy against
+    phase 10's run, launches; then, in a world-1 NCCL group, a step's host ms with
+    and without the mesh, the NCCL all-reduce of a res8 gradient, dryrun_multichip(1),
+    stream_file and a BatchStreamer with data_axis against their unsharded runs."""
+    from honk_tpu_torch.cli.train import main as cli_main
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.models import SpeechResModel, find_config, init_weights
+    from honk_tpu_torch.parallel import initialize_distributed, make_data_mesh, shutdown, world_size
+    from honk_tpu_torch.parallel.dryrun import dryrun_multichip
+    from honk_tpu_torch.stream import BatchStreamer, stream_file
+    from honk_tpu_torch.train import create_train_state, make_optimizer
+    from honk_tpu_torch.train.steps import make_train_step
+    import torch.distributed as dist
+
+    out_dir = os.path.join(tmp, "run-res8-nccl")
+    argv = ["--type", "train", "--model", "res8", "--batch_size", str(TRAIN_BATCH), "--n_epochs", "2",
+            "--dev_every", "1", "--data_dir", root, "--output_dir", out_dir,
+            "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0"]
+    reset(counters)
+    t0 = time.perf_counter()
+    rc, log = run_cli(cli_main, argv)
+    train_s = time.perf_counter() - t0
+    launches = read(counters)
+    if rc != 0 or dist.is_initialized():
+        fail(f"cli.train on a world-1 NCCL group returned {rc} (group left open: {dist.is_initialized()})")
+    acc = final_accuracy(log)
+    single, nccl = latest_step(os.path.join(tmp, "run-res8")), latest_step(out_dir)
+    weight_err = max(max_err(nccl["state"]["model"][k].float(), v.float())
+                     for k, v in single["state"]["model"].items())
+    bitwise = all(torch.equal(nccl["state"]["model"][k], v) for k, v in single["state"]["model"].items())
+    if int(nccl["state"]["step"]) != int(single["state"]["step"]) or weight_err > 1e-6 or acc != single_acc:
+        # What a second single-device run gives against the first: run-to-run noise of the card, or the mesh.
+        again_dir = os.path.join(tmp, "run-res8-again")
+        run_cli(cli_main, argv[: argv.index("--output_dir")] + ["--output_dir", again_dir])
+        again = latest_step(again_dir)
+        again_err = max(max_err(again["state"]["model"][k].float(), v.float())
+                        for k, v in single["state"]["model"].items())
+        fail(f"world-1 NCCL training against the single-device run: step {nccl['state']['step']} vs "
+             f"{single['state']['step']}, weights max abs err {weight_err:.3e}, accuracy {acc} vs {single_acc}; "
+             f"a second single-device run against the first: {again_err:.3e}")
+
+    out = {"train_s": train_s, "launches": launches, "weights_max_abs_err": weight_err, "weights_bitwise": bitwise,
+           "final_test_accuracy": acc}
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        if dist.get_backend() != "nccl" or world_size() != 1:
+            fail(f"expected a world-1 NCCL group, got {dist.get_backend()} of {world_size()}")
+        mesh = make_data_mesh(0, "data")
+        # A train step's host time with and without the mesh (f32, B=64), in turns.
+        model = init_weights(SpeechResModel(find_config("res8")), torch.Generator().manual_seed(SEED)).to(dev)
+        tx = make_optimizer(lrs=(0.01,), boundaries=())
+        state = create_train_state(model, tx)
+        steps = {"single": make_train_step(tx, TRAIN_BATCH, aug), "mesh_world1": make_train_step(tx, TRAIN_BATCH, aug, mesh)}
+        host = {k: [] for k in steps}
+        for _ in range(2):
+            for k in ("single", "mesh_world1", "mesh_world1", "single"):
+                host[k].append(step_clocks(torch, lambda: steps[k](state, SEED, arrays), 50, 5)["step_wall"])
+        out["step_host_ms"] = host
+        prof = profile_steps(torch, lambda: steps["mesh_world1"](state, SEED, arrays), 10)
+        out["step_nccl_kernels"] = [n for n, _ in prof["top_kernels_ms"] if "nccl" in n.lower()]
+        # What one gradient all-reduce of res8 costs on NCCL at world size 1 (the step launches none).
+        n_params = sum(p.numel() for p in model.parameters())
+        grads = torch.ones(n_params, device=dev)
+        dist.all_reduce(grads)  # the first collective sets up NCCL's communicator: not a step's cost
+        torch.cuda.synchronize()
+        ar = profile_steps(torch, lambda: dist.all_reduce(grads), 20, required=False)
+        out["all_reduce"] = {"floats": n_params, "bytes": 4 * n_params, "device_ms": ar["device_ms"],
+                             "host_ms": ar["profiled_wall_ms"], "kernels": ar["top_kernels_ms"][:2]}
+
+        reset(counters)
+        out["dryrun"] = dryrun_multichip(1)
+        out["dryrun_launches"] = read(counters)
+
+        cfg = StreamConfig(**STREAM_CFG)
+        from honk_tpu_torch.cli.demo import synthesize_long_audio
+
+        track, _ = synthesize_long_audio(list(STREAM_KEYWORDS), seconds=60, seed=7, gap_s=8.0, noise_amp=0.01)
+        plain_sm, plain_ev = stream_file(svc.model, None, track, cfg, packed=svc._packed)
+        reset(counters)
+        dp_sm, dp_ev = stream_file(svc.model, None, track, cfg, data_axis="data", packed=svc._packed)
+        out["stream_file_launches"] = read(counters)
+        if not np.array_equal(dp_sm, plain_sm) or [(e.time_s, e.label) for e in dp_ev] != [
+                (e.time_s, e.label) for e in plain_ev]:
+            fail("stream_file(data_axis='data') at world size 1 differs from the unsharded run")
+        chunks = hub_streams(track)[:, : 30 * CHUNK].reshape(HUB_SLOTS, 30, CHUNK).transpose(1, 0, 2)
+        mask = np.arange(HUB_SLOTS) % 3 != 0
+        posts = {}
+        for ax in (None, "data"):
+            bs = BatchStreamer(svc.model, None, HUB_SLOTS, cfg, CHUNK, data_axis=ax)
+            st, rows = bs.reset(), []
+            reset(counters)
+            for t, c in enumerate(chunks):  # every other step masked, as the hub's ticks
+                st, post = bs.process(st, c, mask if t % 2 else None)
+                rows.append(post)
+            posts[ax] = torch.stack(rows)
+        out["batch_streamer_launches"] = read(counters)
+        if not torch.equal(posts[None], posts["data"]):
+            fail("BatchStreamer(data_axis='data') at world size 1 differs from the unsharded one")
+    finally:
+        shutdown()
+    print(f"[data_parallel] {smi}: " + json.dumps(out))
+    return out
+
+
+def phase_shards(torch, dev, A, K, mfcc_kernel, res_kernel, arrays, aug, svc, smi) -> dict:
+    """26. Each kernel on a rank's rows (2 and 4 ranks) against the same rows of the
+    unsharded launch: assembly and MFCC bitwise, the res stack within RES_TOL."""
+    from honk_tpu_torch.parallel import DataMesh
+
+    b = TRAIN_BATCH
+    gen = lambda: A.step_generator(SEED + 26, 0, dev)  # noqa: E731
+    audio, _ = A.sample_train_batch(gen(), arrays, b, aug)
+    with torch.inference_mode():
+        feats = mfcc_kernel.mfcc(audio)
+        pooled = svc.model.stem(feats)
+        logits = res_kernel.res_stack(pooled, *svc._packed)
+        out = {}
+        for world in (2, 4):
+            res_err = 0.0
+            for r in range(world):
+                s, e = DataMesh("data", r, world).shard_rows(b)
+                a_r, _ = A.sample_train_batch(gen(), arrays, b, aug, (s, e))
+                if not torch.equal(a_r, audio[s:e]):
+                    fail(f"assemble on rank {r} of {world}: not the unsharded launch's rows")
+                if not torch.equal(mfcc_kernel.mfcc(audio[s:e].contiguous()), feats[s:e]):
+                    fail(f"mfcc on rank {r} of {world}: not the unsharded launch's rows")
+                got = res_kernel.res_stack(pooled[s:e].contiguous(), *svc._packed)
+                if not close(got, logits[s:e], **RES_TOL):
+                    fail(f"res_stack on rank {r} of {world}: max abs err {max_err(got, logits[s:e]):.3e}")
+                res_err = max(res_err, max_err(got, logits[s:e]))
+            out[world] = {"assemble": "bitwise", "mfcc": "bitwise", "res_stack_max_abs_err": res_err}
+    print(f"[shards] {smi}: B={b}, each rank's launch against the unsharded launch's rows: " + json.dumps(out))
+    return out
+
+
+def phase_profile_dir(torch, root, tmp, counters, smi) -> dict:
+    """27. cli.train --profile-dir on the card: the traces name the three kernels and the annotate ranges."""
+    from honk_tpu_torch.cli.train import main as cli_main
+
+    prof_dir = os.path.join(tmp, "prof")
+    rc, log = run_cli(cli_main, ["--type", "train", "--model", "res8", "--batch_size", str(TRAIN_BATCH),
+                                 "--n_epochs", "1", "--data_dir", root, "--output_dir", os.path.join(tmp, "run-prof"),
+                                 "--profile-dir", prof_dir])
+    if rc != 0:
+        fail(f"cli.train --profile-dir returned {rc}")
+    out = {}
+    for name, kernels, ranges in (("train_dispatch", ("assemble_kernel", "mfcc_kernel"),
+                                   ("train_step", "assemble", "mfcc", "forward_backward", "update")),
+                                  ("dev_eval", ("mfcc_kernel", "res_stack_kernel"), ("eval_batch",))):
+        with open(os.path.join(prof_dir, f"{name}.rank0.pt.trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        gpu = [e for e in events if e.get("cat") == "kernel"]
+        names = [e.get("name", "") for e in events]
+        found = {k: sum(k in e["name"] for e in gpu) for k in kernels}
+        found_ranges = {r: names.count(r) for r in ranges}
+        if not all(found.values()) or not all(found_ranges.values()):
+            fail(f"--profile-dir {name} trace: kernels {found}, ranges {found_ranges}")
+        out[name] = {"kernels": found, "ranges": found_ranges, "device_kernels": len(gpu),
+                     "device_ms": sum(e.get("dur", 0) for e in gpu) / 1e3}
+    print(f"[profile_dir] {smi}: " + json.dumps(out))
+    return out
+
+
+def phase_native(torch, root, smi) -> dict:
+    """28. The native WAV loader built with g++ here, against the Python reader, on the hard_v2 corpus."""
+    from honk_tpu_torch.data import load_speech_commands
+    from honk_tpu_torch.native import wavpack
+
+    if not wavpack.available():
+        fail("the native WAV loader is not available on this machine")
+    built_this_run = wavpack.library_path().stat().st_mtime >= START_TIME
+    with tempfile.TemporaryDirectory() as tmp:  # the build's time: the same g++ command once more
+        t0 = time.perf_counter()
+        subprocess.run(["g++", *wavpack.CXX_FLAGS, str(wavpack.SOURCE), "-o", os.path.join(tmp, "lib.so"),
+                        "-lpthread"], check=True, capture_output=True, timeout=120)
+        build_s = time.perf_counter() - t0
+    times, loaded = {}, {}
+    real = wavpack.load_files_packed
+    for side in ("native", "python", "native_again"):
+        wavpack.load_files_packed = real if side != "python" else (lambda *a, **k: None)
+        try:
+            t0 = time.perf_counter()
+            loaded[side] = load_speech_commands(root, dev_pct=10, test_pct=80)
+            times[side] = time.perf_counter() - t0
+        finally:
+            wavpack.load_files_packed = real
+    for split in ("train", "dev", "test"):
+        if not np.array_equal(getattr(loaded["native"], split).audio, getattr(loaded["python"], split).audio):
+            fail(f"the native loader's {split} split differs from the Python reader's")
+    n = sum(len(getattr(loaded["native"], s)) for s in ("train", "dev", "test"))
+    out = {"built_this_run": built_this_run, "build_s": build_s, "clips": n, "load_s": times}
+    print(f"[native] {smi}: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1623,9 +1974,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
         generate_dataset(corpus, clips_per_word=40, n_speakers=8)
-        train_launches, epochs = phase_entry_point(torch, corpus, tmp, counters)
+        train_launches, epochs, train_acc = phase_entry_point(torch, corpus, tmp, counters)
         train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel,
                                                                  arrays, aug)
+
+        # 25-27. Data parallel at world size 1 on NCCL, each kernel on a rank's rows, --profile-dir.
+        t0 = time.perf_counter()
+        data_parallel = phase_data_parallel(torch, dev, corpus, tmp, counters, train_acc, smi, A, arrays, aug, svc)
+        shards = phase_shards(torch, dev, A, assemble_kernel, mfcc_kernel, res_kernel, arrays, aug, svc, smi)
+        profile_dir = phase_profile_dir(torch, corpus, tmp, counters, smi)
+        print(f"[data_parallel+profile] phases 25-27 took {time.perf_counter() - t0:.1f} s")
 
         # 12-16. The rest of the model family, on cuDNN and cuBLAS between the kernels.
         family_services, family_errs = phase_family_eval(torch, LabelService, counters, audio_np[:BATCH])
@@ -1646,6 +2004,7 @@ def main() -> int:
         print(f"[family_listen] {N_LISTEN_FAMILY} requests per model answered like the CPU service; host ms per "
               "request, then per evaluate() alone: " + json.dumps(family_listen))
         hard_v2 = phase_hard_v2(torch, dev, counters, tmp)
+        native = phase_native(torch, os.path.join(tmp, "hard_v2"), smi)  # 28. on the hard_v2 corpus
         family_train = {}
         for conf, batch, flags in (("res15", 16, ()),
                                    ("cnn-trad-pool2", TRAIN_BATCH, ("--lr", "0.003", "0.0003", "--schedule", "440"))):
@@ -1662,6 +2021,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         datagen = phase_datagen(torch, counters, tmp)
     print(f"[personalize+datagen] phases 22-23 took {time.perf_counter() - t0:.1f} s")
+
+    # 24. The repair: one device worker per service, whatever thread a request arrives on.
+    worker = phase_worker_thread(torch, {"res8": svc, "res15": family_services["res15"][0],
+                                         "cnn-trad-pool2": family_services["cnn-trad-pool2"][0]},
+                                 serve, streaming["hub"], smi)
 
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
@@ -1685,6 +2049,9 @@ def main() -> int:
         "train_personalize": personalize["train_launches"],
         "listen_after_train": personalize["listen_after_train_launches"],
         "datagen_quality": datagen["launches"],
+        "train_res8_nccl_world1": data_parallel["launches"], "dryrun_1": data_parallel["dryrun_launches"],
+        "stream_offline_res8_data_axis": data_parallel["stream_file_launches"],
+        "stream_batch8_res8_data_axis": data_parallel["batch_streamer_launches"],
     }
     kernels = []
     for kname, src, replaces, work, err, tf32x3 in (
@@ -1697,6 +2064,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": train_launches[kname], "launches_listen": launches[kname],
+            "launches_dp": data_parallel["launches"][kname],
             "launches_by_path": {p: v[kname] for p, v in by_path.items()}, "max_abs_err": err,
             "ms": times[BATCH][kname], "plain_ms": times[BATCH][kname + "_plain"],
             "bound_ms": b256, "bound_by": by, "library_ms": None, "batch": BATCH,
@@ -1712,7 +2080,7 @@ def main() -> int:
     kernels.append({
         "name": "assemble", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/assemble.cu",
         "replaces": "honk_tpu/ops/assemble_kernel.py:122", "launches": train_launches["assemble"],
-        "launches_listen": launches["assemble"],
+        "launches_listen": launches["assemble"], "launches_dp": data_parallel["launches"]["assemble"],
         "launches_by_path": {p: v["assemble"] for p, v in by_path.items()}, "max_abs_err": assemble_err,
         "ms": train_times["assemble_b64"], "plain_ms": train_times["assemble_plain_b64"],
         "bound_ms": a64, "bound_by": aby64, "library_ms": None, "batch": TRAIN_BATCH,
@@ -1727,7 +2095,9 @@ def main() -> int:
                       "family_train_epochs": {c: v[1] for c, v in family_train.items()},
                       "family_times": family_times,
                       "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")},
-                      "personalize": personalize, "datagen": datagen}))
+                      "personalize": personalize, "datagen": datagen, "worker_thread": worker,
+                      "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
+                      "native": native}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

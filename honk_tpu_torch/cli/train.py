@@ -16,18 +16,27 @@ parity mode. TF32 is off either way. A train run writes
 ``<output_dir>/best.pt`` (a honk state dict) and ``step_XXXXXXXX.pt``
 resume checkpoints.
 
-Refused, each naming its ROADMAP.md item, until the port has them:
-``--coordinator`` / ``--process-id`` / ``--num-processes`` and
-``--n_devices`` above 1 (data parallel, §1.3), ``--profile-dir``
-(``metrics/profiling.py``, §1.4) and an Orbax ``--input_file`` (§1.5).
+Data parallel, one process per device (NCCL on the card, gloo with
+``--device cpu``): ``--coordinator host:port --num-processes N
+--process-id i`` joins rank ``i`` of ``N``; ``--n_devices N`` without a
+coordinator starts the N ranks here, over 127.0.0.1 (more ranks than
+visible cards raises on cuda). Rank 0 alone prints the final accuracy
+and writes the checkpoints. ``--profile-dir`` writes ``torch.profiler``
+traces of the first dispatch and the first dev eval (``metrics.trace_to``).
+An Orbax ``--input_file`` is refused: the port reads honk ``.pt`` files
+(the Orbax loader is ROADMAP.md §1.5).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+
+import torch
 
 from ..config import DataConfig, ExperimentConfig, MeshConfig, TrainConfig
+from ..parallel import launch_local_ranks
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,32 +80,35 @@ def build_parser() -> argparse.ArgumentParser:
         "--save_every_epochs", type=int, default=5,
         help="epochs between periodic step checkpoints (crash recovery)",
     )
-    p.add_argument("--profile-dir", default="", help="refused: not in the port yet (ROADMAP.md §1.4)")
+    p.add_argument("--profile-dir", default="",
+                   help="write torch.profiler traces of the first dispatch and the first dev eval here")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic dataset into data_dir first (no-network dev)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # multi-host / multi-device: refused until data parallel is ported
-    p.add_argument("--coordinator", default=None)
+    # data parallel: one process per device
+    p.add_argument("--coordinator", default=None, help="host:port of rank 0's process group")
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--n_devices", type=int, default=0)
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="ranks of the data mesh (0: the whole world); without --coordinator, "
+                        "starts that many local ranks")
     return p
 
 
-def _refuse_unported(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+def _refuse(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     from ..ckpt import is_orbax_path
 
-    for flag, value in (("--coordinator", args.coordinator), ("--process-id", args.process_id),
-                        ("--num-processes", args.num_processes)):
-        if value is not None:
-            p.error(f"{flag}: multi-process training is not in the port yet "
-                    "(data parallel, ROADMAP.md §1.3)")
-    if args.n_devices not in (0, 1):
-        p.error(f"--n_devices {args.n_devices}: the port trains on one device; data parallel "
-                "is ROADMAP.md §1.3")
-    if args.profile_dir:
-        p.error("--profile-dir: the torch.profiler port of metrics/profiling.py is "
-                "ROADMAP.md §1.4, not in the port yet")
+    ranks = (args.num_processes, args.process_id)
+    if args.coordinator is None and ranks != (None, None):
+        p.error("--process-id and --num-processes need --coordinator (or --n_devices alone for local ranks)")
+    if args.coordinator is not None:
+        if None in ranks:
+            p.error("--coordinator needs --num-processes and --process-id")
+        if not 0 <= args.process_id < args.num_processes:
+            p.error(f"--process-id {args.process_id} is not a rank of --num-processes {args.num_processes}")
+        if args.n_devices not in (0, args.num_processes):
+            p.error(f"--n_devices {args.n_devices}: the mesh has one device per process, "
+                    f"{args.num_processes} here")
     if args.input_file and is_orbax_path(args.input_file):
         p.error(f"--input_file {args.input_file}: the port reads honk .pt files; the Orbax "
                 "loader is ROADMAP.md §1.5")
@@ -140,21 +152,41 @@ def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
 
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = p.parse_args(argv)
-    _refuse_unported(p, args)
+    _refuse(p, args)
 
     from .. import resolve_device
 
     device = resolve_device(args.device)  # no CUDA device and no --device cpu: raise now
+    if args.coordinator is None and args.n_devices > 1:
+        if device.type == "cuda" and args.n_devices > torch.cuda.device_count():
+            p.error(f"--n_devices {args.n_devices}: only {torch.cuda.device_count()} CUDA devices are visible")
+        if args.synthetic and not os.path.isdir(os.path.join(args.data_dir, "yes")):
+            from ..data import generate_dataset
 
-    if args.synthetic:
-        from ..data import generate_dataset
+            generate_dataset(args.data_dir)  # once, before the ranks read it
+        return launch_local_ranks("honk_tpu_torch.cli.train", argv, args.n_devices)
 
-        if not os.path.isdir(os.path.join(args.data_dir, "yes")):
-            generate_dataset(args.data_dir)
+    from ..parallel import barrier, initialize_distributed, is_primary, shutdown
 
+    initialize_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        if args.synthetic:
+            if is_primary() and not os.path.isdir(os.path.join(args.data_dir, "yes")):
+                from ..data import generate_dataset
+
+                generate_dataset(args.data_dir)
+            barrier()  # the other ranks read it after rank 0 wrote it
+        return _run(args, device)
+    finally:
+        shutdown()
+
+
+def _run(args: argparse.Namespace, device) -> int:
     cfg = args_to_config(args)
     from ..metrics import MetricsLogger
+    from ..parallel import is_primary
 
     logger = MetricsLogger(args.metrics_jsonl or None)
     try:
@@ -163,11 +195,11 @@ def main(argv: list[str] | None = None) -> int:
             from ..train import train
 
             result = train(cfg, logger=logger, checkpoint_dir=args.output_dir,
-                           save_every_epochs=args.save_every_epochs, device=device)
-            Checkpointer(args.output_dir).save_best(result["best"])
+                           save_every_epochs=args.save_every_epochs, device=device,
+                           profile_dir=args.profile_dir or None)
+            if is_primary():
+                Checkpointer(args.output_dir).save_best(result["best"])
             return 0
-
-        import torch
 
         from ..train import evaluate
 

@@ -186,19 +186,41 @@ def assemble_batch(draws: Draws, arrays: TrainArrays, cfg: AugmentConfig) -> tup
     return K.assemble(arrays.pool, arrays.noise, *operands, n_samples=arrays.n_samples), labels
 
 
+def shard_draws(draws: Draws, rows: tuple[int, int]) -> Draws:
+    """The draws of rows ``[start, stop)`` of the batch."""
+    start, stop = rows
+    return Draws(*(d[start:stop] for d in draws))
+
+
 def sample_train_batch(
-    generator: torch.Generator, arrays: TrainArrays, batch_size: int, cfg: AugmentConfig
+    generator: torch.Generator, arrays: TrainArrays, batch_size: int, cfg: AugmentConfig,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Draw and assemble one training batch on the arrays' device."""
-    return assemble_batch(draw_batch(generator, arrays, batch_size, cfg), arrays, cfg)
+    """Draw and assemble one training batch on the arrays' device.
+
+    With ``rows`` (a data-parallel rank's ``[start, stop)``), the draws are
+    still the global batch's, made from the generator exactly as without,
+    and only those rows are assembled: one launch of the assembly kernel on
+    the shard, bitwise the same rows at any world size (JAX:
+    ``sample_train_batch_pallas(data_axis=...)``).
+    """
+    draws = draw_batch(generator, arrays, batch_size, cfg)
+    if rows is not None:
+        draws = shard_draws(draws, rows)
+    return assemble_batch(draws, arrays, cfg)
 
 
 def eval_batch(
-    audio_i16: torch.Tensor, labels: torch.Tensor, start: int, batch_size: int
+    audio_i16: torch.Tensor, labels: torch.Tensor, start: int, batch_size: int,
+    rows: tuple[int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Deterministic eval batch [start, start+B), with a validity mask for the tail."""
+    """Deterministic eval batch [start, start+B), with a validity mask for the tail.
+
+    ``rows`` ``[r0, r1)`` of the batch (a data-parallel rank's) gives only those.
+    """
     n = audio_i16.shape[0]
-    idx = start + torch.arange(batch_size, device=audio_i16.device)
+    r0, r1 = rows if rows is not None else (0, batch_size)
+    idx = start + torch.arange(r0, r1, device=audio_i16.device)
     valid = idx < n
     safe = torch.where(valid, idx, 0)
     return audio_i16[safe].float() / 32768.0, labels[safe], valid

@@ -12,10 +12,11 @@ sampler draws it with probability n_silence / (n + n_silence); the eval
 sets materialize ``int(silence_prob * n)`` deterministic noise-scaled
 silence clips so accuracy is reproducible.
 
-Files are decoded with the pure-Python reader (``wavio``). The JAX package
-decodes with its native batched reader where it can and falls back to the
-same reader, so the arrays are equal (``tests/test_torch_loop.py``); the
-native reader's port is ROADMAP.md §1.4.
+Clips are decoded by the native batched reader (``native/wavpack.py``)
+where it builds, file by file with the pure-Python reader (``wavio``)
+where it does not or a file fails to decode, as the JAX package does; the
+two give the same arrays (``tests/test_torch_native.py``). Background noise
+is read with ``wavio``, as there.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..native import wavpack
 from . import splits as S
 from .wavio import read_wav, read_wav_int16
 
@@ -133,9 +135,13 @@ def load_speech_commands(
         n = len(entries)
         audio = np.zeros((max(n, 1), AUDIO_SAMPLES), np.int16)
         labels = np.zeros((max(n, 1),), np.int32)
+        native = wavpack.load_files_packed([f for f, _ in entries], AUDIO_SAMPLES) if n else None
+        if native is not None:
+            audio[:n] = native[0]
         for i, (f, lab) in enumerate(entries):
-            audio[i] = _load_clip(f)
             labels[i] = lab
+            if native is None or native[1][i] < 0:  # no native reader, or it failed on this file
+                audio[i] = _load_clip(f)
         n_sil = int(silence_prob * n)
         if not is_train and n_sil > 0:
             # Deterministic materialized silence: scaled noise slices.

@@ -2,9 +2,9 @@
 
 A copy of ``honk_tpu.data.wavio`` (numpy and the stdlib only). Reading
 returns float32 in [-1, 1] with the same int16/32768 scaling librosa uses
-for PCM16. The JAX package's native batched reader (``honk_tpu/native``)
-is not ported yet (ROADMAP.md §1.4); its fallback is this reader, so the
-decoded arrays are the same.
+for PCM16. The corpus loader decodes clips with the native batched reader
+(``native/wavpack.py``) where it builds, and with this reader where it
+does not: both give the same int16 arrays.
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
 from .logging import MetricsLogger
+from .profiling import annotate, trace_to
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "annotate", "trace_to"]

@@ -2,8 +2,8 @@
 
 One record per event, ``{"kind": ..., "t": seconds since the logger was
 made, **fields}``, written as one JSON line to the sink and as
-``[kind] k=v ...`` to the stream, in the JAX package's format. The port
-runs one process, so every record is written.
+``[kind] k=v ...`` to the stream, in the JAX package's format. Under a
+multi-process run only rank 0 writes (``parallel.is_primary``).
 """
 
 from __future__ import annotations
@@ -13,14 +13,19 @@ import sys
 import time
 from typing import Any, TextIO
 
+from ..parallel import is_primary
+
 
 class MetricsLogger:
     def __init__(self, jsonl_path: str | None = None, stream: TextIO = sys.stdout):
         self._stream = stream
-        self._file = open(jsonl_path, "a", buffering=1) if jsonl_path else None
+        self._primary = is_primary()
+        self._file = open(jsonl_path, "a", buffering=1) if jsonl_path and self._primary else None
         self._t0 = time.time()
 
     def log(self, kind: str, **fields: Any) -> None:
+        if not self._primary:
+            return
         rec = {"kind": kind, "t": round(time.time() - self._t0, 3), **_to_py(fields)}
         if self._file:
             self._file.write(json.dumps(rec) + "\n")

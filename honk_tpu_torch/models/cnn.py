@@ -106,10 +106,11 @@ class SpeechModel(nn.Module):
         return [self.conv1] + ([self.conv2] if hasattr(self, "conv2") else [])
 
     def forward(self, x: torch.Tensor, packed: Any = None,
-                dropout: torch.Generator | Sequence[torch.Tensor] | None = None) -> torch.Tensor:
+                dropout: torch.Generator | Sequence[torch.Tensor] | None = None, mesh: Any = None) -> torch.Tensor:
         """Logits. Training mode needs ``dropout``: the generator to draw the
         keep masks from (``keep_masks``), or the masks themselves. ``packed``
-        is ``eval_operands()``'s None, taken like the res family's."""
+        is ``eval_operands()``'s None, and ``mesh`` the res family's data mesh
+        for its BN: the family has no BN, so both are taken and unused."""
         if not self.training:
             return self._layers(x, torch.float32, [])
         shapes = self.dropout_shapes(x.shape[0])

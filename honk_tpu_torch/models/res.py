@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_stack
+from ..parallel.mesh import DataMesh
 from .layers import conv
 
 BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batch
@@ -87,15 +88,17 @@ class SpeechResModel(nn.Module):
         return y.contiguous()
 
     def forward(self, x: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None,
-                dropout: Any = None) -> torch.Tensor:
+                dropout: Any = None, mesh: DataMesh | None = None) -> torch.Tensor:
         """Logits. Eval mode: ``packed`` is ``eval_operands()``, computed here if None.
 
-        Training mode also updates the BN running statistics in place. The
-        res family has no dropout: ``dropout`` (a CNN's keep masks or their
-        generator) is accepted and unused, so every model trains through one call.
+        Training mode also updates the BN running statistics in place; under
+        a ``mesh`` of more than one rank, ``x`` is this rank's rows of the
+        batch and BN's statistics are the global batch's. The res family has
+        no dropout: ``dropout`` (a CNN's keep masks or their generator) is
+        accepted and unused, so every model trains through one call.
         """
         if self.training:
-            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}")))
+            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh))
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
@@ -128,10 +131,23 @@ class SpeechResModel(nn.Module):
         return self.output(x.mean(dim=(2, 3)))
 
 
-def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Affine-free BN of (B, C, H, W) with batch statistics, flax semantics; updates ``bn``'s buffers."""
-    mean = x.mean(dim=(0, 2, 3))
-    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None = None) -> torch.Tensor:
+    """Affine-free BN of (B, C, H, W) with batch statistics, flax semantics; updates ``bn``'s buffers.
+
+    Under a ``mesh`` of more than one rank, ``x`` is this rank's rows: the
+    per-channel sums, sums of squares and the count are all-reduced (with
+    autograd), so every rank normalises by the global batch's statistics
+    and updates the same running statistics, as GSPMD's BN does.
+    """
+    if mesh is None or mesh.size == 1:
+        mean = x.mean(dim=(0, 2, 3))
+        meansq = (x * x).mean(dim=(0, 2, 3))
+    else:
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        stats = mesh.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+        mean, meansq = stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
+    var = (meansq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)

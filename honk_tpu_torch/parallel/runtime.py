@@ -1,0 +1,131 @@
+"""Multi-process runtime on ``torch.distributed`` (counterpart of ``honk_tpu.parallel.runtime``).
+
+One process per device. ``initialize_distributed`` joins the processes
+into one process group over TCP (``tcp://<coordinator_address>``): NCCL
+when the ranks run on the card, gloo on the CPU. Without a coordinator it
+does nothing, and the process is rank 0 of a world of one.
+
+Launch, one process per device:
+
+    python -m honk_tpu_torch.cli.train --coordinator <host0>:<port> \\
+        --process-id <i> --num-processes <n> ...
+
+or let ``--n_devices N`` start N local ranks over 127.0.0.1.
+
+A process group that fails to initialise raises: a rank never runs alone
+in place of a group it was asked to join.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+
+def initialize_distributed(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    device: str | torch.device = "cuda",
+) -> None:
+    """Join the process group of ``num_processes`` ranks as rank ``process_id``; no-op without a coordinator.
+
+    ``device`` is the device type the ranks run on: ``cuda`` (NCCL, and this
+    rank's card becomes the current device) or ``cpu`` (gloo).
+    """
+    if coordinator_address is None:
+        return
+    if num_processes is None or process_id is None:
+        raise ValueError("a coordinator needs --num-processes and --process-id")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process id {process_id} is not a rank of a world of {num_processes}")
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank_device("cuda", process_id))
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes,
+        rank=process_id,
+    )
+
+
+def shutdown() -> None:
+    """Leave the process group, if this process joined one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def barrier() -> None:
+    """Wait for every rank (nothing to wait for without a process group)."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_primary() -> bool:
+    """True on the rank that prints, logs and writes checkpoints (rank 0)."""
+    return rank() == 0
+
+
+def rank_device(device: str | torch.device, process_id: int | None = None) -> torch.device:
+    """This rank's device: ``cuda:<local rank>`` on the card, ``cpu`` otherwise.
+
+    The local rank is the rank modulo the visible cards, one process per
+    card on each host.
+    """
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    r = rank() if process_id is None else process_id
+    return torch.device("cuda", r % torch.cuda.device_count())
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_local_ranks(module: str, argv: list[str], n: int) -> int:
+    """Run ``python -m <module> <argv>`` as ``n`` ranks over 127.0.0.1 and wait for them all.
+
+    Each rank is a child process with the same arguments plus
+    ``--coordinator``, ``--num-processes`` and its own ``--process-id``; their
+    output goes to this process's. If one fails, the others are killed (they
+    would wait in a collective for it). Returns the first non-zero exit
+    code, or 0.
+    """
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    # Local ranks share this host's cores: PyTorch's OpenMP workers spin, and
+    # N ranks of all-core pools starve each other in every collective.
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-m", module, *argv, "--coordinator", coord,
+                               "--num-processes", str(n), "--process-id", str(i)], env=env)
+             for i in range(n)]
+    try:
+        while any(proc.poll() is None for proc in procs):
+            if any(proc.returncode for proc in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for proc in procs:  # exact child PIDs only
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return next((proc.returncode for proc in procs if proc.returncode), 0)

@@ -26,42 +26,44 @@ endpoints 404 for an unknown session, and all of ``/stream/*`` 503 when
 the hub is disabled (``n_stream_slots=0``).
 
 ``/train`` fine-tunes the served model on the positives (``TrainingService``,
-on the handler's thread, without the service's lock, so ``/listen`` and the
-hub keep answering), then swaps the new weights into the service and the
-hub: ``/listen`` and every open and later stream session use them from
-their next request. It answers 400 for missing or malformed positives or
-label, for no positives and for a label the model does not have (the JAX
-server drops the connection on the last two), 422 when the fine-tune
+on its own worker thread, so ``/listen`` and the hub keep answering), then
+swaps the new weights into the service and the hub: ``/listen`` and every
+open and later stream session use them from their next request. It
+answers 400 for missing or malformed positives or label, for no positives
+and for a label the model does not have (the JAX server drops the
+connection on the last two), 422 when the fine-tune
 diverged (a non-finite loss or weight: the JAX server swaps such weights in,
 and then answers every request with NaN), and 503 when training is disabled
 (``enable_training=False``, the CLI's ``--no-train``).
 
 stdlib http.server only. The server is THREADED (ThreadingHTTPServer, a
-thread per connection) and speaks HTTP/1.1 with keep-alive (every response
-carries Content-Length); ``LabelService`` serializes its device forward with
-a lock, and the hub coalesces concurrent pushes into slab dispatches on
-one CUDA stream. Start via ``python -m honk_tpu_torch.cli.serve``.
+thread per connection, with a listen backlog of 128 where socketserver's
+is 5) and speaks HTTP/1.1 with keep-alive (every response carries
+Content-Length). The handler threads make no device call: the
+service's device work, the hub's slab steps included, runs on the
+service's one worker thread (``serve/worker.py``), and the hub coalesces
+concurrent pushes into slab dispatches on one CUDA stream. Start via
+``python -m honk_tpu_torch.cli.serve``.
 """
 
 from __future__ import annotations
 
 import base64
 import json
-import math
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import numpy as np
-import torch
 
 from .service import LabelService, TrainingService
 from .streams import StreamHub
 
 
-def _finite(result: dict[str, Any]) -> bool:
-    """Whether a fine-tune's loss and every floating-point weight are finite."""
-    return math.isfinite(result["final_loss"]) and all(
-        bool(torch.isfinite(v).all()) for v in result["variables"].values() if v.is_floating_point())
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a burst of new connections
+    # (the hub's clients reconnecting, 8 slots by default) past it waits out
+    # a SYN retransmit, a second, before the accept loop sees it.
+    request_queue_size = 128
 
 
 def _decode_pcm16(b64: str) -> np.ndarray:
@@ -321,7 +323,7 @@ def make_handler(service: LabelService, trainer: TrainingService | None, hub: St
             except ValueError as e:  # an unknown label, no positives
                 self._send(400, {"error": str(e)})
                 return
-            if not _finite(result):
+            if not trainer.finite(result):
                 self._send(422, {"error": f"the fine-tune diverged (final loss {result['final_loss']}); "
                                           "the served weights are unchanged"})
                 return
@@ -437,7 +439,7 @@ def serve(
         if n_stream_slots > 0
         else None
     )
-    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service, trainer, hub))
+    httpd = _Server(("0.0.0.0", port), make_handler(service, trainer, hub))
     httpd.hub = hub
     if hub is not None:
         orig_close = httpd.server_close

@@ -20,11 +20,19 @@ Counterparts of ``honk_tpu.serve.service`` (reference
   service's current model. The features are one launch of the MFCC kernel
   (the audio has no gradient); the steps differentiate the model's
   ``frozen_forward``, because the res-stack kernel has no backward.
+
+Threads: each service does its device work on one long-lived thread of its
+own (``DeviceWorker``), whichever thread calls it: the HTTP server's thread
+per connection would otherwise pay PyTorch's per-thread setup on every
+new connection. ``LabelService``'s worker also runs the stream hub's slab
+steps (``service.worker``); ``TrainingService`` has a second one, so a
+fine-tune does not hold up ``/listen`` or the hub.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import threading
 from typing import Any, Sequence
 
@@ -38,6 +46,7 @@ from ..data import DEFAULT_WANTED_WORDS, LABEL_SILENCE, LABEL_UNKNOWN
 from ..frontend import compute_mfccs
 from ..models import find_config, find_model, load_honk_checkpoint, load_state_dict
 from ..stream import BatchStreamer, stream_file
+from .worker import DeviceWorker
 
 
 def default_labels(wanted_words: Sequence[str] = DEFAULT_WANTED_WORDS) -> list[str]:
@@ -48,9 +57,10 @@ class LabelService:
     """Keyword classification of 1 s utterances on one device.
 
     ``device`` defaults to ``cuda`` and raises where no CUDA device is
-    present; ``device="cpu"`` runs the kernels' plain versions. The device
-    forward is serialized by a lock, because the HTTP server is threaded.
-    ``variables`` is a honk ``.pt`` path or a state dict in the port's names.
+    present; ``device="cpu"`` runs the kernels' plain versions. Every call's
+    device work runs on the service's worker thread (``worker``), and the
+    model and its packed operands are read and swapped together under a
+    lock. ``variables`` is a honk ``.pt`` path or a state dict in the port's names.
     """
 
     def __init__(
@@ -70,9 +80,14 @@ class LabelService:
             load_honk_checkpoint(variables, self.model)
         else:
             load_state_dict(self.model, variables)
-        self.model.to(self.device).eval()
-        self._packed = self.model.eval_operands()
         self._lock = threading.Lock()
+        self.worker = DeviceWorker("label-service-device")
+        self.model, self._packed = self.worker.run(self._on_device, self.model)
+
+    def _on_device(self, model: torch.nn.Module):
+        model = model.to(self.device).eval()
+        with torch.no_grad():
+            return model, model.eval_operands()
 
     def set_variables(self, variables: dict[str, torch.Tensor]) -> None:
         """Serve new weights (a state dict in the port's names) from the next request on.
@@ -83,17 +98,22 @@ class LabelService:
         hub's ``Streamer`` until its own ``set_variables``) keeps one whole
         model, never new convs against old packed operands.
         """
-        new = load_state_dict(copy.deepcopy(self.model), variables).eval()
-        with torch.no_grad():
-            packed = new.eval_operands()
+        self.worker.run(self._set_variables, variables)
+
+    def _set_variables(self, variables: dict[str, torch.Tensor]) -> None:
+        new, packed = self._on_device(load_state_dict(copy.deepcopy(self.model), variables))
         with self._lock:
             self.model, self._packed = new, packed
 
     def logits(self, audio: np.ndarray) -> torch.Tensor:
         """(B, 16000) float32 -> (B, n_labels) logits on the service's device."""
-        x = torch.as_tensor(np.asarray(audio, np.float32))
-        with self._lock, torch.inference_mode():
-            return self.model(compute_mfccs(x.to(self.device)), packed=self._packed)
+        return self.worker.run(self._logits, np.asarray(audio, np.float32))
+
+    def _logits(self, audio: np.ndarray) -> torch.Tensor:
+        with self._lock:
+            model, packed = self.model, self._packed
+        with torch.inference_mode():
+            return model(compute_mfccs(torch.as_tensor(audio).to(self.device)), packed=packed)
 
     def evaluate(self, audio: np.ndarray) -> tuple[str, float]:
         """audio: float32 mono [-1,1], any length -> (label, prob)."""
@@ -105,7 +125,8 @@ class LabelService:
 
     def evaluate_batch(self, audio: np.ndarray) -> list[tuple[str, float]]:
         """(B, 16000) float32 -> [(label, prob)] per utterance."""
-        probs = torch.softmax(self.logits(audio), dim=-1).cpu().numpy()
+        probs = self.worker.run(lambda a: torch.softmax(self._logits(a), dim=-1).cpu().numpy(),
+                                np.asarray(audio, np.float32))
         idx = probs.argmax(axis=-1)
         return [(self.labels[int(i)], float(p[int(i)])) for i, p in zip(idx, probs)]
 
@@ -116,13 +137,16 @@ class LabelService:
         data_axis: str | None = None,
     ) -> list[dict[str, Any]]:
         """Continuous detection over long audio; returns detection events
-        ``{"time_s", "label", "prob"}``. ``data_axis`` (data parallel) is
-        not in this port yet and raises."""
-        with self._lock:
-            _, events = stream_file(
-                self.model, None, np.asarray(audio, np.float32), stream_cfg,
-                data_axis=data_axis, packed=self._packed,
-            )
+        ``{"time_s", "label", "prob"}``. With ``data_axis``, every rank of
+        the mesh calls this with the same audio (``stream_file``)."""
+
+        def job():
+            with self._lock:
+                model, packed = self.model, self._packed
+            return stream_file(model, None, np.asarray(audio, np.float32), stream_cfg,
+                               data_axis=data_axis, packed=packed)[1]
+
+        events = self.worker.run(job)
         return [
             {"time_s": e.time_s, "label": self.labels[e.label], "prob": e.score}
             for e in events
@@ -137,8 +161,9 @@ class LabelService:
     ) -> BatchStreamer:
         """N concurrent online streams scored by one step, on the service's
         device with its model: feed ``(n_streams, chunk_samples)`` chunks per
-        call."""
-        return BatchStreamer(self.model, None, n_streams, stream_cfg, chunk_samples, data_axis)
+        call (from the service's worker, as the hub does). ``data_axis``
+        shards the stream axis over the mesh's ranks (``BatchStreamer``)."""
+        return self.worker.run(BatchStreamer, self.model, None, n_streams, stream_cfg, chunk_samples, data_axis)
 
 
 class TrainingService:
@@ -147,13 +172,14 @@ class TrainingService:
     The new keyword takes over an existing label slot (like the reference's
     web demo, which personalizes one of the command words); negatives are
     contrastive scrambles of the positives plus optional user negatives.
-    Runs on the base service's device.
+    Runs on the base service's device, on a worker thread of its own.
     """
 
     def __init__(self, base: LabelService, learning_rate: float = 0.01, steps: int = 60):
         self.base = base
         self.lr = learning_rate
         self.steps = steps
+        self.worker = DeviceWorker("training-service-device")
 
     def fine_tune(
         self,
@@ -170,6 +196,14 @@ class TrainingService:
         service does not have or for no positives (the JAX method fails on
         both deeper down, in ``list.index`` and ``np.stack``).
         """
+        return self.worker.run(self._fine_tune, positives, target_label, negatives, seed)
+
+    def finite(self, result: dict[str, Any]) -> bool:
+        """Whether a fine-tune's loss and every floating-point weight are finite (on the worker)."""
+        return self.worker.run(lambda: math.isfinite(result["final_loss"]) and all(
+            bool(torch.isfinite(v).all()) for v in result["variables"].values() if v.is_floating_point()))
+
+    def _fine_tune(self, positives, target_label, negatives, seed) -> dict[str, Any]:
         labels = self.base.labels
         if not isinstance(target_label, str) or target_label not in labels:
             raise ValueError(f"unknown label {target_label!r}: the model's labels are {labels}")

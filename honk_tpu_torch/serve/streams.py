@@ -46,10 +46,16 @@ pushers also get the error). A DISPATCH failure consumed nothing: it
 raises to the pushers and rolls each session's chain back to its previous
 tick.
 
-On the card: every tick's device work (the host-to-device copy of the
-chunks, the step, the slot resets of ``open``) goes on ONE CUDA stream,
-the device's current stream when the hub was made, whichever thread leads
-the tick, so tick k+1 reads the state tick k wrote. The JAX package's
+Threads: the hub's device work (the host-to-device copy of the chunks, the
+step, the slot resets of ``open``, the weight swaps) runs as jobs on the
+service's worker thread (``service.worker``), never on the handler thread
+that leads a tick; the pipelined fetchers wait on their ticks' events
+themselves, and a sync tick's wait is a worker job too. No worker job
+takes the hub's lock (a leader holds it while it waits for its dispatch).
+
+On the card: every tick's device work goes on ONE CUDA stream, the
+device's current stream when the hub was made, so tick k+1 reads the
+state tick k wrote. The JAX package's
 device "future" is an event here: at dispatch the posterior rows are
 copied without blocking into pinned host memory behind the step, and an
 event is recorded; a fetcher waits on that event alone, not on the whole
@@ -80,6 +86,7 @@ import torch
 
 from ..config import StreamConfig
 from ..frontend import filters as F
+from ..parallel import world_size
 from ..stream.streamer import HOP, WINDOW_FRAMES, Detection
 
 
@@ -170,11 +177,15 @@ class StreamHub:
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32|int16, got {wire_dtype!r}")
         self.wire_dtype = np.int16 if wire_dtype == "int16" else np.float32
+        if data_axis is not None and world_size() > 1:
+            raise ValueError(
+                f"StreamHub(data_axis={data_axis!r}) in a world of {world_size()} ranks: one HTTP process "
+                "drives the hub's ticks, and a hub sharded over ranks is not in the port (ROADMAP.md §1)")
+        self._worker = service.worker
         self._bs = service.make_batch_streamer(n_slots, self.cfg, chunk_samples, data_axis)
         device = self._bs.device
         self._stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
-        with self._on_stream():
-            self._state = self._bs.reset()
+        self._state = self._worker.run(self._on_stream_call, self._bs.reset)
         self._free = list(range(n_slots))
         self._sessions: dict[str, StreamSession] = {}
         self._lock = threading.Lock()
@@ -190,6 +201,7 @@ class StreamHub:
         self._outstanding = 0
         self._fetch_q: "queue.SimpleQueue[_Tick | None] | None" = None
         self._fetchers: list[threading.Thread] = []
+        self._on_fetcher = threading.local()  # .yes on the fetcher threads
         self._closed = False  # shutdown() ran: no tick goes to the fetchers after it
         # Slot-indexed detector state (vectorized detect_step, see _apply):
         # windows seen and last-fire window index per slot.
@@ -205,11 +217,26 @@ class StreamHub:
         """The hub's one CUDA stream for the calling thread (nothing on the CPU)."""
         return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
 
+    def _on_stream_call(self, fn, *args):
+        """``fn(*args)`` on the hub's stream, without autograd: a worker job."""
+        with self._on_stream(), torch.no_grad():
+            return fn(*args)
+
     def set_variables(self, variables) -> None:
         """Swap the slab's model weights (a state dict in the port's names)
         from the next dispatch on; open sessions keep their state."""
         with self._lock:
-            self._bs.set_variables(variables)
+            self._worker.run(self._bs.set_variables, variables)
+
+    def _zero_slot(self, slot: int) -> None:
+        for leaf in self._state:  # in place: the hub owns the only state
+            leaf[slot].zero_()
+
+    def _dispatch(self, chunks: np.ndarray, mask: np.ndarray):
+        """The slab step and the start of its rows' fetch: a worker job.
+        Returns without waiting for the device."""
+        self._state, post = self._bs.process(self._state, chunks, mask)
+        return _start_fetch(post)
 
     def open(self) -> str:
         with self._lock:
@@ -217,9 +244,7 @@ class StreamHub:
                 raise RuntimeError(f"all {self.n_slots} stream slots in use")
             slot = self._free.pop()
             sid = uuid.uuid4().hex[:12]
-            with self._on_stream(), torch.no_grad():
-                for leaf in self._state:  # in place: the hub owns the only state
-                    leaf[slot].zero_()
+            self._worker.run(self._on_stream_call, self._zero_slot, slot)
             self._det_i[slot] = 0
             self._det_last[slot] = -(10**9)
             self._sessions[sid] = StreamSession(sid, slot)
@@ -366,11 +391,9 @@ class StreamHub:
                         self._cv.wait()
                 self._pending = None  # later pushes start the next tick
                 try:
-                    # Enqueues the step and the copy of its rows; returns
-                    # without waiting for the device.
-                    with self._on_stream():
-                        self._state, post = self._bs.process(self._state, tick.chunks, tick.mask)
-                        tick.future = _start_fetch(post)
+                    # Enqueues the step and the copy of its rows on the
+                    # worker; returns without waiting for the device.
+                    tick.future = self._worker.run(self._on_stream_call, self._dispatch, tick.chunks, tick.mask)
                 except BaseException as e:
                     tick.error = e
                     # Nothing was consumed: unwind each session's chain to
@@ -414,6 +437,7 @@ class StreamHub:
     def _fetch_loop(self, q: "queue.SimpleQueue[_Tick | None]") -> None:
         # Several fetchers wait concurrently; _ensure_applied still applies
         # ticks strictly in dispatch order.
+        self._on_fetcher.yes = True
         while True:
             tick = q.get()
             if tick is None:  # shutdown sentinel
@@ -455,7 +479,12 @@ class StreamHub:
         try:
             fetched = None
             try:
-                fetched = _finish_fetch(tick.future)  # waits on the tick's event, no lock held
+                # Waits on the tick's event, no lock held: a fetcher itself,
+                # any other thread through the worker.
+                if getattr(self._on_fetcher, "yes", False):
+                    fetched = _finish_fetch(tick.future)
+                else:
+                    fetched = self._worker.run(_finish_fetch, tick.future)
             except BaseException as e:
                 # Fetch failed but the device consumed the chunks ->
                 # degraded-cursor semantics in _apply.

@@ -29,8 +29,14 @@ in the port's names (a honk ``.pt``, ``from_flax_variables``). A streamer
 given weights, or swapping them with ``set_variables``, loads them into its
 own copy of the model, so the caller's model (a ``LabelService``'s) keeps
 its weights. The model's ``eval_operands()`` are computed once per set of
-weights. Data-parallel scoring (the JAX package's ``data_axis``) is not in
-the port yet (ROADMAP.md §1.3).
+weights.
+
+Data parallel (the JAX package's ``data_axis``): ``data_axis`` names the
+axis of the mesh over the process group's ranks (``parallel.make_data_mesh``;
+a world of one without a group). ``stream_file`` pads its windows to a
+multiple of the ranks, each rank scores its block and an all-gather puts
+them back in order; a ``BatchStreamer`` holds only its rank's rows of the
+stream axis and its ``process`` is collective. Both equal the unsharded run.
 """
 
 from __future__ import annotations
@@ -46,12 +52,11 @@ from ..config import StreamConfig
 from ..frontend import filters as F
 from ..models import load_state_dict
 from ..ops.mfcc_kernel import mfcc
+from ..parallel import make_data_mesh
 
 WINDOW_FRAMES = F.N_FRAMES  # 101
 HOP = F.HOP_LENGTH  # 160
 NFFT = F.N_FFT  # 480
-
-_NO_DATA_AXIS = "data-parallel streaming (data_axis) is not in this port yet: ROADMAP.md §1.3"
 
 
 def frame_mfccs(audio: torch.Tensor) -> torch.Tensor:
@@ -188,10 +193,11 @@ def stream_file(
     Returns (smoothed posteriors (n_windows, n_labels) as numpy, detections).
     Audio shorter than one window gives ``(np.zeros((0, 1)), [])`` before
     any MFCC. ``packed`` is the model's ``eval_operands()`` for its own
-    weights (``variables=None``), where the caller has them already.
+    weights (``variables=None``), where the caller has them already. With
+    ``data_axis``, every rank calls this with the same audio: the windows
+    are padded to a multiple of the ranks, each scores its block, and the
+    padding is dropped after the all-gather.
     """
-    if data_axis is not None:
-        raise NotImplementedError(_NO_DATA_AXIS)
     cfg = cfg or StreamConfig()
     hop_frames = cfg.hop_samples // HOP
     audio = np.asarray(audio, np.float32)
@@ -206,8 +212,18 @@ def stream_file(
             packed = model.eval_operands()
         feats = frame_mfccs(torch.from_numpy(audio).to(_device(model)))  # each frame computed once
         # (n_windows, 40, 101) view over the frame axis -> (n_windows, 101, 40)
-        windows = feats.unfold(0, WINDOW_FRAMES, hop_frames).transpose(1, 2).contiguous()
-        post = torch.softmax(model(windows, packed=packed), dim=-1)
+        windows = feats.unfold(0, WINDOW_FRAMES, hop_frames).transpose(1, 2)
+        if data_axis is None:
+            post = torch.softmax(model(windows.contiguous(), packed=packed), dim=-1)
+        else:
+            mesh = make_data_mesh(0, data_axis)
+            n_padded = -(-n_windows // mesh.size) * mesh.size
+            start, stop = mesh.shard_rows(n_padded)
+            mine = windows[start:min(stop, n_windows)]
+            if stop > n_windows:  # the padding: zero windows, dropped below
+                mine = torch.cat([mine, mine.new_zeros((stop - max(start, n_windows),) + mine.shape[1:])])
+            post = torch.softmax(model(mine.contiguous(), packed=packed), dim=-1)
+            post = mesh.all_gather_rows(post, n_padded)[:n_windows]
         smoothed = smooth_posteriors(post, cfg.smoothing_window).cpu().numpy()
     hop_s = cfg.hop_samples / F.SAMPLE_RATE
     return smoothed, detect(smoothed, cfg, hop_s)
@@ -322,6 +338,11 @@ class BatchStreamer:
     The classifier sees a ``(N, 101, 40)`` batch. Semantics are exactly N
     independent ``Streamer``s: BN is frozen at inference and the model is
     per-example, so streams never interact.
+
+    With ``data_axis``, this rank holds only its rows ``rows`` of the stream
+    axis (``reset`` gives those) and ``process`` is collective: every rank
+    passes the full chunks and mask and gets the full posteriors back.
+    ``set_variables`` is called on every rank, with the same weights.
     """
 
     def __init__(
@@ -333,11 +354,11 @@ class BatchStreamer:
         chunk_samples: int = 3200,
         data_axis: str | None = None,
     ):
-        if data_axis is not None:
-            raise NotImplementedError(_NO_DATA_AXIS)
         self._single = Streamer(model, variables, cfg, chunk_samples)
         self.cfg = self._single.cfg
         self.n_streams = n_streams
+        self._mesh = make_data_mesh(0, data_axis) if data_axis is not None else None
+        self.rows = self._mesh.shard_rows(n_streams) if self._mesh is not None else (0, n_streams)
         self.chunk = chunk_samples
         self.n_labels = self._single.n_labels
         self.device = self._single.device
@@ -347,9 +368,10 @@ class BatchStreamer:
         self._single.set_variables(variables)
 
     def reset(self) -> StreamState:
+        """Zero state for this rank's streams (all of them without ``data_axis``)."""
         single = self._single.reset()
-        return StreamState(*(torch.zeros((self.n_streams,) + x.shape, dtype=x.dtype, device=x.device)
-                             for x in single))
+        n = self.rows[1] - self.rows[0]
+        return StreamState(*(torch.zeros((n,) + x.shape, dtype=x.dtype, device=x.device) for x in single))
 
     def process(
         self,
@@ -361,13 +383,19 @@ class BatchStreamer:
 
         ``mask`` (N,) bool selects which streams advance; None = all. Masked
         streams keep their state bit for bit and their posterior row is zeros.
+        With ``data_axis``: ``state`` is this rank's rows, ``chunks`` and
+        ``mask`` are every stream's, and the posteriors come back for all N.
         """
         if tuple(chunks.shape) != (self.n_streams, self.chunk):
             raise ValueError(f"chunks must be ({self.n_streams}, {self.chunk}), got {tuple(chunks.shape)}")
+        start, stop = self.rows
         with torch.no_grad():
-            new, smoothed = self._single._step(state, self._single._to_device(chunks))
-            if mask is None:
-                return new, smoothed
-            m = torch.as_tensor(np.asarray(mask, bool)).to(self.device)
-            sel = lambda n, o: torch.where(m.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)  # noqa: E731
-            return StreamState(*(sel(n, o) for n, o in zip(new, state))), torch.where(m[:, None], smoothed, 0.0)
+            new, smoothed = self._single._step(state, self._single._to_device(chunks[start:stop]))
+            if mask is not None:
+                m = torch.as_tensor(np.asarray(mask, bool)[start:stop]).to(self.device)
+                sel = lambda n, o: torch.where(m.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)  # noqa: E731
+                new, smoothed = StreamState(*(sel(n, o) for n, o in zip(new, state))), torch.where(
+                    m[:, None], smoothed, 0.0)
+            if self._mesh is not None:
+                smoothed = self._mesh.all_gather_rows(smoothed, self.n_streams)
+            return new, smoothed

@@ -11,6 +11,14 @@ The batch of step ``s`` depends only on ``(cfg.train.seed + 1, s)``
 (``data.augment.step_generator``), and the initial weights only on
 ``cfg.train.seed`` (drawn on the CPU, then moved), so a resumed run
 repeats an unbroken one.
+
+Data parallel: the mesh is ``cfg.mesh`` over the process group's ranks
+(``parallel.make_data_mesh``), each rank on its own device
+(``parallel.rank_device``). Every rank loads the corpus, starts from rank
+0's weights (``replicate``) and runs the sharded steps and sweeps of
+``steps.py``; rank 0 alone logs, prints and writes checkpoints, and every
+rank restores from them. A checkpoint holds no trace of the world size,
+so it resumes on any other.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ from ..ckpt import Checkpointer
 from ..config import ExperimentConfig
 from ..data import AugmentConfig, load_speech_commands, prepare_train_arrays
 from ..data.dataset import PackedDataset, PackedSplit
-from ..metrics import MetricsLogger
+from ..metrics import MetricsLogger, trace_to
+from ..parallel import is_primary, make_data_mesh, rank_device
 from ..models import find_config, find_model, init_weights, load_honk_checkpoint, load_state_dict
 from .state import create_train_state, make_optimizer
 from .steps import make_eval_sweep, make_train_scan
@@ -73,6 +82,7 @@ def train(
     save_every_epochs: int = 5,
     resume: bool = True,
     device: str | torch.device | None = None,
+    profile_dir: str | None = None,
 ) -> dict[str, Any]:
     """Full training run. Returns {'state', 'best', 'best_dev_acc', 'test_acc', 'model', 'dataset'}.
 
@@ -83,9 +93,11 @@ def train(
     the eval sweeps included, stays float32. ``cfg.train.input_file`` (a honk ``.pt``)
     warm-starts the weights. With ``checkpoint_dir``: a step checkpoint
     every ``save_every_epochs`` epochs and at the end, and resume from the
-    latest when ``resume``.
+    latest when ``resume``. With ``profile_dir``: ``torch.profiler``
+    traces of the first dispatch and the first dev eval (``metrics.trace_to``).
     """
-    device = resolve_device(device)
+    device = rank_device(resolve_device(device))
+    mesh = make_data_mesh(cfg.mesh.n_devices, cfg.mesh.data_axis)
     dtype = COMPUTE_DTYPES[cfg.train.compute_dtype]
     use_full_f32()
     logger = logger or MetricsLogger()
@@ -98,7 +110,7 @@ def train(
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
     if cfg.train.input_file:
         load_honk_checkpoint(cfg.train.input_file, model)
-    model.to(device)
+    mesh.replicate(model.to(device))
 
     tx = make_optimizer(
         lrs=tuple(cfg.train.lr),
@@ -118,14 +130,14 @@ def train(
     )
     arrays = prepare_train_arrays(dataset.train.audio, dataset.train.labels, dataset.noise, aug, device=device)
     batch_size = cfg.train.batch_size
-    eval_sweep = make_eval_sweep(cfg.train.eval_batch_size)
+    eval_sweep = make_eval_sweep(cfg.train.eval_batch_size, mesh)
 
     steps_per_epoch = max(1, math.ceil((n_train + n_silence) / batch_size))
     # Chunks of steps_per_call steps, then the epoch's tail, as the JAX loop
     # cuts its compiled scans (here each is a Python loop of single steps).
     chunk = min(steps_per_epoch, max(1, cfg.train.steps_per_call))
     tail = steps_per_epoch % chunk
-    scans = {n: make_train_scan(tx, batch_size, aug, n) for n in {chunk, tail} if n}
+    scans = {n: make_train_scan(tx, batch_size, aug, n, mesh) for n in {chunk, tail} if n}
     calls = [chunk] * (steps_per_epoch // chunk) + ([tail] if tail else [])
     key = cfg.train.seed + 1
 
@@ -160,8 +172,23 @@ def train(
             logger.log("resume", epoch=start_epoch, step=state.step, best_dev=best_dev)
 
     def _save(epoch: int) -> None:
-        if ckpt is not None:
+        # Rank 0 writes (a filesystem every rank shares); its weights are every rank's.
+        if ckpt is not None and is_primary():
             ckpt.save_step(state.step, payload(epoch))
+
+    # With profile_dir, the run's first dispatch and its first dev eval each
+    # go under the profiler, the device synchronised before the trace closes.
+    traced: set[str] = set()
+
+    def _traced(name: str, fn, *args):
+        if not profile_dir or name in traced:
+            return fn(*args)
+        traced.add(name)
+        with trace_to(profile_dir, name):
+            out = fn(*args)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        return out
 
     last_epoch = start_epoch - 1
     for epoch in range(start_epoch, cfg.train.n_epochs):
@@ -170,7 +197,7 @@ def train(
         acc_sum = torch.zeros((), device=device)
         t0 = time.perf_counter()
         for n in calls:
-            state, m = scans[n](state, key, arrays)
+            state, m = _traced("train_dispatch", scans[n], state, key, arrays)
             loss_sum += m["loss"] * n
             acc_sum += m["acc"] * n
         # Reading the sums waits for the device, so audio_s_per_s is pure
@@ -181,7 +208,7 @@ def train(
         eval_s = 0.0
         if do_dev:
             t1 = time.perf_counter()
-            correct, total = eval_sweep(model, dev_audio, dev_labels)
+            correct, total = _traced("dev_eval", eval_sweep, model, dev_audio, dev_labels)
             c_v, t_v = int(correct), int(total)
             eval_s = time.perf_counter() - t1
             # f32 on both sides, as the JAX loop compares on the device.
@@ -195,7 +222,7 @@ def train(
             step=state.step,
             loss=loss_v / steps_per_epoch,
             acc=acc_v / steps_per_epoch,
-            audio_s_per_s=round(audio_s / max(dt, 1e-9), 1),
+            audio_s_per_s=round(audio_s / max(dt, 1e-9) / mesh.size, 1),
             **({"eval_s": round(eval_s, 4)} if do_dev else {}),
         )
         if do_dev:
@@ -210,9 +237,10 @@ def train(
     best_model.load_state_dict(best)
     correct, total = eval_sweep(best_model, test_audio, test_labels)
     test_acc = int(correct) / max(int(total), 1)
-    # The reference prints exactly this phrase (utils/train.py::evaluate).
+    # The reference prints exactly this phrase (utils/train.py::evaluate), on rank 0.
     logger.log("final", test_acc=test_acc)
-    print(f"final test accuracy: {test_acc}")
+    if is_primary():
+        print(f"final test accuracy: {test_acc}")
     return {
         "state": state,
         "best": best,
@@ -229,8 +257,10 @@ def evaluate(
     dataset: PackedDataset | None = None,
     device: str | torch.device | None = None,
 ) -> float:
-    """Test-set accuracy of given weights (reference ``--type eval``), float32 with TF32 off."""
-    device = resolve_device(device)
+    """Test-set accuracy of given weights (reference ``--type eval``), float32 with TF32 off,
+    under ``cfg.mesh`` as ``train``."""
+    device = rank_device(resolve_device(device))
+    mesh = make_data_mesh(cfg.mesh.n_devices, cfg.mesh.data_axis)
     use_full_f32()
     if dataset is None:
         # The same sampling knobs as train(): the test set the run reported.
@@ -238,6 +268,7 @@ def evaluate(
     model_cfg = find_config(cfg.train.model)
     model_cfg["n_labels"] = dataset.n_labels
     model = load_state_dict(find_model(cfg.train.model)(model_cfg), state_dict).to(device)
-    acc = evaluate_split(make_eval_sweep(cfg.train.eval_batch_size), model, dataset.test, device)
-    print(f"final test accuracy: {acc}")
+    acc = evaluate_split(make_eval_sweep(cfg.train.eval_batch_size, mesh), model, dataset.test, device)
+    if is_primary():
+        print(f"final test accuracy: {acc}")
     return acc

@@ -16,6 +16,17 @@ PyTorch runs eagerly, so there is nothing to compile: a "scan" of N steps
 is a Python loop (graph capture of it is open speed work, ROADMAP.md §2).
 Steps update the state in place and also return it, in the JAX package's
 ``(state, metrics)`` shape; metrics stay on the device until read.
+
+Data parallel (the JAX package's ``data_axis``, ``parallel/mesh.py``):
+under a ``mesh`` of more than one rank, every rank draws the global batch
+from the step's generator, then assembles, featurizes and runs forward and
+backward on its own rows; BN's statistics are the global batch's; the loss
+is the rank's cross-entropy *sum* over the global batch size, so the one
+all-reduce of the flattened gradients gives the global mean's gradient on
+every rank before the same update; loss and accuracy are reduced too. An
+eval sweep scores each rank's rows of every batch and all-reduces the two
+counts once at the end. At one rank nothing is communicated and the step
+is the single-device step.
 """
 
 from __future__ import annotations
@@ -27,10 +38,16 @@ import torch.nn.functional as F
 
 from ..data.augment import AugmentConfig, TrainArrays, eval_batch, sample_train_batch, step_generator
 from ..frontend.mfcc import compute_mfccs
+from ..metrics import annotate
+from ..parallel import DataMesh
 from .state import SGD, TrainState
 
 
-def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig):
+def _sharded(mesh: DataMesh | None) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: DataMesh | None = None):
     """Build the train step.
 
     ``step(state, key, arrays) -> (state, {"loss", "acc"})``: the batch of
@@ -41,47 +58,69 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig):
     a given batch and ``dropout`` (the keep masks, or a generator to draw
     them from; tests feed it the JAX package's batches and masks), and
     ``step.apply_features(state, feats, labels, dropout)`` the step after
-    the MFCC: forward, loss, backward and update.
+    the MFCC: forward, loss, backward and update. Under a ``mesh`` the
+    step takes this rank's rows (``mesh.shard_rows(batch_size)``) of the
+    global batch, masks included, and its metrics are the global batch's.
     """
+    sharded = _sharded(mesh)
+    rows = mesh.shard_rows(batch_size) if mesh is not None else None
 
     def apply_features(state: TrainState, feats: torch.Tensor, labels: torch.Tensor, dropout=None):
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
-        logits = model(feats, dropout=dropout)
-        loss = F.cross_entropy(logits, labels)
-        loss.backward()
-        tx.apply(state)
-        acc = (logits.detach().argmax(dim=-1) == labels).float().mean()
-        return state, {"loss": loss.detach(), "acc": acc}
+        with annotate("forward_backward"):
+            logits = model(feats, dropout=dropout, mesh=mesh)
+            if sharded:  # this rank's share of the global batch's mean
+                loss = F.cross_entropy(logits, labels, reduction="sum") / batch_size
+            else:
+                loss = F.cross_entropy(logits, labels)
+            loss.backward()
+        with annotate("update"):
+            if sharded:
+                mesh.all_reduce_grads(model)
+            tx.apply(state)
+        hits = logits.detach().argmax(dim=-1) == labels
+        if not sharded:
+            return state, {"loss": loss.detach(), "acc": hits.float().mean()}
+        m = mesh.all_reduce_(torch.stack([loss.detach(), hits.sum().float()]))
+        return state, {"loss": m[0], "acc": m[1] / batch_size}
 
     def apply_batch(state: TrainState, audio: torch.Tensor, labels: torch.Tensor, dropout=None):
-        with torch.no_grad():
+        with torch.no_grad(), annotate("mfcc"):
             feats = compute_mfccs(audio)
         return apply_features(state, feats, labels, dropout)
 
     def train_step(state: TrainState, key: int, arrays: TrainArrays):
         gen = step_generator(key, state.step, arrays.pool.device)
-        audio, labels = sample_train_batch(gen, arrays, batch_size, aug_cfg)
-        return apply_batch(state, audio, labels, dropout=gen)
+        with annotate("assemble"):
+            audio, labels = sample_train_batch(gen, arrays, batch_size, aug_cfg, rows)
+        dropout = gen
+        if sharded and hasattr(state.model, "keep_masks"):
+            # The global batch's masks, drawn after the batch as the forward
+            # would draw them, then this rank's rows.
+            dropout = [m[rows[0]:rows[1]] for m in state.model.keep_masks(batch_size, gen)]
+        return apply_batch(state, audio, labels, dropout=dropout)
 
     train_step.apply_batch = apply_batch
     train_step.apply_features = apply_features
     return train_step
 
 
-def make_train_scan(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, n_steps: int):
+def make_train_scan(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, n_steps: int,
+                    mesh: DataMesh | None = None):
     """N single steps in a row: ``scan(state, key, arrays) -> (state, mean metrics)``.
 
     Same draws as calling the single step N times: each step derives its
     generator from ``state.step``, which advances inside the loop.
     """
-    step = make_train_step(tx, batch_size, aug_cfg)
+    step = make_train_step(tx, batch_size, aug_cfg, mesh)
 
     def scan_fn(state: TrainState, key: int, arrays: TrainArrays):
         losses, accs = [], []
         for _ in range(n_steps):
-            state, m = step(state, key, arrays)
+            with annotate("train_step"):
+                state, m = step(state, key, arrays)
             losses.append(m["loss"])
             accs.append(m["acc"])
         return state, {"loss": torch.stack(losses).mean(), "acc": torch.stack(accs).mean()}
@@ -89,30 +128,34 @@ def make_train_scan(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, n_steps: i
     return scan_fn
 
 
-def make_eval_sweep(batch_size: int) -> Callable:
+def make_eval_sweep(batch_size: int, mesh: DataMesh | None = None) -> Callable:
     """Build the sweep over a whole packed split.
 
     ``sweep(model, audio_i16, labels) -> (correct, total)`` device scalars:
     ``ceil(n / B)`` fixed-size batches (``eval_batch``, the tail masked),
     each one MFCC kernel launch and one eval forward (res8 / res26: one
     res-stack kernel launch), counts accumulated on the device. The model
-    is put in eval mode.
+    is put in eval mode. Under a ``mesh`` each rank scores its rows of
+    every batch and the counts are all-reduced once, exactly, at the end.
     """
 
     eval_step = make_eval_step()
+    rows = mesh.shard_rows(batch_size) if mesh is not None else None
 
     @torch.no_grad()
     def sweep(model, audio_i16: torch.Tensor, labels: torch.Tensor):
         model.eval()
         packed = model.eval_operands()
         n = audio_i16.shape[0]
-        correct = torch.zeros((), dtype=torch.int64, device=audio_i16.device)
-        total = torch.zeros_like(correct)
+        counts = torch.zeros((2,), dtype=torch.int64, device=audio_i16.device)
         for start in range(0, n, batch_size):
-            c, t = eval_step(model, *eval_batch(audio_i16, labels, start, batch_size), packed=packed)
-            correct += c
-            total += t
-        return correct, total
+            with annotate("eval_batch"):
+                c, t = eval_step(model, *eval_batch(audio_i16, labels, start, batch_size, rows), packed=packed)
+            counts[0] += c
+            counts[1] += t
+        if _sharded(mesh):
+            mesh.all_reduce_(counts)
+        return counts[0], counts[1]
 
     return sweep
 

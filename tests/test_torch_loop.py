@@ -189,20 +189,24 @@ def test_cli_without_device_raises_without_cuda(corpus, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)  # refused before any work
 
 
+_COORD = ["--coordinator", "localhost:1234"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--coordinator", "localhost:1234"], "§1.3"),
-    (["--process-id", "0"], "§1.3"),
-    (["--num-processes", "2"], "§1.3"),
-    (["--n_devices", "4"], "§1.3"),
-    (["--profile-dir", "trace"], "§1.4"),
-    (["--input_file", "ckpts/run"], "Orbax"),
+    (_COORD, "needs --num-processes and --process-id"),
+    (["--process-id", "0"], "need --coordinator"),
+    (["--num-processes", "2"], "need --coordinator"),
+    (["--n_devices", "4", *_COORD, "--num-processes", "2", "--process-id", "0"], "--n_devices 4"),
+    ([*_COORD, "--num-processes", "2", "--process-id", "2"], "not a rank"),
+    (["--input_file", "ckpts/run"], "Orbax loader is ROADMAP.md §1.5"),
 ])
 def test_cli_refuses_what_the_port_cannot_honour(flags, item, capsys):
+    """Data parallel and --profile-dir are ported; a malformed multi-process
+    command line and an Orbax checkpoint are refused before any work."""
     with pytest.raises(SystemExit) as e:
         main(["--type", "train", "--device", "cpu", *flags])
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert item in err and "ROADMAP.md" in err
+    assert item in capsys.readouterr().err
 
 
 def test_checkpointer_atomic_latest_and_errors(tmp_path):

@@ -156,6 +156,153 @@ def test_http_listen_labels_and_errors(services):
     assert not th.is_alive()
 
 
+def test_device_calls_of_every_connection_run_on_the_service_worker(monkeypatch):
+    """/listen, /stream and hub pushes from 8 client threads, each request on
+    a new connection (so a new server thread): every MFCC and res-stack call
+    runs on the service's one worker thread, and every answer equals the
+    call made from this thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from honk_tpu_torch.ops import mfcc_kernel, res_kernel
+    from honk_tpu_torch.serve import StreamHub
+
+    idents = set()
+
+    def recorded(fn):
+        def call(*args, **kwargs):
+            idents.add(threading.get_ident())
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(mfcc_kernel, "mfcc_plain", recorded(mfcc_kernel.mfcc_plain))
+    monkeypatch.setattr(res_kernel, "res_stack_plain", recorded(res_kernel.res_stack_plain))
+    svc = LabelService("res8", ZOO_RES8, device="cpu")
+    rng = np.random.default_rng(9)
+    clips = [(rng.standard_normal(16000) * 3000).astype(np.int16) for _ in range(8)]
+    long_pcm = (rng.standard_normal(3 * 16000) * 3000).astype(np.int16)
+    chunks = (rng.standard_normal((3, 8, 3200)) * 3000).astype(np.int16)
+    # The same calls from this thread, and a hub driven from it alone.
+    want_listen = [svc.evaluate(c.astype(np.float32) / 32768.0) for c in clips]
+    want_stream = svc.evaluate_long(long_pcm.astype(np.float32) / 32768.0)
+    ref_hub = StreamHub(LabelService("res8", ZOO_RES8, device="cpu"), 8, chunk_samples=3200)
+    ref_sids = [ref_hub.open() for _ in range(8)]
+    want_push = [ref_hub.push_rows(ref_sids, chunks[t]) for t in range(3)]
+
+    httpd = serve(svc, port=0, n_stream_slots=8, stream_coalesce_ms=2.0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, obj):
+        code, body = _request(f"{base}{path}", json.dumps(obj).encode())
+        assert code == 200, body
+        return json.loads(body)
+
+    def b64(pcm):
+        return base64.b64encode(pcm.tobytes()).decode()
+
+    try:
+        sids = [post("/stream/open", {})["stream_id"] for _ in range(8)]
+        idents.clear()
+
+        def client(i):
+            listen = post("/listen", {"wav_data": b64(clips[i])})
+            stream = post("/stream", {"wav_data": b64(long_pcm)}) if i < 2 else None
+            pushes = [post("/stream/push", {"stream_id": sids[i], "wav_data": b64(chunks[t, i])}) for t in range(3)]
+            return listen, stream, pushes
+
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            answers = list(pool.map(client, range(8)))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    assert not th.is_alive()
+    assert idents == {svc.worker.ident}
+    assert svc.worker.ident not in (threading.get_ident(), th.ident)
+    for i, (listen, stream, pushes) in enumerate(answers):
+        assert (listen["label"], listen["prob"]) == want_listen[i]
+        if stream is not None:
+            assert stream["detections"] == want_stream
+        for t, got in enumerate(pushes):
+            want = want_push[t][ref_sids[i]]
+            assert got["label"] == want["label"] and got["events"] == want["events"]
+            np.testing.assert_allclose(got["posterior"], want["posterior"], atol=1e-6)
+
+
+def test_device_worker_runs_every_job_on_one_thread_in_turn():
+    """More caller threads than cores, a short switch interval: every job runs on
+    the worker's thread, one at a time (a non-atomic counter loses no update),
+    each caller gets its own result, a job's exception reaches its caller, and
+    a job that calls ``run`` from the worker runs inline."""
+    from honk_tpu_torch.serve.worker import DeviceWorker
+
+    worker = DeviceWorker("test-worker")
+    state = {"count": 0, "idents": set()}
+
+    def job(i):
+        n = state["count"]
+        state["idents"].add(threading.get_ident())
+        for _ in range(50):
+            pass
+        state["count"] = n + 1
+        return i * i
+
+    def fail(i):
+        raise ValueError(f"job {i}")
+
+    n_threads, per_thread = 4 * (os.cpu_count() or 1), 25
+    results, nested = {}, []
+
+    def caller(t):
+        for k in range(per_thread):
+            i = t * per_thread + k
+            results[i] = worker.run(job, i)
+            with pytest.raises(ValueError, match=f"job {i}"):
+                worker.run(fail, i)
+        nested.append(worker.run(lambda: worker.run(job, -1)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=caller, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+        worker.close()
+    assert not any(th.is_alive() for th in threads)
+    assert state["count"] == n_threads * (per_thread + 1)
+    assert results == {i: i * i for i in range(n_threads * per_thread)}
+    assert nested == [1] * n_threads
+    assert state["idents"] == {worker.ident}
+    with pytest.raises(RuntimeError, match="has stopped"):
+        worker.run(job, 0)
+
+
+def test_server_queues_a_burst_of_new_connections(services):
+    """32 connections at once, before the accept loop takes any: each completes
+    its handshake at once. socketserver's backlog of 5 (the JAX server's)
+    stalls the seventh on, each for a SYN retransmit, a second or more."""
+    import socket
+
+    httpd = serve(services[0], port=0, enable_training=False, n_stream_slots=0)  # listening, not serving
+    socks = []
+    try:
+        for _ in range(32):
+            s = socket.socket()
+            socks.append(s)
+            s.settimeout(5.0)
+            s.connect(("127.0.0.1", httpd.server_address[1]))  # raises TimeoutError on a full backlog
+    finally:
+        for s in socks:
+            s.close()
+        httpd.server_close()
+    assert len(socks) == 32
+
+
 @pytest.mark.parametrize("flag", [["--stream-slots", "4"], ["--pipelined"], ["--wire-dtype=int16"], ["--bogus"]])
 def test_cli_refuses_flags_of_later_slices(flag, capsys):
     """The stream hub's flags parse and reach the hub; an unknown flag is refused."""
@@ -221,7 +368,8 @@ def test_port_runtime_loads_no_jax():
     code = (
         "import honk_tpu_torch.serve.http, honk_tpu_torch.serve.streams, honk_tpu_torch.stream, "
         "honk_tpu_torch.cli.serve, honk_tpu_torch.cli.demo, honk_tpu_torch.cli.manage_audio, "
-        "honk_tpu_torch.datagen.cli, sys; "
+        "honk_tpu_torch.datagen.cli, honk_tpu_torch.cli.train, honk_tpu_torch.parallel.dryrun, "
+        "honk_tpu_torch.native, sys; "
         "assert not any(m=='jax' or m=='honk_tpu' or m.startswith(('jax.','honk_tpu.')) "
         "for m in sys.modules)"
     )

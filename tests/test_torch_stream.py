@@ -248,12 +248,26 @@ def test_stream_file_shorter_than_a_window(narrow, n):
     assert mfcc_kernel.launches == before
 
 
-def test_data_axis_is_refused(narrow):
+def test_data_axis_is_refused(narrow, monkeypatch):
+    """data_axis is ported: in a world of one rank it is the unsharded run,
+    bit for bit; the stream hub alone refuses it across more than one rank
+    (tests/test_torch_parallel.py drives two ranks)."""
     _, _, model = narrow
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.3"):
-        tstream.stream_file(model, None, _audio(32000, seed=7), data_axis="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1.3"):
-        tstream.BatchStreamer(model, None, 2, data_axis="data")
+    audio = _audio(32000, seed=7)
+    sharded, unsharded = (tstream.stream_file(model, None, audio, data_axis=ax)[0] for ax in ("data", None))
+    assert np.array_equal(sharded, unsharded)
+    chunks = _audio(2 * 3200, seed=8).reshape(2, 3200)
+    outs = []
+    for ax in ("data", None):
+        bs = tstream.BatchStreamer(model, None, 2, data_axis=ax)
+        outs.append(bs.process(bs.reset(), chunks, np.array([True, False]))[1])
+    assert torch.equal(outs[0], outs[1])
+    from honk_tpu_torch.serve import streams
+
+    monkeypatch.setattr(streams, "world_size", lambda: 2)
+    with pytest.raises(ValueError, match="not in the port"):
+        streams.StreamHub(LabelService("res8-narrow", {k: v for k, v in model.state_dict().items()},
+                                       device="cpu"), 2, data_axis="data")
 
 
 # ---- online: Streamer and BatchStreamer ----
