@@ -34,8 +34,10 @@ nvcc. Phases, in order; any failure exits non-zero:
    CPU: the two devices' generators differ): losses and weights compared;
 10. the training path through its entry point: honk_tpu_torch.cli.train
     trains res8 (bf16, B=64) for 2 epochs on a synthetic corpus, with exact
-    launch counts of all three kernels over the run; then --type eval of
-    its best.pt on cuda and on the CPU must give the same accuracy;
+    launch counts of all three kernels over the run (the res stack's in its
+    bf16 mode: the run's dev and test sweeps evaluate its bf16 model); then
+    --type eval of its best.pt (float32) on cuda and on the CPU must give
+    the same accuracy;
 11. timings with CUDA events: the assembly kernel and its plain version
     at B=64 and B=1024, the MFCC at B=64, and one train step at B=64 in
     float32 and bf16, split into assembly, MFCC and forward + backward +
@@ -135,7 +137,34 @@ hard_v2 corpus, 24 last):
 27. cli.train --profile-dir: the traces of the first dispatch and the first
     dev eval name the three kernels and the annotate ranges;
 28. the native WAV loader built with g++ here: the hard_v2 corpus loaded
-    through it equals the Python reader's, and the load times of both.
+    through it equals the Python reader's, and the load times of both;
+
+then the bf16 eval path and the Orbax loader (29 right after phase 7, 30
+after phase 16, 31 last):
+
+29. the res stack's bf16 mode against its plain version (bf16 operands,
+    float32 sums): zoo/res8.pt, built bf16, at B = 1, 3, 8, 256 and 2,996
+    on its bf16 stem, and random res8-narrow, res26 and res26-narrow weights
+    at B = 1 and 3, held row by row (BF16_KERNEL_ROWS) on the stack's first
+    two layers at every shape and on the whole stack from B=256, each of
+    three faults run beside it as plain versions (float32 operands,
+    truncation, an unrounded mean) outside that gate; every logit within
+    0.05, argmax equal outside that margin of a tie;
+    argmax against the float32 mode on the same input, the cluster
+    geometry, ptxas registers and spills, CUDA-event times beside the
+    float32 mode's and the bound (bytes over HBM or flops over dense bf16);
+30. the bf16 eval path through its entry points: the training CLI runs of
+    phases 10 and 15 (the CLI's default --compute_dtype bfloat16) launch
+    only the res stack's bf16 mode in their dev and test sweeps (res8) or
+    none (res15, cnn-trad-pool2), and their --type eval stays float32; then
+    make_forward of a bf16 res8 (zoo_hard_v2/res8.pt) on 256 hard_v2 test
+    clips on the card against the same forward on the CPU, held row by row
+    (BF16_FORWARD_ROWS) with the float32 forward outside that gate, argmax
+    equal outside 0.05 of a tie, one mfcc and one bf16 res-stack
+    launch, its times beside the float32 forward's;
+31. the Orbax loader: whether tensorstore imports; if it does, /listen from
+    zoo/res8/best against the zoo/res8.pt service's answers, if not, the
+    refusal LabelService raises for it.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -218,6 +247,28 @@ PERSONALIZE_LABEL = "yes"
 PERSONALIZE_LR = 0.001
 # Phase 24: rounds of one call per column, taken in turns.
 N_WORKER_ROUNDS = 40
+# Phases 29-30: the res stack's bf16 mode against its plain version on the card,
+# and make_forward of a bf16 model cuda against cpu, held row by row. Both sides
+# round the same f32 values to bf16, but their f32 sums differ in order, so a
+# value near a rounding boundary can round the other way ("a flip") and move a
+# row's logits by 1e-3 to 1.6e-2, while a row without one stays within ~1e-6.
+# Flips grow with depth and rows: in 24 layers of random res26 weights, 2 of 3
+# rows have one. So a gate reads each row's largest logit gap: the median row,
+# the share of rows past a tail gap, and every row within the reference's own
+# gate for its bf16 mode (tests/test_res_kernel.py: 0.05). The faults it must catch run
+# beside it as plain versions on the same input (bf16_faults, or the float32
+# forward), and each fault's median must pass the median limit and be
+# BF16_NEARER times the kernel's. Phase 29 holds the kernel so at every shape on
+# the stack's first BF16_DEPTH layers, where flips are rare, and on the whole
+# stack from BF16_FULL_ROWS rows up. Each limit sits between the kernel's
+# readings and the faults' (PERF.md §6).
+BF16_KERNEL_ROWS = (1e-4, 2e-3, 0.1)  # (largest median row gap, tail gap, largest share of rows past it)
+BF16_FORWARD_ROWS = (1e-3, 2e-3, 0.3)  # make_forward: the MFCC's own rounding feeds the bf16 stem
+BF16_NEARER = 10.0
+BF16_OUTER = 0.05  # no logit further; a row whose top two are closer may take either label
+BF16_DEPTH = 2  # one plain layer and one residual layer
+BF16_FULL_ROWS = 256
+BF16_BATCHES = (1, 3, 8, 256, 2996)  # a /listen, a few, a hub tick, an eval batch, a 10 min track's windows
 
 
 def fail(msg: str) -> None:
@@ -232,23 +283,24 @@ def close(got, ref, atol, rtol) -> bool:
     return bool(((got - ref).abs() <= atol + rtol * ref.abs()).all())
 
 
-def peaks(name: str) -> tuple[float, float, float]:
-    """(f32 FLOP/s outside the tensor cores, dense TF32 tensor-core FLOP/s, HBM
-    bytes/s): NVIDIA's SXM data sheets."""
+def peaks(name: str) -> tuple[float, float, float, float]:
+    """(f32 FLOP/s outside the tensor cores, dense TF32 and dense bf16
+    tensor-core FLOP/s, HBM bytes/s): NVIDIA's SXM data sheets."""
     if "H200" in name:
-        return 67e12, 495e12, 4.8e12
-    return 67e12, 495e12, 3.35e12  # H100 SXM
+        return 67e12, 495e12, 989e12, 4.8e12
+    return 67e12, 495e12, 989e12, 3.35e12  # H100 SXM
 
 
-def bound(flops: float, nbytes: float, name: str, tf32x3: bool = False) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, name: str, tf32x3: bool = False, bf16: bool = False) -> tuple[float, str]:
     """Least time in ms: operations over the peak of the arithmetic the kernel
-    uses (3xTF32: three tensor-core products per product) or bytes over HBM."""
-    f32, tf32, b = peaks(name)
-    t_ops = (3 * flops / tf32 if tf32x3 else flops / f32) * 1e3
+    uses (3xTF32: three tensor-core products per product; bf16: one) or bytes
+    over HBM."""
+    f32, tf32, bf, b = peaks(name)
+    t_ops = (3 * flops / tf32 if tf32x3 else flops / bf if bf16 else flops / f32) * 1e3
     t_bytes = nbytes / b * 1e3
     if t_ops < t_bytes:
         return t_bytes, "bytes"
-    return t_ops, "operations (3xTF32)" if tf32x3 else "operations"
+    return t_ops, "operations (3xTF32)" if tf32x3 else "operations (bf16)" if bf16 else "operations"
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -277,7 +329,9 @@ def ptxas_summary(log: str) -> list[str]:
             name = m.group(1)
             kernel = re.match(r"_Z\d+(\w+?)(?:I|P|$)", name)
             nt = re.search(r"Li(\d+)EE", name)
-            entry = (kernel.group(1) if kernel else name) + (f"<NT={nt.group(1)}>" if nt else "")
+            op = re.search(r"I\d+(Tf32x3|Bf16)", name)
+            entry = (kernel.group(1) if kernel else name) + (
+                f"<{op.group(1) + ', ' if op else ''}NT={nt.group(1)}>" if nt else f"<{op.group(1)}>" if op else "")
         elif "spill stores" in line:
             spill = line.strip()
         elif entry and "registers" in line:
@@ -436,17 +490,20 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
     out_dir, metrics = os.path.join(tmp, f"run-{conf}"), os.path.join(tmp, f"metrics-{conf}.jsonl")
     argv = ["--type", "train", "--model", conf, "--batch_size", str(TRAIN_BATCH), "--n_epochs", str(n_epochs),
             "--dev_every", "1", "--data_dir", root, "--output_dir", out_dir, "--metrics_jsonl", metrics, *flags]
-    for mod in counters.values():
-        mod.launches = 0
+    reset(counters)
     t0 = time.perf_counter()
     rc, out = run_cli(cli_main, argv)
     train_s = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = read(counters, bf16=True)
+    by_mode = launches.by_mode
     if rc != 0:
         fail(f"cli.train --type train returned {rc}")
     if launches != expect:
         fail(f"cli.train launched {launches}, expected {expect} "
              f"({steps} train steps, {evals} eval batches)")
+    # The run's model is bf16 (the CLI's default --compute_dtype), so are its dev and test sweeps.
+    if by_mode != {"float32": 0, "bfloat16": expect["res_stack"]}:
+        fail(f"cli.train's sweeps launched the res stack's modes {by_mode}: expected bf16 only")
     train_acc = final_accuracy(out)
     best = os.path.join(out_dir, "best.pt")
     if not os.path.isfile(best):
@@ -466,11 +523,12 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
     if accs["cuda"] != accs["cpu"]:
         fail(f"--type eval of best.pt: cuda {accs['cuda']} != cpu {accs['cpu']}")
     print(f"[train_cli] {conf} bf16 B={TRAIN_BATCH} {' '.join(flags)}, {n_epochs} epochs on {n_train} clips "
-          f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} (exact); "
+          f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} (exact), "
+          f"res stack by mode {by_mode}; "
           f"epochs " + "; ".join(f"loss {r['loss']:.4f} acc {r['acc']:.4f} audio_s_per_s {r['audio_s_per_s']}"
                                  for r in epochs)
           + f"; final test accuracy {train_acc}; --type eval of best.pt cuda {accs['cuda']} = cpu {accs['cpu']}")
-    return launches, epochs, train_acc
+    return launches, epochs, train_acc, by_mode
 
 
 def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
@@ -527,8 +585,7 @@ def listen(svc, cpu, requests, counters, serve) -> tuple[list[float], dict]:
     """POST each PCM16 request to /listen on a server of ``svc``; every answer must
     equal the CPU service's. Returns the host seconds per request and the
     kernel launches over the requests (counts set to 0 just before)."""
-    for mod in counters.values():
-        mod.launches = 0
+    reset(counters)
     httpd = serve(svc, port=0)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
@@ -546,7 +603,7 @@ def listen(svc, cpu, requests, counters, serve) -> tuple[list[float], dict]:
         httpd.shutdown()
         httpd.server_close()
         th.join(timeout=30)
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = read(counters)
     if th.is_alive():
         fail("HTTP server thread did not stop")
     for pcm, ans in zip(requests, answers):
@@ -564,10 +621,9 @@ def phase_family_eval(torch, LabelService, counters, utts) -> tuple[dict, dict]:
     for conf in FAMILY:
         path = os.path.join(HARD_V2, f"{conf}.pt")
         gpu, cpu = LabelService(conf, path), LabelService(conf, path, device="cpu")
-        for mod in counters.values():
-            mod.launches = 0
+        reset(counters)
         got = gpu.logits(utts).cpu()
-        launches = {k: mod.launches for k, mod in counters.items()}
+        launches = read(counters)
         if launches != {"assemble": 0, "mfcc": 1, "res_stack": 0}:
             fail(f"{conf} eval forward at B={len(utts)} launched {launches}: expected one mfcc, nothing else")
         ref = cpu.logits(utts)
@@ -614,15 +670,14 @@ def phase_hard_v2(torch, dev, counters, tmp) -> dict:
         cfg = find_config(name)
         cfg["n_labels"] = ds.n_labels
         model = load_honk_checkpoint(os.path.join(HARD_V2, entry["pt"]), find_model(name)(cfg)).to(dev).eval()
-        for mod in counters.values():
-            mod.launches = 0
+        reset(counters)
         t0 = time.perf_counter()
         with torch.inference_mode():
             packed = model.eval_operands()
             logits = torch.cat([model(compute_mfccs(audio[s:s + BATCH].float() / 32768.0), packed=packed)
                                 for s in range(0, n, BATCH)]).cpu()
         eval_s = time.perf_counter() - t0
-        launches = {k: mod.launches for k, mod in counters.items()}
+        launches = read(counters)
         expect = {"assemble": 0, "mfcc": n_batches, "res_stack": n_batches if uses_res_stack(name) else 0}
         if launches != expect:
             fail(f"hard_v2 {name}: launched {launches}, expected {expect}")
@@ -747,12 +802,29 @@ def res_work(b: int, C: int, H: int, W: int, L: int, n_lab: int) -> tuple[float,
 
 
 def reset(counters) -> None:
+    """Every launch count to 0, the res stack's per-mode counts too."""
     for mod in counters.values():
         mod.launches = 0
+        for mode in getattr(mod, "launches_by_mode", {}):
+            mod.launches_by_mode[mode] = 0
 
 
-def read(counters) -> dict:
-    return {k: mod.launches for k, mod in counters.items()}
+class Launches(dict):
+    """Each kernel's launches since ``reset``; ``by_mode`` the res stack's by
+    operand mode, read at the same time."""
+
+    def __init__(self, counters):
+        super().__init__({k: mod.launches for k, mod in counters.items()})
+        self.by_mode = dict(counters["res_stack"].launches_by_mode)
+
+
+def read(counters, bf16: bool = False) -> Launches:
+    """Each kernel's launches since ``reset``. Only a path that evaluates a bf16
+    model (``bf16=True``) may have launched the res stack's bf16 mode."""
+    launches = Launches(counters)
+    if not bf16 and launches.by_mode["bfloat16"]:
+        fail(f"a float32 path launched the res stack's bf16 mode: {launches.by_mode}")
+    return launches
 
 
 def check_ground_truth(what: str, events, positions, labels) -> None:
@@ -1627,7 +1699,8 @@ def phase_data_parallel(torch, dev, root, tmp, counters, single_acc, smi, A, arr
     t0 = time.perf_counter()
     rc, log = run_cli(cli_main, argv)
     train_s = time.perf_counter() - t0
-    launches = read(counters)
+    launches = read(counters, bf16=True)
+    by_mode = launches.by_mode
     if rc != 0 or dist.is_initialized():
         fail(f"cli.train on a world-1 NCCL group returned {rc} (group left open: {dist.is_initialized()})")
     acc = final_accuracy(log)
@@ -1646,8 +1719,10 @@ def phase_data_parallel(torch, dev, root, tmp, counters, single_acc, smi, A, arr
              f"{single['state']['step']}, weights max abs err {weight_err:.3e}, accuracy {acc} vs {single_acc}; "
              f"a second single-device run against the first: {again_err:.3e}")
 
-    out = {"train_s": train_s, "launches": launches, "weights_max_abs_err": weight_err, "weights_bitwise": bitwise,
-           "final_test_accuracy": acc}
+    if by_mode != {"float32": 0, "bfloat16": launches["res_stack"]}:
+        fail(f"cli.train on a world-1 NCCL group: res stack modes {by_mode}, expected bf16 only")
+    out = {"train_s": train_s, "launches": launches, "res_stack_by_mode": by_mode, "weights_max_abs_err": weight_err,
+           "weights_bitwise": bitwise, "final_test_accuracy": acc}
     initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
     try:
         if dist.get_backend() != "nccl" or world_size() != 1:
@@ -1797,6 +1872,266 @@ def phase_native(torch, root, smi) -> dict:
     n = sum(len(getattr(loaded["native"], s)) for s in ("train", "dev", "test"))
     out = {"built_this_run": built_this_run, "build_s": build_s, "clips": n, "load_s": times}
     print(f"[native] {smi}: " + json.dumps(out))
+    return out
+
+
+# ---- 29-31: the bf16 eval path (the res stack's bf16 mode) and the Orbax loader ----
+
+def decisive_argmax_equal(got, ref, margin: float) -> tuple[bool, int, int]:
+    """Whether argmax agrees on every row whose reference top-two margin exceeds
+    ``margin`` (a near tie inside the logit gate may go either way), and how many
+    rows are inside it and how many of all rows differ."""
+    top2 = ref.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > margin
+    same = got.argmax(-1) == ref.argmax(-1)
+    return bool(same[decisive].all()), int((~decisive).sum()), int((~same).sum())
+
+
+def row_reading(got, ref, gate) -> dict:
+    """Each row's largest logit gap, read as ``gate`` holds it."""
+    gaps = (got - ref).abs().amax(dim=-1)
+    return {"median": float(gaps.median()), "tail_share": float((gaps > gate[1]).float().mean()),
+            "max": float(gaps.max())}
+
+
+def first_layers(packed, depth: int) -> tuple:
+    """The res stack's operands cut to its first ``depth`` layers."""
+    w_all, bn_scale, bn_offset, dense_w, dense_b = packed
+    return (w_all[:depth].contiguous(), bn_scale[:depth].contiguous(), bn_offset[:depth].contiguous(),
+            dense_w, dense_b)
+
+
+def bf16_faults(torch, x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> dict:
+    """The plain bf16 stack with each fault the bf16 mode could have, on the bf16
+    operands of ``pack_res_params(model, bfloat16)``: float32 activations (the
+    3xTF32 mode launched under the bf16 label), activations truncated to bf16
+    instead of rounded to nearest even, and the Dense's mean left unrounded."""
+    F = torch.nn.functional
+
+    def rne(t):
+        return t.to(torch.bfloat16).float()
+
+    def trunc(t):
+        return (t.view(torch.int32) & -65536).view(torch.float32)
+
+    def stack(act, mean):
+        C, old, h = x.shape[1], x, x
+        for i in range(w_all.shape[0]):
+            y = F.relu(F.conv2d(act(h), w_all[i].reshape(3, 3, C, C).permute(3, 2, 0, 1), padding=1))
+            if (i + 1) % 2 == 0:
+                y = y + old
+                old = y
+            h = y * bn_scale[i, :, None, None] + bn_offset[i, :, None, None]
+        return mean(h.mean(dim=(2, 3))) @ dense_w + dense_b
+
+    def same(t):
+        return t
+
+    return {"float32_operands": stack(same, same), "truncated": stack(trunc, trunc), "mean_unrounded": stack(rne, same)}
+
+
+def check_rows(what: str, reading: dict, faults: dict, gate) -> None:
+    """The kernel's row reading within ``gate``, and each fault's median past
+    the median limit and BF16_NEARER times the kernel's: the gate tells the
+    kernel from each fault."""
+    median, tail, share = gate
+    if reading["median"] > median or reading["tail_share"] > share or reading["max"] > BF16_OUTER:
+        fail(f"{what}: row gaps {reading} past the gate (median {median}, share {share} past {tail}, "
+             f"max {BF16_OUTER})")
+    for fault, r in faults.items():
+        if r["median"] <= max(median, BF16_NEARER * reading["median"]):
+            fail(f"{what}: the gate cannot tell the kernel (median row gap {reading['median']:.3e}) from its "
+                 f"{fault} fault (median {r['median']:.3e})")
+
+
+def bf16_res8(torch, dev, checkpoint: str = CHECKPOINT):
+    """res8 of ``checkpoint`` built with dtype=bfloat16 (a bf16 training run's
+    model), in eval mode on ``dev``."""
+    from honk_tpu_torch.models import SpeechResModel, find_config, load_honk_checkpoint
+
+    model = SpeechResModel(find_config("res8"), dtype=torch.bfloat16)
+    return load_honk_checkpoint(checkpoint, model).to(dev).eval()
+
+
+def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> dict:
+    """29. The res stack's bf16 mode against its plain version: zoo/res8.pt at
+    B = 1, 3, 8, 256 and 2,996 (its bf16 stem, as a bf16 model feeds it), random
+    res8-narrow, res26 and res26-narrow weights at B = 1 and 3, each held by rows
+    beside its faults (check_rows) on its first BF16_DEPTH layers, and on the
+    whole stack from BF16_FULL_ROWS rows; argmax against the f32 mode on the same
+    input; geometry, ptxas, CUDA-event times beside the f32 mode's and the bound."""
+    from honk_tpu_torch.models import SpeechResModel, find_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rng = np.random.default_rng(SEED + 29)
+    audio = torch.from_numpy((rng.standard_normal((BF16_BATCHES[-1], 16000)) * 0.2).astype(np.float32)).to(dev)
+    model = bf16_res8(torch, dev)
+    out = {"ptxas": [ln for ln in ptxas_summary(logs.get("res_stack", "")) if "Bf16" in ln or "bf16" in ln],
+           "checks": {}, "times": {}}
+    with torch.inference_mode():
+        pooled = model.stem(mfcc_kernel.mfcc(audio), bf16)
+        packed, packed32 = model.eval_operands(), res_kernel.pack_res_params(model)
+        cases = [("res8", b, pooled[:b].contiguous(), packed, packed32) for b in BF16_BATCHES]
+        for conf in ("res8-narrow", "res26", "res26-narrow"):
+            torch.manual_seed(SEED)
+            m = SpeechResModel(find_config(conf), dtype=bf16)
+            for i in range(1, m.n_layers + 1):
+                bn = getattr(m, f"bn{i}")
+                bn.running_mean.normal_(0, 0.1)
+                bn.running_var.uniform_(0.5, 1.0)
+            m = m.to(dev).eval()
+            p_m = m.stem(mfcc_kernel.mfcc(audio[:3]), bf16)
+            cases += [(conf, b, p_m[:b].contiguous(), m.eval_operands(), res_kernel.pack_res_params(m))
+                      for b in (1, 3)]
+        res8_err = 0.0
+        for conf, b, x, p16, p32 in cases:
+            what = f"res_stack bf16 mode against its plain version, {conf} B={b}"
+            check = {}
+            for part, p in (("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))):
+                got = res_kernel.res_stack(x, *p, compute_dtype=bf16)
+                ref = res_kernel.res_stack_plain(x, *p, compute_dtype=bf16)
+                torch.cuda.synchronize()
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    fail(f"{what}, {part}: shape {tuple(got.shape)} or non-finite values")
+                reading = row_reading(got, ref, BF16_KERNEL_ROWS)
+                faults = {k: row_reading(v, ref, BF16_KERNEL_ROWS) for k, v in bf16_faults(torch, x, *p).items()}
+                check[part] = {"rows": reading, "faults": faults}
+                print(f"[bf16_kernel] {conf} B={b} {part}: kernel row gaps {reading}; faults' {faults}")
+                if part != "full" or b >= BF16_FULL_ROWS:
+                    check_rows(f"{what}, {part}", reading, faults, BF16_KERNEL_ROWS)
+                elif reading["max"] > BF16_OUTER:
+                    fail(f"{what}: max abs err {reading['max']:.3e} past {BF16_OUTER}")
+                if part == "full":
+                    full = got
+            ref = res_kernel.res_stack_plain(x, *p16, compute_dtype=bf16)
+            decisive, near, differ = decisive_argmax_equal(full, ref, BF16_OUTER)
+            if not decisive:
+                fail(f"{what}: argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
+            mode32 = res_kernel.res_stack(x, *p32)
+            out["checks"][f"{conf} B={b}"] = {
+                "max_abs_err": check["full"]["rows"]["max"], **check,
+                "argmax_differs_plain": differ, "near_ties": near,
+                "argmax_equal_f32_mode": float((full.argmax(-1) == mode32.argmax(-1)).float().mean()),
+                "max_abs_diff_f32_mode": max_err(full, mode32), "geometry": res_kernel.geometry(x, bf16)}
+            if conf == "res8":
+                res8_err = max(res8_err, check["full"]["rows"]["max"])
+        C, H, W = pooled.shape[1:]
+        L, n_lab = packed[0].shape[0], packed[3].shape[1]
+        for b in (1, 8, BATCH, BF16_BATCHES[-1]):
+            x = pooled[:b].contiguous()
+            iters = 200 if b <= 8 else 20 if b <= BATCH else 5
+            t = {"ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed, compute_dtype=bf16), iters),
+                 "f32_mode_ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed32), iters),
+                 "plain_ms": time_ms(torch, lambda: res_kernel.res_stack_plain(x, *packed, compute_dtype=bf16),
+                                     iters)}
+            t["bound_ms"], t["bound_by"] = bound(*res_work(b, C, H, W, L, n_lab), name, bf16=True)
+            t["f32_mode_bound_ms"], _ = bound(*res_work(b, C, H, W, L, n_lab), name, tf32x3=True)
+            out["times"][b] = t
+    out["res8_max_abs_err"] = res8_err
+    median, tail, share = BF16_KERNEL_ROWS
+    print(f"[bf16_kernel] {smi}: the res stack's bf16 mode against its plain version (per row, on the first "
+          f"{BF16_DEPTH} layers at every shape and on the whole stack from B={BF16_FULL_ROWS}: median gap at most "
+          f"{median}, at most {share} of rows past {tail}, each fault's median past {BF16_NEARER}x the kernel's; "
+          f"every gap within {BF16_OUTER}; argmax equal outside {BF16_OUTER} of a tie): " + json.dumps(out))
+    return out
+
+
+def phase_bf16_eval(torch, dev, counters, hard_v2_root, train_runs, smi) -> dict:
+    """30. The bf16 eval path through its entry points: the training CLI's sweeps
+    (phases 10 and 15, read by mode), then make_forward of a bf16 res8 at B=256
+    on the card against the same forward on the CPU, and its times beside the f32
+    forward's."""
+    from honk_tpu_torch.data import load_speech_commands
+    from honk_tpu_torch.train.steps import make_forward
+
+    for conf, by_mode in train_runs.items():
+        want = by_mode["bfloat16"] if uses_res_stack(conf) else 0
+        if by_mode != {"float32": 0, "bfloat16": want} or (uses_res_stack(conf) and not want):
+            fail(f"cli.train {conf}: res stack modes {by_mode} in its dev and test sweeps")
+    ds = load_speech_commands(hard_v2_root, dev_pct=10, test_pct=80)
+    clips = torch.from_numpy(ds.test.audio[:BATCH].astype(np.float32) / 32768.0)
+    labels = torch.from_numpy(np.asarray(ds.test.labels[:BATCH], np.int64))
+    ckpt = os.path.join(HARD_V2, "res8.pt")
+    forward = make_forward()
+    models = {"bfloat16": bf16_res8(torch, dev, ckpt), "cpu": bf16_res8(torch, torch.device("cpu"), ckpt)}
+    from honk_tpu_torch.models import SpeechResModel, find_config, load_honk_checkpoint
+
+    models["float32"] = load_honk_checkpoint(ckpt, SpeechResModel(find_config("res8"))).to(dev).eval()
+    a = clips.to(dev)
+    reset(counters)
+    got = forward(models["bfloat16"], a)
+    torch.cuda.synchronize()
+    launches = read(counters, bf16=True)
+    by_mode = launches.by_mode
+    if launches != {"assemble": 0, "mfcc": 1, "res_stack": 1} or by_mode != {"float32": 0, "bfloat16": 1}:
+        fail(f"make_forward of a bf16 res8 launched {launches}, res stack modes {by_mode}")
+    got = got.cpu()
+    ref = forward(models["cpu"], clips)
+    f32 = forward(models["float32"], a).cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"make_forward bf16 res8: shape {tuple(got.shape)} or non-finite values")
+    reading = row_reading(got, ref, BF16_FORWARD_ROWS)
+    faults = {"float32_forward": row_reading(f32, ref, BF16_FORWARD_ROWS)}
+    print(f"[bf16_eval] make_forward cuda vs cpu row gaps {reading}; the float32 forward's {faults}")
+    check_rows("make_forward bf16 res8 cuda vs cpu", reading, faults, BF16_FORWARD_ROWS)
+    decisive, near, differ = decisive_argmax_equal(got, ref, BF16_OUTER)
+    if not decisive:
+        fail(f"make_forward bf16 res8 cuda vs cpu: argmax differs on {differ} rows ({near} within {BF16_OUTER} "
+             "of a tie)")
+    out = {"launches": launches, "res_stack_by_mode": by_mode, "cuda_vs_cpu_max_abs_err": reading["max"],
+           "rows": reading, "faults": faults,
+           "argmax_differs": differ, "near_ties": near, "max_abs_diff_f32_forward": max_err(got, f32),
+           "acc": {"bfloat16": float((got.argmax(-1) == labels).float().mean()),
+                   "float32": float((f32.argmax(-1) == labels).float().mean())},
+           "train_cli_res_stack_by_mode": train_runs, "times": {}}
+    with torch.inference_mode():
+        for k in ("float32", "bfloat16", "bfloat16", "float32"):  # in turns
+            t = out["times"].setdefault(k, {"events_ms": [], "wall_ms": [], "profiler_device_ms": []})
+            t["events_ms"].append(time_ms(torch, lambda: forward(models[k], a), 20))
+            clocks = step_clocks(torch, lambda: forward(models[k], a), 20, 5)
+            t["wall_ms"].append(clocks["step_wall"])
+            t["profiler_device_ms"].append(clocks["device_ms"])
+            t["top_kernels_ms"] = clocks["top_kernels_ms"]
+    print(f"[bf16_eval] {smi}: make_forward B={BATCH} on the first {BATCH} hard_v2 test clips, "
+          f"zoo_hard_v2/res8.pt; logits cuda vs cpu held by rows {BF16_FORWARD_ROWS} against the float32 forward: "
+          + json.dumps(out))
+    return out
+
+
+def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
+    """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
+    from zoo/res8/best on the card against the .pt service's answers; if not,
+    LabelService refuses the directory, naming tensorstore."""
+    from honk_tpu_torch.ckpt.orbax import REFUSAL
+    from honk_tpu_torch.serve import LabelService
+
+    best = os.path.join(ROOT, "zoo", "res8", "best")
+    try:
+        import tensorstore  # noqa: F401
+        out = {"tensorstore": True}
+    except ImportError:
+        out = {"tensorstore": False}
+    print(f"[orbax] tensorstore imports here: {out['tensorstore']}")
+    if not out["tensorstore"]:
+        try:
+            LabelService("res8", best)
+        except RuntimeError as e:
+            if REFUSAL not in str(e):
+                raise
+            out["refused"] = str(e)
+        else:
+            fail("LabelService loaded an Orbax checkpoint without tensorstore")
+        print(f"[orbax] {smi}: tensorstore is not installed on this machine; LabelService refused "
+              f"zoo/res8/best: {out['refused']}")
+        return out
+    orbax = LabelService("res8", best)
+    if not all(torch.equal(a, b) for a, b in zip(orbax._packed, svc._packed)):
+        fail("zoo/res8/best's kernel operands differ from zoo/res8.pt's")
+    _, out["launches"] = listen(orbax, svc, requests, counters, serve)
+    if out["launches"] != {"mfcc": len(requests), "res_stack": len(requests), "assemble": 0}:
+        fail(f"/listen from zoo/res8/best launched {out['launches']}")
+    print(f"[orbax] {smi}: /listen x{len(requests)} from zoo/res8/best answered like the zoo/res8.pt service; "
+          + json.dumps(out))
     return out
 
 
@@ -1968,13 +2303,16 @@ def main() -> int:
                 "res_stack_plain": time_ms(torch, lambda: res_kernel.res_stack_plain(p, *packed), iters),
             }
 
+    # 29. The res stack's bf16 mode against its plain version, and its times beside the f32 mode's.
+    bf16_kernel = phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi)
+
     # 8-11. The training path.
     assemble_err, arrays, aug = phase_assemble(torch, dev, A, assemble_kernel)
     train_step_errs = {"res8": phase_train_steps(torch, dev, A)}
     with tempfile.TemporaryDirectory() as tmp:
         corpus = os.path.join(tmp, "corpus")
         generate_dataset(corpus, clips_per_word=40, n_speakers=8)
-        train_launches, epochs, train_acc = phase_entry_point(torch, corpus, tmp, counters)
+        train_launches, epochs, train_acc, train_modes = phase_entry_point(torch, corpus, tmp, counters)
         train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel,
                                                                  arrays, aug)
 
@@ -2011,6 +2349,9 @@ def main() -> int:
             train_step_errs[conf] = phase_train_steps(torch, dev, A, conf, batch)
             family_train[conf] = phase_entry_point(torch, corpus, tmp, counters, conf, 1, flags)
         family_times = phase_family_times(torch, dev, A, arrays, aug)
+        # 30. The bf16 eval path: the CLI runs' sweeps by mode, make_forward of a bf16 res8.
+        bf16_eval = phase_bf16_eval(torch, dev, counters, os.path.join(tmp, "hard_v2"),
+                                    {"res8": train_modes, **{c: v[3] for c, v in family_train.items()}}, smi)
 
     # 17-21. Streaming: the MFCC kernel's causal framing, offline, online, the hub over HTTP, res15 and cnn.
     streaming = phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name)
@@ -2027,6 +2368,9 @@ def main() -> int:
                                          "cnn-trad-pool2": family_services["cnn-trad-pool2"][0]},
                                  serve, streaming["hub"], smi)
 
+    # 31. The Orbax loader (tensorstore where the machine has it, else its refusal).
+    orbax = phase_orbax(torch, counters, serve, requests[:4], svc, smi)
+
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
 
@@ -2036,10 +2380,14 @@ def main() -> int:
     def res_work_b(b):
         return res_work(b, C, H, W, L, n_lab)
 
-    # "launches" counts the training path's run (phase 10); "launches_listen"
-    # the serving path's 8 requests (phase 6); "launches_by_path" every path
-    # the script drives with the counts set to 0 just before it. ms / plain_ms
-    # / bound_ms are at "batch"; the other keys give the other sizes of the paths.
+    # "launches" counts the training path's run (phase 10) for mfcc, assemble
+    # and the res stack's bf16 mode (its dev and test sweeps), and the serving
+    # path's 8 requests (phase 6) for the res stack's float32 mode, the path
+    # named by "launches_path"; "launches_listen" the serving path's; and
+    # "launches_by_path" every path the script drives with the counts set to 0
+    # just before it (the res stack by mode: read() refuses a bf16 launch on
+    # every path but the CLI runs and make_forward of a bf16 model). ms /
+    # plain_ms / bound_ms are at "batch"; the other keys give the other sizes.
     by_path = {
         "train_res8": train_launches, "listen_res8": launches,
         **{f"listen_{c}": v["launches"] for c, v in family_listen.items()},
@@ -2052,7 +2400,10 @@ def main() -> int:
         "train_res8_nccl_world1": data_parallel["launches"], "dryrun_1": data_parallel["dryrun_launches"],
         "stream_offline_res8_data_axis": data_parallel["stream_file_launches"],
         "stream_batch8_res8_data_axis": data_parallel["batch_streamer_launches"],
+        "make_forward_res8_bf16": bf16_eval["launches"], "listen_res8_orbax": orbax.get("launches"),
     }
+    by_path = {p: v for p, v in by_path.items() if v is not None}
+    res_modes = {p: v.by_mode for p, v in by_path.items()}  # the res stack's launches by mode, as read on each path
     kernels = []
     for kname, src, replaces, work, err, tf32x3 in (
         ("mfcc", "honk_tpu_torch/ops/csrc/mfcc.cu", "honk_tpu/ops/mfcc_kernel.py:75", mfcc_work_b, mfcc_err, False),
@@ -2061,11 +2412,15 @@ def main() -> int:
     ):
         b256, by = bound(*work(BATCH), name, tf32x3)
         b1, by1 = bound(*work(1), name, tf32x3)
+        res = kname == "res_stack"
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train_launches[kname], "launches_listen": launches[kname],
-            "launches_dp": data_parallel["launches"][kname],
-            "launches_by_path": {p: v[kname] for p, v in by_path.items()}, "max_abs_err": err,
+            "launches": res_modes["listen_res8"]["float32"] if res else train_launches[kname],
+            "launches_path": "listen_res8" if res else "train_res8",
+            "launches_listen": res_modes["listen_res8"]["float32"] if res else launches[kname],
+            "launches_dp": res_modes["train_res8_nccl_world1"]["float32"] if res else data_parallel["launches"][kname],
+            "launches_by_path": {p: (res_modes[p]["float32"] if res else v[kname]) for p, v in by_path.items()},
+            "max_abs_err": err,
             "ms": times[BATCH][kname], "plain_ms": times[BATCH][kname + "_plain"],
             "bound_ms": b256, "bound_by": by, "library_ms": None, "batch": BATCH,
             "ms_b1": times[1][kname], "plain_ms_b1": times[1][kname + "_plain"],
@@ -2075,12 +2430,25 @@ def main() -> int:
     kernels[0].update({"ms_b64": train_times["mfcc_b64"], "plain_ms_b64": train_times["mfcc_plain_b64"],
                        "bound_ms_b64": b64, "bound_by_b64": by64, "streaming": streaming["mfcc"]})
     kernels[1]["streaming"] = streaming["res_stack"]
+    t16 = bf16_kernel["times"]
+    kernels.append({
+        "name": "res_stack[bf16]", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/res_stack.cu",
+        "replaces": "honk_tpu/ops/res_kernel.py:139", "launches": res_modes["train_res8"]["bfloat16"],
+        "launches_path": "train_res8", "launches_listen": res_modes["listen_res8"]["bfloat16"],
+        "launches_dp": res_modes["train_res8_nccl_world1"]["bfloat16"],
+        "launches_by_path": {p: m["bfloat16"] for p, m in res_modes.items()},
+        "max_abs_err": bf16_kernel["res8_max_abs_err"],
+        "ms": t16[BATCH]["ms"], "plain_ms": t16[BATCH]["plain_ms"], "bound_ms": t16[BATCH]["bound_ms"],
+        "bound_by": t16[BATCH]["bound_by"], "library_ms": None, "batch": BATCH,
+        "ms_f32_mode": t16[BATCH]["f32_mode_ms"],
+        "by_batch": {str(b): t for b, t in t16.items()},
+    })
     a64, aby64 = bound(*assemble_ops[TRAIN_BATCH], name)
     a1024, aby1024 = bound(*assemble_ops[1024], name)
     kernels.append({
         "name": "assemble", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/assemble.cu",
         "replaces": "honk_tpu/ops/assemble_kernel.py:122", "launches": train_launches["assemble"],
-        "launches_listen": launches["assemble"], "launches_dp": data_parallel["launches"]["assemble"],
+        "launches_path": "train_res8", "launches_listen": launches["assemble"], "launches_dp": data_parallel["launches"]["assemble"],
         "launches_by_path": {p: v["assemble"] for p, v in by_path.items()}, "max_abs_err": assemble_err,
         "ms": train_times["assemble_b64"], "plain_ms": train_times["assemble_plain_b64"],
         "bound_ms": a64, "bound_by": aby64, "library_ms": None, "batch": TRAIN_BATCH,
@@ -2097,7 +2465,8 @@ def main() -> int:
                       "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")},
                       "personalize": personalize, "datagen": datagen, "worker_thread": worker,
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
-                      "native": native}))
+                      "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if k != "times"},
+                      "bf16_eval": bf16_eval, "orbax": orbax}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -14,9 +14,11 @@ the latest. Files in a checkpoint directory:
   BN), which ``LabelService`` and ``--input_file`` load.
 
 Everything is saved from CPU copies and loaded with ``weights_only=True``
-(tensors, numbers, strings and dicts; no pickled code). The JAX package's
-Orbax directories are not read: that loader is ROADMAP.md §1.5's Orbax
-item, and a directory of them raises saying so.
+(tensors, numbers, strings and dicts; no pickled code). The port writes
+only ``.pt`` files. ``read_state_dict`` also reads a JAX run's Orbax
+weights (``best/``, through ``ckpt.orbax``, which needs ``tensorstore``);
+a directory of Orbax *step* checkpoints (a JAX run's resume payload) is
+refused as a resume source.
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from typing import Any
 import torch
 
 ORBAX_MESSAGE = (
-    "holds Orbax checkpoints of the JAX package; the port reads only its own "
-    ".pt checkpoints (the Orbax loader is ROADMAP.md §1.5)"
+    "holds Orbax step checkpoints of the JAX package; a run of the port resumes only "
+    "from its own .pt step checkpoints (a JAX run's best/ weights load with --input_file)"
 )
 
 
@@ -131,3 +133,16 @@ class Checkpointer:
 def is_orbax_path(path: str) -> bool:
     """Whether ``path`` names a JAX-package Orbax checkpoint (a directory, not a ``.pt``)."""
     return os.path.isdir(path) or not path.endswith(".pt")
+
+
+def read_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """The weights at ``path`` in the port's names, on the CPU: a honk ``.pt``
+    state dict, or the JAX package's Orbax checkpoint directory
+    (``ckpt.orbax.load_orbax``, then ``models.from_flax_variables``), as the
+    JAX ``LabelService`` and ``--input_file`` take either."""
+    if not is_orbax_path(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from ..models.torch_compat import from_flax_variables
+    from .orbax import load_orbax
+
+    return from_flax_variables(load_orbax(path))

@@ -13,7 +13,10 @@ Counterpart of ``python -m honk_tpu.cli.serve``:
 
 --config accepts a reference-style config.json with keys
 {"model_path": ..., "commands": "cmd1,cmd2,..."}. The checkpoint is a honk
-``.pt`` file. ``--device`` defaults to cuda and fails where no CUDA device
+``.pt`` file or, as for the JAX server, an Orbax checkpoint directory
+(``zoo/res8/best`` or ``zoo/res8``; it needs ``tensorstore``, and is refused
+before the server starts where that is missing). ``--device`` defaults to
+cuda and fails where no CUDA device
 is present; the stream hub (``/stream/*``) and ``/train`` run on the same
 device. ``--no-train`` turns personalization off: ``/train`` answers 503.
 """
@@ -66,8 +69,15 @@ def make_server(argv: list[str] | None = None):
         if "commands" in cfg:
             labels = ["__silence__", "__unknown__", *cfg["commands"].split(",")]
 
+    from ..ckpt import is_orbax_path
+    from ..ckpt.orbax import check
     from ..serve import LabelService, serve
 
+    if checkpoint and is_orbax_path(checkpoint):
+        try:
+            check(checkpoint)
+        except (FileNotFoundError, RuntimeError) as e:
+            p.error(f"checkpoint: {e}")
     service = LabelService(args.model, checkpoint, labels=labels, device=args.device)
     httpd = serve(
         service,

@@ -10,9 +10,11 @@
 -narrow forms, and the ten cnn-* (cnn-trad-pool2's recorded recipe is
 ``--lr 0.003 0.0003 --schedule 440``). Runs on ``--device cuda`` (the
 default; it raises where no CUDA device is present) or ``--device cpu``.
-``--compute_dtype bfloat16`` (the default) runs the training convolutions
-(and a CNN's hidden dense layers) with bf16 operands; ``float32`` is the
-parity mode. TF32 is off either way. A train run writes
+``--compute_dtype bfloat16`` (the default) runs the convolutions (and a
+CNN's hidden dense layers, and res8 / res26's res-stack kernel) with bf16
+operands, in the training steps and in the dev and test sweeps of the run,
+as the JAX package does; ``float32`` is the parity mode. ``--type eval`` is
+float32 whatever the flag says. TF32 is off either way. A train run writes
 ``<output_dir>/best.pt`` (a honk state dict) and ``step_XXXXXXXX.pt``
 resume checkpoints.
 
@@ -23,8 +25,10 @@ coordinator starts the N ranks here, over 127.0.0.1 (more ranks than
 visible cards raises on cuda). Rank 0 alone prints the final accuracy
 and writes the checkpoints. ``--profile-dir`` writes ``torch.profiler``
 traces of the first dispatch and the first dev eval (``metrics.trace_to``).
-An Orbax ``--input_file`` is refused: the port reads honk ``.pt`` files
-(the Orbax loader is ROADMAP.md §1.5).
+``--input_file`` is a honk ``.pt`` or, as for the JAX CLI, an Orbax
+checkpoint directory (a run's ``best/`` or the run directory holding it),
+read with ``tensorstore``; where that is not installed, an Orbax
+``--input_file`` is refused before any work.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--steps_per_call", type=int, default=t.steps_per_call,
         help="train steps per chunk of the epoch loop (1 disables chunking)",
     )
-    p.add_argument("--input_file", default="", help="warm-start (train) or eval checkpoint: a honk .pt")
+    p.add_argument("--input_file", default="",
+                   help="warm-start (train) or eval checkpoint: a honk .pt or an Orbax checkpoint directory")
     p.add_argument("--output_dir", default="ckpts/run", help="checkpoint directory")
     p.add_argument("--metrics_jsonl", default="", help="JSONL metrics sink path")
     p.add_argument(
@@ -97,6 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     from ..ckpt import is_orbax_path
+    from ..ckpt.orbax import check
 
     ranks = (args.num_processes, args.process_id)
     if args.coordinator is None and ranks != (None, None):
@@ -110,10 +116,12 @@ def _refuse(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
             p.error(f"--n_devices {args.n_devices}: the mesh has one device per process, "
                     f"{args.num_processes} here")
     if args.input_file and is_orbax_path(args.input_file):
-        p.error(f"--input_file {args.input_file}: the port reads honk .pt files; the Orbax "
-                "loader is ROADMAP.md §1.5")
+        try:
+            check(args.input_file)
+        except (FileNotFoundError, RuntimeError) as e:
+            p.error(f"--input_file: {e}")
     if args.type == "eval" and not args.input_file:
-        p.error("--type eval needs --input_file (a honk .pt)")
+        p.error("--type eval needs --input_file (a honk .pt or an Orbax checkpoint directory)")
 
 
 def args_to_config(args: argparse.Namespace) -> ExperimentConfig:
@@ -201,9 +209,10 @@ def _run(args: argparse.Namespace, device) -> int:
                 Checkpointer(args.output_dir).save_best(result["best"])
             return 0
 
+        from ..ckpt import read_state_dict
         from ..train import evaluate
 
-        evaluate(cfg, torch.load(args.input_file, map_location="cpu", weights_only=True), device=device)
+        evaluate(cfg, read_state_dict(args.input_file), device=device)
         return 0
     finally:
         logger.close()

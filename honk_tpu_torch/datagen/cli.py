@@ -10,8 +10,9 @@
 
 The JAX CLI's flags, plus ``--device`` (default cuda; with
 ``--eval_checkpoint`` it fails where no CUDA device is present, before any
-clip is written). ``--eval_checkpoint`` takes a honk ``.pt``; an Orbax
-directory is refused.
+clip is written). ``--eval_checkpoint`` takes a honk ``.pt`` or, as the
+JAX CLI's, an Orbax checkpoint directory (it needs ``tensorstore``: where
+that is missing, it is refused before any clip is written).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", required=True)
     p.add_argument("--max_videos", type=int, default=50)
     p.add_argument("--no_recenter", action="store_true", help="disable RMS recentering")
-    p.add_argument("--eval_checkpoint", default="", help="honk .pt for quality eval")
+    p.add_argument("--eval_checkpoint", default="", help="honk .pt or Orbax dir for quality eval")
     p.add_argument("--eval_model", default="res8")
     p.add_argument("--report_json", default="", help="write the quality report here")
     p.add_argument("--device", default="cuda", help="quality eval device: cuda (default) or cpu")
@@ -46,10 +47,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.eval_checkpoint:
         from .. import resolve_device
         from ..ckpt import is_orbax_path
+        from ..ckpt.orbax import check
 
         if is_orbax_path(args.eval_checkpoint):
-            p.error(f"--eval_checkpoint {args.eval_checkpoint}: the port reads honk .pt files; the Orbax "
-                    "loader is ROADMAP.md §1.5")
+            try:
+                check(args.eval_checkpoint)
+            except (FileNotFoundError, RuntimeError) as e:
+                p.error(f"--eval_checkpoint: {e}")
         resolve_device(args.device)
     if args.source == "local":
         if not args.input_dir:

@@ -61,7 +61,18 @@ def mel_log(power: torch.Tensor) -> torch.Tensor:
 
 
 def compute_mfccs(audio: torch.Tensor) -> torch.Tensor:
-    """Batched MFCC: (B, n_samples) float32 -> (B, n_frames, n_dct) float32."""
+    """Batched MFCC: (B, n_samples) float32 -> (B, n_frames, n_dct) float32.
+
+    The JAX package's ``compute_mfccs`` also takes ``fast``, its
+    training-grade tier (``honk_tpu/frontend/mfcc.py``: its DFT, mel and DCT
+    matmuls in one bf16 pass on the TPU, 2.7e-2 from the float64 golden),
+    which its bf16 train steps and bf16 ``make_forward`` take. That tier is
+    an XLA precision setting, not a Pallas kernel, and the port has no
+    cheaper tier to map it to: every caller runs this float32 MFCC kernel,
+    which is more exact than the fast tier (within 5e-3 of the golden) and a
+    small share of a step's device time (PERF.md §6), so a bf16 pass would
+    have little to save.
+    """
     if audio.ndim != 2:
         raise ValueError(
             f"compute_mfccs expects batched audio of shape (B, n_samples); got {tuple(audio.shape)}. "

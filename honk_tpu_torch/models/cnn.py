@@ -15,12 +15,15 @@ names are honk's (``conv1.weight`` / ``bias``, ``conv2.*``, ``lin.*``,
 ``dnn1.*``, ``dnn2.*``, ``output.*``), so a honk ``.pt`` loads with no
 converter.
 
-The eval forward is float32 (cuDNN convs, cuBLAS dense layers; the JAX
-package has no Pallas kernel for this family either); ``frozen_forward`` runs
-it in either mode, for personalization to differentiate. The training forward
-runs the convs and ``lin`` / ``dnn*`` with ``dtype`` operands (bf16 in,
-float32 out), the ``output`` layer in float32, and dropout with flax's
-arithmetic (``layers.apply_dropout``). Its keep masks come from an explicit
+The eval and training forwards run the convs and ``lin`` / ``dnn*`` with
+``dtype`` operands (bf16 in, float32 out, through ``layers.conv`` /
+``layers.dense``; cuDNN convs and cuBLAS dense layers: the JAX package has
+no Pallas kernel for this family either) and the ``output`` layer in
+float32, as flax's ``dtype`` does: a float32 model is float32 throughout,
+a bf16 one (a training run's dev and test sweeps) evaluates in bf16.
+``frozen_forward`` runs the float32 eval forward in either mode, for
+personalization to differentiate. The training forward applies dropout with
+flax's arithmetic (``layers.apply_dropout``). Its keep masks come from an explicit
 generator (``keep_masks``) or from the caller; each has the NCHW shape of
 the activation it drops, where flax's has the NHWC shape of the same tensor.
 """
@@ -55,8 +58,9 @@ def _conv_maps(cfg: dict[str, Any]) -> tuple[list[tuple[int, int, int]], tuple[i
 class SpeechModel(nn.Module):
     """CNN keyword spotter. Input: (B, 101, 40) MFCC -> (B, n_labels) logits.
 
-    ``dtype`` is the operand dtype of the training convs and hidden dense
-    layers (flax's ``dtype``): ``torch.bfloat16`` or None / ``torch.float32``.
+    ``dtype`` is the operand dtype of the convs and hidden dense layers
+    (flax's ``dtype``), in training and in eval: ``torch.bfloat16`` or None /
+    ``torch.float32``.
     """
 
     def __init__(self, config: dict[str, Any], dtype: torch.dtype | None = None):
@@ -112,7 +116,7 @@ class SpeechModel(nn.Module):
         is ``eval_operands()``'s None, and ``mesh`` the res family's data mesh
         for its BN: the family has no BN, so both are taken and unused."""
         if not self.training:
-            return self._layers(x, torch.float32, [])
+            return self._layers(x, self.dtype, [])
         shapes = self.dropout_shapes(x.shape[0])
         masks: list[torch.Tensor] = []
         if isinstance(dropout, torch.Generator):

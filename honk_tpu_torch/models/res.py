@@ -17,15 +17,21 @@ Parameter names are honk's state-dict names (``conv{i}.weight``,
 ``bn{i}.running_mean`` / ``running_var``, ``output.weight`` / ``bias``), so
 a honk ``.pt`` loads with no converter (``torch_compat``).
 
-The eval forward (``model.eval()``) is float32. For res8 and res26 it runs
-conv0, ReLU and the pool as PyTorch ops (the JAX package leaves them to XLA
-outside its kernel too) and the rest through the res-stack kernel's
-wrapper. The kernel takes no dilated convs (nor does the TPU's), so res15
-runs every conv through cuDNN, with BN from the running statistics folded
-as the kernel's operands fold it (``fold_bn``); ``use_full_f32`` keeps those
-convs out of TF32. ``frozen_forward`` is the eval forward of every config as
-PyTorch ops under autograd, with that fold: personalization differentiates
-it (``serve.TrainingService``).
+The eval forward (``model.eval()``) takes ``dtype`` operands, as flax's
+``model.apply(train=False)`` of a model built with that ``dtype`` does: a
+float32 model (every service, ``--type eval``) is float32 throughout, a
+bf16 one (a training run's dev and test sweeps at the default
+``--compute_dtype bfloat16``) multiplies bf16 operands with float32 sums.
+For res8 and res26 it runs conv0 (``layers.conv`` in ``dtype``), ReLU and
+the pool as PyTorch ops (the JAX package leaves them to XLA outside its
+kernel too) and the rest through the res-stack kernel's wrapper in that
+mode. The kernel takes no dilated convs (nor does the TPU's), so res15 runs
+every conv through cuDNN in ``dtype``, with BN from the running statistics
+folded as the kernel's operands fold it (``fold_bn``); ``use_full_f32``
+keeps the float32 convs out of TF32. ``frozen_forward`` is the float32
+eval forward of every config as PyTorch ops under autograd, with that fold:
+personalization differentiates it (``serve.TrainingService``), as the JAX
+package fine-tunes its float32 service model.
 
 The training forward (``model.train()``) is plain PyTorch with autograd:
 the convolutions go through cuDNN (the JAX package has no Pallas kernel for
@@ -56,8 +62,8 @@ BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batc
 class SpeechResModel(nn.Module):
     """Residual keyword spotter. Input: (B, 101, 40) MFCC -> (B, n_labels) logits.
 
-    ``dtype`` is the operand dtype of the training convolutions (flax's
-    ``dtype``): ``torch.bfloat16`` or None / ``torch.float32``.
+    ``dtype`` is the operand dtype of the convolutions (flax's ``dtype``),
+    in training and in eval: ``torch.bfloat16`` or None / ``torch.float32``.
     """
 
     def __init__(self, config: dict[str, Any], dtype: torch.dtype | None = None):
@@ -76,9 +82,9 @@ class SpeechResModel(nn.Module):
 
     def eval_operands(self) -> tuple[torch.Tensor, ...]:
         """What the eval forward takes from the weights, to prepare once per set
-        of weights: the res-stack kernel's operands (``pack_res_params``), or
-        for a dilated config the BN fold (``fold_bn``)."""
-        return fold_bn(self) if self.dilated else pack_res_params(self)
+        of weights: the res-stack kernel's operands for the model's ``dtype``
+        (``pack_res_params``), or for a dilated config the BN fold (``fold_bn``)."""
+        return fold_bn(self) if self.dilated else pack_res_params(self, self.dtype)
 
     def stem(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """conv0 -> ReLU -> pool: (B, 101, 40) -> (B, C, H, W), the res stack's input."""
@@ -102,20 +108,21 @@ class SpeechResModel(nn.Module):
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
-            return res_stack(self.stem(x), *packed)
-        return self._folded_stack(x, *packed)
+            return res_stack(self.stem(x, self.dtype), *packed, compute_dtype=self.dtype)
+        return self._folded_stack(x, self.dtype, *packed)
 
     def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The eval forward's logits as PyTorch ops under autograd, in either
-        mode: BN from the running statistics, folded as ``fold_bn`` folds them
-        (buffers only, so gradients reach the conv and Dense weights as through
-        flax's ``train=False``). This is what a fine-tune differentiates: the
-        res-stack kernel, like the TPU's, has no backward."""
-        return self._folded_stack(x, *fold_bn(self))
+        """The float32 eval forward's logits as PyTorch ops under autograd, in
+        either mode: BN from the running statistics, folded as ``fold_bn``
+        folds them (buffers only, so gradients reach the conv and Dense weights
+        as through flax's ``train=False``). This is what a fine-tune
+        differentiates: the res-stack kernel, like the TPU's, has no backward."""
+        return self._folded_stack(x, torch.float32, *fold_bn(self))
 
-    def _folded_stack(self, x: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    def _folded_stack(self, x: torch.Tensor, dtype: torch.dtype, scale: torch.Tensor,
+                      offset: torch.Tensor) -> torch.Tensor:
         scale, offset = scale[:, :, None, None], offset[:, :, None, None]
-        return self._stack(x, torch.float32, lambda i, y: y * scale[i - 1] + offset[i - 1])
+        return self._stack(x, dtype, lambda i, y: y * scale[i - 1] + offset[i - 1])
 
     def _stack(self, x: torch.Tensor, dtype: torch.dtype,
                norm: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:

@@ -1,12 +1,17 @@
 """Res-stack kernel: the eval-mode residual stack after conv0 + pool, mean and Dense.
 
 Hopper counterpart of ``honk_tpu/ops/res_kernel.py`` (Pallas
-``_res_stack_call`` / ``_make_kernel``, packer ``pack_res_params``). The
-CUDA source is ``csrc/res_stack.cu``; its header says what bounds it on the
-card (the convolutions' products, run on the tensor cores in 3xTF32) and
-how the design meets that: a small kernel packs and splits the weights,
-then a thread block cluster per utterance, each CTA a band of rows in
-shared memory, runs each conv as an implicit GEMM with ``wgmma``. Shapes follow
+``_res_stack_call`` / ``_make_kernel``, packer ``pack_res_params``), in both
+of its operand types (``compute_dtype``): float32, and bfloat16, the TPU
+kernel's default, where each conv's activations and weights and the Dense
+layer's features and weights are rounded to bf16 (to nearest even) and
+multiplied with f32 sums, while activations, the residual carry and BN
+stay f32. The CUDA source is ``csrc/res_stack.cu``; its header says what
+bounds it on the card (the convolutions' products, on the tensor cores in
+3xTF32 or in bf16) and how the design meets that: a small kernel packs (and
+splits or rounds) the weights, then a thread block cluster per utterance,
+each CTA a band of rows in shared memory, runs each conv as an implicit
+GEMM with ``wgmma``. Shapes follow
 PyTorch: the input is the pooled activation ``(B, C, H, W)`` (res8:
 ``(B, 45, 25, 13)``), the output ``(B, n_labels)`` logits. Any batch size,
 ``C <= 64``, any layer count, and maps whose rows split into at most 8
@@ -14,10 +19,13 @@ bands that each fit the kernel (``cluster_size``): res8, res8-narrow, res26
 and res26-narrow. res15's dilated convs are not covered, as on the TPU:
 ``SpeechResModel`` runs them through cuDNN.
 
-``res_stack`` is the wrapper: on CUDA tensors it launches the kernel (or
-raises), on CPU tensors it runs ``res_stack_plain``, the same function as
-plain ``F.conv2d`` layers with the same BN folding. ``launches`` counts
-kernel launches.
+``res_stack`` is the wrapper: on CUDA tensors it launches the kernel in the
+mode asked for (or raises), on CPU tensors it runs ``res_stack_plain``, the
+same function as plain ``F.conv2d`` layers with the same BN folding and,
+in the bf16 mode, the same operands rounded to bf16 and the convs run in
+f32 (a product of two bf16 values is exact in f32 and in TF32, so this is
+the kernel's arithmetic up to the order of f32 sums). ``launches`` counts
+kernel launches in either mode, ``launches_by_mode`` each mode's.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0
+MODES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}  # compute_dtype -> its name
+launches_by_mode = {name: 0 for name in MODES.values()}
 BN_EPS = 1e-5
 MAX_MAPS = 64
 # Launch geometry of csrc/res_stack.cu (its WARPS, STAGES and MAX_CLUSTER).
@@ -63,58 +73,87 @@ def fold_bn(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(scales).contiguous(), torch.stack(offsets).contiguous()
 
 
+def _mode(compute_dtype: torch.dtype) -> str:
+    if compute_dtype not in MODES:
+        raise ValueError(f"res_stack's compute_dtype is torch.float32 or torch.bfloat16, not {compute_dtype}")
+    return MODES[compute_dtype]
+
+
+def round_operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """An operand as the kernel multiplies it: as it is, or rounded to bf16
+    (to nearest even) and held in ``t``'s dtype."""
+    return t if compute_dtype == torch.float32 else t.to(torch.bfloat16).to(t.dtype)
+
+
 @torch.no_grad()
-def pack_res_params(model: torch.nn.Module) -> tuple[torch.Tensor, ...]:
+def pack_res_params(model: torch.nn.Module, dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
     """Fold a res model's eval-mode weights into the kernel's operands.
 
     Returns ``(w_all (L, 9C, C), bn_scale (L, C), bn_offset (L, C),
-    dense_w (C, n_labels), dense_b (n_labels,))`` on the model's device.
-    ``w_all`` is tap-major like the TPU packer's: row ``(dy*3 + dx)*C + ic``,
-    column ``oc``. The BN fold is ``fold_bn``'s.
+    dense_w (C, n_labels), dense_b (n_labels,))`` float32 on the model's
+    device. ``w_all`` is tap-major like the TPU packer's: row
+    ``(dy*3 + dx)*C + ic``, column ``oc``. The BN fold is ``fold_bn``'s. For
+    ``dtype=torch.bfloat16`` the conv and Dense weights are the bf16 values
+    that mode multiplies (``round_operand``), still float32 tensors: the
+    kernel and ``res_stack_plain`` round them again, which changes nothing.
     """
+    _mode(dtype)
     w_all = torch.stack([
         getattr(model, f"conv{i}").weight.permute(2, 3, 1, 0).reshape(-1, model.n_maps)
         for i in range(1, model.n_layers + 1)
     ])
     return (
-        w_all.contiguous(),
+        round_operand(w_all, dtype).contiguous(),
         *fold_bn(model),
-        model.output.weight.t().contiguous(),
+        round_operand(model.output.weight.t(), dtype).contiguous(),
         model.output.bias.detach().clone(),
     )
 
 
 @functools.lru_cache(maxsize=None)
-def fragment_index(C: int) -> np.ndarray:
+def fragment_index(C: int, dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Where each value of the kernel's B tiles of one tap comes from.
 
-    Shape ``(NT, NT, 2, 8, 4)`` int32 with ``NT = ceil(C / 8)``: for K
-    chunk ``kc``, N block ``j``, K half ``h``, row ``r`` and column ``k``,
-    the value at that place of the chunk's tile, which ``wgmma`` reads as
-    ``B[k = 4h + k][n = 8j + r]`` (no swizzle: core matrices of 8 rows of
-    4 values, K halves 128 B apart, N blocks 256 B apart), is the weight of
-    input channel ``kc*8 + 4h + k`` and output channel ``8j + r``. The
-    entry is that weight's offset in the tap's ``(C, C)`` block of ``w_all``
-    (``ic*C + oc``), or -1 for the zero padding of channels ``>= C``. The
-    source's pack kernel gathers ``w_all`` by it, once per call, and splits
-    each value for 3xTF32.
+    float32 (3xTF32): shape ``(NT, NT, 2, 8, 4)`` int32 with
+    ``NT = ceil(C / 8)``: for K chunk ``kc``, N block ``j``, K half ``h``,
+    row ``r`` and column ``k``, the value at that place of the chunk's
+    tile, which ``wgmma`` reads as ``B[k = 4h + k][n = 8j + r]`` (no
+    swizzle: core matrices of 8 rows of 4 values, K halves 128 B apart, N
+    blocks 256 B apart), is the weight of input channel ``kc*8 + 4h + k``
+    and output channel ``8j + r``. bfloat16: shape ``(KT, NT, 2, 8, 8)``
+    with ``KT = ceil(C / 16)``, K chunks of 16 (``wgmma``'s bf16 depth)
+    whose core matrices hold 8 values a row, input channel
+    ``kc*16 + 8h + k``. The entry is that weight's offset in the tap's
+    ``(C, C)`` block of ``w_all`` (``ic*C + oc``), or -1 for the zero
+    padding of channels ``>= C``. The source's pack kernels gather
+    ``w_all`` by it, once per call, and split each value for 3xTF32 or
+    round it to bf16.
     """
     nt = -(-C // 8)
-    kc, j, h, r, k = np.meshgrid(np.arange(nt), np.arange(nt), np.arange(2), np.arange(8), np.arange(4),
-                                 indexing="ij")
-    ic, oc = kc * 8 + 4 * h + k, 8 * j + r
+    depth = 16 if _mode(dtype) == "bfloat16" else 8  # K values of one chunk
+    kc, j, h, r, k = np.meshgrid(np.arange(-(-C // depth)), np.arange(nt), np.arange(2), np.arange(8),
+                                 np.arange(depth // 2), indexing="ij")
+    ic, oc = kc * depth + (depth // 2) * h + k, 8 * j + r
     return np.where((ic < C) & (oc < C), ic * C + oc, -1).astype(np.int32)
 
 
-def smem_bytes(C: int, H: int, W: int, cluster: int) -> int:
-    """Dynamic shared memory of one CTA (``res_stack_smem_bytes`` in the source)."""
-    nt = -(-C // 8)
-    stride, band = nt * 8 + 4, -(-H // cluster)
+def smem_bytes(C: int, H: int, W: int, cluster: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one CTA (``res_stack_smem_bytes`` in the source).
+
+    The channel stride of a pixel is ``NT*8 + 4`` floats in the float32
+    mode and ``KT*16 + 8`` in the bf16 mode (its K chunks are 16 deep); a
+    weight stage is a tap's B tiles, ``NT*NT*128`` floats (big and small
+    tf32 tiles) or ``KT*NT*128`` bf16 values.
+    """
+    nt, kt = -(-C // 8), -(-C // 16)
+    bf16 = _mode(dtype) == "bfloat16"
+    stride, band = (kt * 16 + 8 if bf16 else nt * 8 + 4), -(-H // cluster)
     act = -(-((band + 2) * (W + 2) * stride) // 4) * 4
-    return 4 * (2 * act + band * W * stride + STAGES * nt * nt * 128)
+    wstage = kt * nt * 64 if bf16 else nt * nt * 128
+    return 4 * (2 * act + band * W * stride + STAGES * wstage)
 
 
-def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132) -> int:
+def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132, dtype: torch.dtype = torch.float32) -> int:
     """CTAs per utterance: the rows of an utterance split into that many bands.
 
     Among the cluster sizes 1, 2, 4, 8 (at most ``H``) whose bands fit the
@@ -126,12 +165,13 @@ def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132) -> int:
     scripts/probe_torch_res_stack.py): the cost counts waves of
     ``n_sm`` CTAs, each weighted by ``16 + tiles``. So B=1 spreads over 8
     SMs, and a large batch takes the largest bands that fit, in the fewest
-    waves. Raises ``ValueError`` if none fits.
+    waves. ``dtype`` is the mode's (its shared memory differs). Raises
+    ``ValueError`` if none fits.
     """
     best = None
     for cs in (1, 2, 4, 8):
         tiles = -(-(-(-H // cs) * W) // 16)
-        if cs > H or tiles > MAX_TILES or smem_bytes(C, H, W, cs) > SMEM_LIMIT:
+        if cs > H or tiles > MAX_TILES or smem_bytes(C, H, W, cs, dtype) > SMEM_LIMIT:
             continue
         cost = math.ceil(B * cs / n_sm) * (MAX_TILES + tiles)
         if best is None or cost <= best[0]:
@@ -144,23 +184,33 @@ def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132) -> int:
     return best[1]
 
 
-def res_stack_plain(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
-    """(B, C, H, W) pooled activation -> (B, n_labels) logits as plain PyTorch ops."""
+def res_stack_plain(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, C, H, W) pooled activation -> (B, n_labels) logits as plain PyTorch ops.
+
+    In the bf16 mode each conv's and the Dense layer's operands are rounded
+    to bf16 (``round_operand``) and multiplied in float32: only operands are
+    rounded, never a product, a sum or an activation (``F.conv2d`` on bf16
+    tensors would round its output too).
+    """
     C = x.shape[1]
     old = x
     for i in range(w_all.shape[0]):
         w = w_all[i].reshape(3, 3, C, C).permute(3, 2, 0, 1)  # (out, in, kh, kw)
-        y = F.relu(F.conv2d(x, w, padding=1))
+        y = F.relu(F.conv2d(round_operand(x, compute_dtype), round_operand(w, compute_dtype), padding=1))
         if (i + 1) % 2 == 0:
             y = y + old
             old = y
         x = y * bn_scale[i, :, None, None] + bn_offset[i, :, None, None]
-    return x.mean(dim=(2, 3)) @ dense_w + dense_b
+    return round_operand(x.mean(dim=(2, 3)), compute_dtype) @ round_operand(dense_w, compute_dtype) + dense_b
 
 
-def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
-    """(B, C, H, W) f32 -> (B, n_labels) f32: the kernel on CUDA, plain on CPU."""
+def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
+              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, C, H, W) f32 -> (B, n_labels) f32: the kernel on CUDA, plain on CPU,
+    with ``compute_dtype`` operands (float32 or bfloat16)."""
     args = (x, w_all, bn_scale, bn_offset, dense_w, dense_b)
+    _mode(compute_dtype)
     B, C, H, W = x.shape if x.ndim == 4 else (0, 0, 0, 0)
     L = w_all.shape[0] if w_all.ndim == 3 else 0
     shapes_ok = (
@@ -177,51 +227,56 @@ def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> torch.Tensor:
         )
     if any(a.dtype != torch.float32 or not a.is_contiguous() or a.device != x.device for a in args):
         raise ValueError("res_stack takes contiguous float32 tensors on one device")
-    cluster_size(B, C, H, W)  # the same maps are refused on every device
+    cluster_size(B, C, H, W, dtype=compute_dtype)  # the same maps are refused on every device
     if x.device.type == "cpu":
-        return res_stack_plain(*args)
+        return res_stack_plain(*args, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"res_stack runs on cuda or cpu tensors, not {x.device}")
-    return _launch(*args)
+    return _launch(*args, compute_dtype=compute_dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _device_index(C: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(fragment_index(C)).to(device)
+def _device_index(C: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fragment_index(C, dtype)).to(device)
 
 
-def geometry(x: torch.Tensor) -> dict:
+def geometry(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> dict:
     """The launch the kernel gets for the pooled activation ``x`` on its CUDA device."""
     B, C, H, W = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    cs = cluster_size(B, C, H, W, n_sm)
+    cs = cluster_size(B, C, H, W, n_sm, compute_dtype)
     return {"cluster": cs, "ctas": B * cs, "threads": 32 * WARPS, "rows_per_cta": -(-H // cs),
-            "smem_bytes": smem_bytes(C, H, W, cs), "n_sm": n_sm}
+            "smem_bytes": smem_bytes(C, H, W, cs, compute_dtype), "n_sm": n_sm}
 
 
-def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, cluster: int | None = None) -> torch.Tensor:
+def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, compute_dtype: torch.dtype = torch.float32,
+            cluster: int | None = None) -> torch.Tensor:
     """The kernel on checked CUDA operands; ``cluster`` overrides the
     wrapper's choice (scripts/probe_torch_res_stack.py compares them)."""
     global launches
+    mode = _mode(compute_dtype)
     lib = _build.load("res_stack")
     fn = lib.res_stack_forward
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, C, H, W = x.shape
     L, n_labels = w_all.shape[0], dense_w.shape[1]
-    cs = cluster or geometry(x)["cluster"]
-    idx = _device_index(C, x.device)
-    nt = -(-C // 8)
-    # The split B tiles: (L, 9 taps, NT K chunks, big and small, NT * 64) floats.
-    wpack = torch.empty(L * 9 * nt * nt * 128, dtype=torch.float32, device=x.device)
+    cs = cluster or geometry(x, compute_dtype)["cluster"]
+    idx = _device_index(C, compute_dtype, x.device)
+    nt, kt = -(-C // 8), -(-C // 16)
+    # The B tiles, in floats: (L, 9 taps, NT K chunks, big and small, NT * 64)
+    # split for 3xTF32, or (L, 9 taps, KT K chunks, NT * 128 bf16).
+    n_floats = L * 9 * (kt * nt * 64 if mode == "bfloat16" else nt * nt * 128)
+    wpack = torch.empty(n_floats, dtype=torch.float32, device=x.device)
     out = torch.empty((B, n_labels), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             x.data_ptr(), w_all.data_ptr(), idx.data_ptr(), bn_scale.data_ptr(),
             bn_offset.data_ptr(), dense_w.data_ptr(), dense_b.data_ptr(), out.data_ptr(),
-            wpack.data_ptr(), B, C, H, W, L, n_labels, cs, stream,
+            wpack.data_ptr(), B, C, H, W, L, n_labels, cs, int(mode == "bfloat16"), stream,
         )
     _build.check(err, "res_stack")
     launches += 1
+    launches_by_mode[mode] += 1
     return out

@@ -11,9 +11,11 @@ Counterparts of ``honk_tpu.serve.service`` (reference
   float32 with TF32 off. ``evaluate_long`` runs continuous detection over
   long audio (``stream.stream_file``: one MFCC launch for the whole
   waveform, one model call for all its windows), and ``make_batch_streamer``
-  gives the online slab the stream hub serves from. It takes a honk ``.pt``
-  or a state dict in the port's names; ``set_variables`` swaps in new
-  weights. The Orbax loader is not in the port yet (ROADMAP.md §1.5).
+  gives the online slab the stream hub serves from. It takes a honk ``.pt``,
+  an Orbax checkpoint directory of the JAX package (``ckpt.read_state_dict``:
+  ``zoo/res8/best`` or the run directory ``zoo/res8``; it needs
+  ``tensorstore``, and raises saying so where that is missing) or a state
+  dict in the port's names; ``set_variables`` swaps in new weights.
 - ``TrainingService.fine_tune`` personalizes: the JAX method step for step
   (positives, their contrastive scrambles as ``__unknown__``, SGD with
   momentum on the mean cross-entropy, BN frozen), on a copy of the
@@ -44,7 +46,8 @@ from ..audio import AudioSnippet
 from ..config import StreamConfig
 from ..data import DEFAULT_WANTED_WORDS, LABEL_SILENCE, LABEL_UNKNOWN
 from ..frontend import compute_mfccs
-from ..models import find_config, find_model, load_honk_checkpoint, load_state_dict
+from ..ckpt import read_state_dict
+from ..models import find_config, find_model, load_state_dict
 from ..stream import BatchStreamer, stream_file
 from .worker import DeviceWorker
 
@@ -60,7 +63,8 @@ class LabelService:
     present; ``device="cpu"`` runs the kernels' plain versions. Every call's
     device work runs on the service's worker thread (``worker``), and the
     model and its packed operands are read and swapped together under a
-    lock. ``variables`` is a honk ``.pt`` path or a state dict in the port's names.
+    lock. ``variables`` is a honk ``.pt`` path, an Orbax checkpoint directory
+    (``ckpt.read_state_dict``) or a state dict in the port's names.
     """
 
     def __init__(
@@ -76,10 +80,7 @@ class LabelService:
         self.labels = list(labels or default_labels())
         cfg["n_labels"] = len(self.labels)
         self.model = find_model(model_name)(cfg)
-        if isinstance(variables, str):
-            load_honk_checkpoint(variables, self.model)
-        else:
-            load_state_dict(self.model, variables)
+        load_state_dict(self.model, read_state_dict(variables) if isinstance(variables, str) else variables)
         self._lock = threading.Lock()
         self.worker = DeviceWorker("label-service-device")
         self.model, self._packed = self.worker.run(self._on_device, self.model)

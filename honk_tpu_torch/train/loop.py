@@ -32,13 +32,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device, use_full_f32
-from ..ckpt import Checkpointer
+from ..ckpt import Checkpointer, read_state_dict
 from ..config import ExperimentConfig
 from ..data import AugmentConfig, load_speech_commands, prepare_train_arrays
 from ..data.dataset import PackedDataset, PackedSplit
 from ..metrics import MetricsLogger, trace_to
 from ..parallel import is_primary, make_data_mesh, rank_device
-from ..models import find_config, find_model, init_weights, load_honk_checkpoint, load_state_dict
+from ..models import find_config, find_model, init_weights, load_state_dict
 from .state import create_train_state, make_optimizer
 from .steps import make_eval_sweep, make_train_scan
 
@@ -87,11 +87,13 @@ def train(
     """Full training run. Returns {'state', 'best', 'best_dev_acc', 'test_acc', 'model', 'dataset'}.
 
     ``device`` defaults to cuda (and raises without one). Any model of the
-    registry trains. ``compute_dtype`` is the operand dtype of the training
-    convs (and a CNN's hidden dense layers); ``float32`` is the parity
-    mode. TF32 is off either way (``use_full_f32``): what runs in float32,
-    the eval sweeps included, stays float32. ``cfg.train.input_file`` (a honk ``.pt``)
-    warm-starts the weights. With ``checkpoint_dir``: a step checkpoint
+    registry trains. ``compute_dtype`` is the model's operand dtype (the
+    convs and a CNN's hidden dense layers, the res stack's kernel mode),
+    in its training steps and in the dev and test sweeps alike, as the JAX
+    loop builds one model for both; ``float32`` is the parity mode. TF32 is
+    off either way (``use_full_f32``): what runs in float32 stays float32.
+    ``cfg.train.input_file`` (a honk ``.pt`` or an Orbax checkpoint
+    directory, ``ckpt.read_state_dict``) warm-starts the weights. With ``checkpoint_dir``: a step checkpoint
     every ``save_every_epochs`` epochs and at the end, and resume from the
     latest when ``resume``. With ``profile_dir``: ``torch.profiler``
     traces of the first dispatch and the first dev eval (``metrics.trace_to``).
@@ -109,7 +111,7 @@ def train(
     model = find_model(cfg.train.model)(model_cfg, dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(cfg.train.seed))
     if cfg.train.input_file:
-        load_honk_checkpoint(cfg.train.input_file, model)
+        load_state_dict(model, read_state_dict(cfg.train.input_file))
     mesh.replicate(model.to(device))
 
     tx = make_optimizer(
@@ -257,8 +259,9 @@ def evaluate(
     dataset: PackedDataset | None = None,
     device: str | torch.device | None = None,
 ) -> float:
-    """Test-set accuracy of given weights (reference ``--type eval``), float32 with TF32 off,
-    under ``cfg.mesh`` as ``train``."""
+    """Test-set accuracy of given weights (reference ``--type eval``), float32 with TF32 off
+    whatever ``cfg.train.compute_dtype`` says (the JAX ``evaluate`` builds its model
+    with no dtype), under ``cfg.mesh`` as ``train``."""
     device = rank_device(resolve_device(device))
     mesh = make_data_mesh(cfg.mesh.n_devices, cfg.mesh.data_axis)
     use_full_f32()

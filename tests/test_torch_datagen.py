@@ -11,6 +11,7 @@ verdicts with probabilities within 1e-4 (``evaluate_clips`` at
 import json
 import os
 import shutil
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -294,14 +295,16 @@ def test_datagen_cli_eval_matches_jax_cli(tmp_path, capsys):
     _same_report(runs["port"][2], runs["jax"][2])
 
 
-def test_datagen_cli_refuses_orbax_and_missing_cuda(tmp_path, capsys):
+def test_datagen_cli_refuses_orbax_and_missing_cuda(tmp_path, capsys, monkeypatch):
     src = str(tmp_path / "src")
     os.makedirs(src)
     _make_video(src)
     argv = ["--keywords", "yes", "--input_dir", src, "--out_dir", str(tmp_path / "out")]
-    with pytest.raises(SystemExit) as e:
-        datagen_main(argv + ["--eval_checkpoint", str(ROOT / "zoo" / "res8"), "--device", "cpu"])
-    assert e.value.code == 2 and "ROADMAP.md §1.5" in capsys.readouterr().err
+    with monkeypatch.context() as m:  # an Orbax checkpoint where tensorstore cannot be imported
+        m.setitem(sys.modules, "tensorstore", None)
+        with pytest.raises(SystemExit) as e:
+            datagen_main(argv + ["--eval_checkpoint", str(ROOT / "zoo" / "res8"), "--device", "cpu"])
+    assert e.value.code == 2 and "needs the tensorstore package" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             datagen_main(argv + ["--eval_checkpoint", ZOO_RES8])

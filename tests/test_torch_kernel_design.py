@@ -114,17 +114,18 @@ def _unpack(idx, w_layer):
     """Gather each tap of one layer of w_all by the index table, as the
     kernel's pack does, then read the tiles back as wgmma reads B with no
     swizzle: per K chunk, N block j and K half h a core matrix of 8 rows
-    (n = 8j + row) of 4 values (k = 4h + column)."""
-    nt = idx.shape[0]
+    (n = 8j + row) of 4 values (k = 4h + column) in the 3xTF32 mode's table,
+    of 8 values (k = 8h + column) in the bf16 mode's."""
+    kt, nt, _, _, width = idx.shape
     taps = w_layer.reshape(9, -1)
     packed = np.where(idx >= 0, taps[:, np.maximum(idx, 0)], 0.0).astype(np.float32)
-    dense = np.full((9, nt * 8, nt * 8), np.nan, np.float32)
-    for kc in range(nt):
+    dense = np.full((9, kt * 2 * width, nt * 8), np.nan, np.float32)
+    for kc in range(kt):
         for j in range(nt):
             for h in range(2):
                 for row in range(8):
-                    for col in range(4):
-                        dense[:, kc * 8 + 4 * h + col, 8 * j + row] = packed[:, kc, j, h, row, col]
+                    for col in range(width):
+                        dense[:, (2 * kc + h) * width + col, 8 * j + row] = packed[:, kc, j, h, row, col]
     assert not np.isnan(dense).any()  # every (k, n) of the padded GEMM is written
     return dense
 
