@@ -164,7 +164,23 @@ after phase 16, 31 last):
     launch, its times beside the float32 forward's;
 31. the Orbax loader: whether tensorstore imports; if it does, /listen from
     zoo/res8/best against the zoo/res8.pt service's answers, if not, the
-    refusal LabelService raises for it.
+    refusal LabelService raises for it;
+32. the stream hub sharded over ranks (StreamHub(data_axis="data"), int16
+    wire): at world size 1 on NCCL over HTTP (make_handler with a
+    TrainingService at PERSONALIZE_LR), eight sessions on phase 20's
+    streams, one /stream/push_bin a tick and POST /train before tick
+    HUB_SWAP_TICK; bitwise the unsharded hub given the same ticks and the
+    same new weights (over HTTP, and through push_rows), the swap seen on
+    that tick against a hub without it, the planted keywords found and no
+    false alarm before the swap and over the whole track without it,
+    exactly one mfcc and one float32 res-stack launch a tick (and /train's
+    one mfcc); NCCL's refusal of a raw int16 broadcast, and the int16
+    wire's bytes through NCCL (broadcast_bytes); then the same hub over
+    HUB_RANKS gloo ranks on the one card (scripts/chip_hub_ranks.py: NCCL
+    refuses two ranks on one device), rank 0 leading and rank 1 following,
+    within RANKS_ATOL of world size 1 with the same events, each rank's
+    launches one a tick; host ms per tick of each run, device ms per tick
+    of the world-1 run.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -262,6 +278,14 @@ N_WORKER_ROUNDS = 40
 # the stack's first BF16_DEPTH layers, where flips are rare, and on the whole
 # stack from BF16_FULL_ROWS rows up. Each limit sits between the kernel's
 # readings and the faults' (PERF.md §6).
+# Phase 32: the hub sharded over ranks. Posteriors of two ranks within
+# RANKS_ATOL of one rank (tests/test_torch_parallel.py's streaming gate); the
+# served posteriors are rounded to 1e-6, so those lists may differ by one
+# rounding step more, and the unrounded prob of the winning label is held to
+# RANKS_ATOL itself.
+HUB_RANKS = 2
+HUB_SWAP_TICK = 280  # 56 s into the 60 s track: after the last planted keyword
+RANKS_ATOL = 1e-6
 BF16_KERNEL_ROWS = (1e-4, 2e-3, 0.1)  # (largest median row gap, tail gap, largest share of rows past it)
 BF16_FORWARD_ROWS = (1e-3, 2e-3, 0.3)  # make_forward: the MFCC's own rounding feeds the bf16 stem
 BF16_NEARER = 10.0
@@ -1877,6 +1901,272 @@ def phase_native(torch, root, smi) -> dict:
 
 # ---- 29-31: the bf16 eval path (the res stack's bf16 mode) and the Orbax loader ----
 
+def hub_over_http(torch, httpd, pcm, swap=None, counters=None, profile=False) -> dict:
+    """Serve ``httpd`` (a hub behind make_handler) and drive it: a session per
+    PCM16 stream, one /stream/push_bin a tick with every stream's chunk
+    (posteriors asked), ``swap(base_url)`` before tick HUB_SWAP_TICK, then every
+    close. With ``counters``, the launches over the ticks; with ``profile``,
+    torch.profiler over 20 ticks from tick 100."""
+    import http.client
+
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    port = httpd.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out: dict = {"answers": [], "tick_ms": []}
+    try:
+        sids = [post_json(f"{base}/stream/open", {})["stream_id"] for _ in range(pcm.shape[0])]
+        header = json.dumps({"stream_ids": sids, "posterior": True}).encode()
+
+        def tick(t):
+            rows = pcm[:, t * CHUNK:(t + 1) * CHUNK].astype("<i2").tobytes()
+            body = len(header).to_bytes(4, "little") + header + rows
+            t0 = time.perf_counter()
+            conn.request("POST", "/stream/push_bin", body, {"Content-Type": "application/octet-stream"})
+            r = conn.getresponse()
+            data = json.loads(r.read())
+            out["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            if r.status != 200:
+                fail(f"hub over ranks: /stream/push_bin answered {r.status} {data}")
+            out["answers"].append([data["results"][s] for s in sids])
+
+        n_ticks = pcm.shape[1] // CHUNK
+        if counters is not None:
+            reset(counters)
+        t = 0
+        while t < n_ticks:
+            if t == HUB_SWAP_TICK and swap is not None:
+                out["swap"] = swap(base)
+            if profile and t == 100:
+                it = iter(range(t, t + 20))
+                out["profile"] = profile_steps(torch, lambda: tick(next(it)), 20, required=False)
+                t += 20
+                continue
+            tick(t)
+            t += 1
+        if counters is not None:
+            out["launches"] = read(counters)
+        out["closed"] = [post_json(f"{base}/stream/close", {"stream_id": s}) for s in sids]
+    finally:
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=30)
+    if th.is_alive():
+        fail("hub over ranks: the server thread did not stop")
+    return out
+
+
+def served_gap(got: list, ref: list) -> tuple[float, float]:
+    """Two runs' answers, tick by tick: the largest gap of the served posteriors and
+    of the winning label's prob; raises if a label or an event differs."""
+    post_gap = prob_gap = 0.0
+    for t, (ga, ra) in enumerate(zip(got, ref, strict=True)):
+        for a, r in zip(ga, ra, strict=True):
+            if a["label"] != r["label"] or [(e["time_s"], e["label"]) for e in a["events"]] != [
+                    (e["time_s"], e["label"]) for e in r["events"]]:
+                fail(f"hub over ranks, tick {t}: {a['label']} {a['events']} != {r['label']} {r['events']}")
+            post_gap = max(post_gap, float(np.abs(np.asarray(a["posterior"]) - r["posterior"]).max()))
+            prob_gap = max(prob_gap, abs(a["prob"] - r["prob"]))
+    return post_gap, prob_gap
+
+
+def hub_ranks(torch, world: int, inputs: dict, backend: str = "gloo", scenario: str = "drive",
+              timeout: float = 300) -> tuple[list[dict], float]:
+    """scripts/chip_hub_ranks.py on ``world`` ranks of ``backend`` with ``inputs``: each rank's record, and the
+    seconds from their start to the last one's exit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save(inputs, path)
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "scripts", "chip_hub_ranks.py"), str(r),
+                                   str(world), str(port), path, outs[r], backend, scenario], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(world)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=timeout)[0])
+        finally:
+            for proc in procs:  # exact PIDs only
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        seconds = time.perf_counter() - t0
+        if any(proc.returncode for proc in procs):
+            fail(f"hub over {world} {backend} ranks: a rank failed:\n" + "\n".join(log[-3000:] for log in logs))
+        ranks = []
+        for o in outs:  # None for a rank that left without a record
+            if os.path.exists(o):
+                with open(o) as f:
+                    ranks.append(json.load(f))
+            else:
+                ranks.append(None)
+    return ranks, seconds
+
+
+def check_hub_ranks(ranks: list[dict], ref_ticks: list, ref_closed: list, n_ticks: int, backend: str):
+    """Rank 0's answers within RANKS_ATOL of the world-1 hub's with the same events, and every rank on
+    ``backend`` with its block of the slots and one mfcc and one float32 res stack a tick; the two gaps."""
+    world = len(ranks)
+    post_gap, prob_gap = served_gap(ranks[0]["ticks"], ref_ticks)
+    if prob_gap > RANKS_ATOL or post_gap > RANKS_ATOL + 1e-6:
+        fail(f"hub over {world} ranks against world size 1: prob {prob_gap:.3e}, posteriors {post_gap:.3e}")
+    for a, r in zip(ranks[0]["closed"], ref_closed, strict=True):
+        if [(e["time_s"], e["label"]) for e in a["events"]] != [(e["time_s"], e["label"]) for e in r["events"]]:
+            fail(f"hub over {world} ranks: closed with {a['events']}, world size 1 {r['events']}")
+    block = -(-HUB_SLOTS // world)
+    for r, rk in enumerate(ranks):
+        want = {"mfcc": n_ticks, "res_stack": n_ticks}
+        if rk["backend"] != backend or rk["rows"] != [r * block, min((r + 1) * block, HUB_SLOTS)] or {
+                k: rk["launches"][k] for k in want} != want or rk["launches"]["res_stack_by_mode"]["bfloat16"]:
+            fail(f"hub over {world} ranks, rank {r}: {rk['backend']}, rows {rk['rows']}, launched "
+                 f"{rk['launches']}: expected {backend}, its block, one mfcc and one float32 res stack a tick")
+    return post_gap, prob_gap
+
+
+def phase_hub_ranks(torch, counters, smi) -> dict:
+    """32. The stream hub sharded over ranks (see the module docstring)."""
+    from http.server import ThreadingHTTPServer
+
+    from honk_tpu_torch.cli.demo import synthesize_long_audio
+    from honk_tpu_torch.config import StreamConfig
+    from honk_tpu_torch.parallel import broadcast_bytes, initialize_distributed, shutdown, world_size
+    from honk_tpu_torch.serve import LabelService, StreamHub, TrainingService
+    from honk_tpu_torch.serve.http import make_handler
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    cfg = StreamConfig(**STREAM_CFG)
+    track, positions = synthesize_long_audio(list(STREAM_KEYWORDS), seconds=60, seed=7, gap_s=8.0, noise_amp=0.01)
+    if max(t for t, _ in positions) + 1.0 > HUB_SWAP_TICK * CHUNK / 16000:
+        fail(f"hub over ranks: a keyword is planted after the swap at tick {HUB_SWAP_TICK}: {positions}")
+    pcm = hub_streams(track)
+    n_ticks = pcm.shape[1] // CHUNK
+    pos = personalize_positives()
+    b64 = lambda a: base64.b64encode(a.tobytes()).decode()  # noqa: E731
+    out: dict = {"smi": smi, "ticks": n_ticks}
+
+    def hub_of(svc, axis):
+        return StreamHub(svc, HUB_SLOTS, cfg, CHUNK, data_axis=axis, coalesce_ms=2.0, wire_dtype="int16")
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        if dist.get_backend() != "nccl" or world_size() != 1:
+            fail(f"expected a world-1 NCCL group, got {dist.get_backend()} of {world_size()}")
+        # The int16 wire's chunks cross NCCL as bytes: NCCL has no 16-bit integer type.
+        x = torch.from_numpy(pcm[:, :CHUNK].copy()).cuda()
+        try:
+            dist.broadcast(x.clone(), src=0)
+            out["nccl_raw_int16"] = "accepted"
+        except (RuntimeError, TypeError) as e:
+            out["nccl_raw_int16"] = f"refused: {str(e)[:200]}"
+        if not torch.equal(broadcast_bytes(x.clone()), x):
+            fail("broadcast_bytes of an int16 tensor on NCCL changed it")
+
+        # The sharded hub with POST /train before tick HUB_SWAP_TICK: the main path.
+        svc = LabelService("res8", CHECKPOINT)
+        trainer = TrainingService(svc, learning_rate=PERSONALIZE_LR)
+
+        def train(base):
+            t0 = time.perf_counter()
+            code, answer = request_status(f"{base}/train", {"positives": [b64(p) for p in pos],
+                                                            "label": PERSONALIZE_LABEL})
+            if code != 200:
+                fail(f"hub over ranks: POST /train answered {code} {answer}")
+            return {"code": code, "train_ms": (time.perf_counter() - t0) * 1e3, **answer}
+
+        hub = hub_of(svc, "data")
+        sharded = hub_over_http(torch, ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc, trainer, hub)), pcm,
+                                train, counters, profile=True)
+        new_sd = {k: v.detach().clone() for k, v in svc.model.state_dict().items()}
+    finally:
+        shutdown()
+
+    # The unsharded hub on the same ticks, given the same new weights at the same tick, and without them.
+    ref_svc = LabelService("res8", CHECKPOINT)
+    ref_hub = hub_of(ref_svc, None)
+
+    def swap(base):
+        ref_svc.set_variables(new_sd)
+        ref_hub.set_variables(new_sd)
+
+    unsharded = hub_over_http(torch, ThreadingHTTPServer(("127.0.0.1", 0), make_handler(ref_svc, None, ref_hub)),
+                              pcm, swap)
+    plain_svc = LabelService("res8", CHECKPOINT)
+    plain_hub = hub_of(plain_svc, None)
+    no_swap = hub_over_http(torch, ThreadingHTTPServer(("127.0.0.1", 0), make_handler(plain_svc, None, plain_hub)), pcm)
+    # The unsharded hub driven as rank 0 drives it below (push_rows, no HTTP): the host ms that part compares with.
+    direct_hub = hub_of(LabelService("res8", CHECKPOINT), None)
+    direct_sids = [direct_hub.open() for _ in range(HUB_SLOTS)]
+    direct = {"answers": [], "tick_ms": []}
+    for t in range(n_ticks):
+        if t == HUB_SWAP_TICK:
+            direct_hub.set_variables(new_sd)
+        t0 = time.perf_counter()
+        res = direct_hub.push_rows(direct_sids, pcm[:, t * CHUNK:(t + 1) * CHUNK])
+        direct["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+        direct["answers"].append([res[s] for s in direct_sids])
+    for h in (hub, ref_hub, plain_hub, direct_hub):
+        h.shutdown()
+    if served_gap(direct["answers"], sharded["answers"]) != (0.0, 0.0):
+        fail("hub over ranks: push_rows on the unsharded hub differs from the world-1 hub's /stream/push_bin")
+
+    if sharded["answers"] != unsharded["answers"] or sharded["closed"] != unsharded["closed"]:
+        fail("hub over ranks: the world-1 NCCL hub with data_axis differs from the unsharded hub")
+    if sharded["answers"][:HUB_SWAP_TICK] != no_swap["answers"][:HUB_SWAP_TICK]:
+        fail("hub over ranks: before the swap, the ticks differ from the hub without it")
+    swap_gap = max(float(np.abs(np.asarray(a["posterior"]) - b["posterior"]).max())
+                   for a, b in zip(sharded["answers"][HUB_SWAP_TICK], no_swap["answers"][HUB_SWAP_TICK]))
+    if swap_gap <= 1e-4:
+        fail(f"hub over ranks: the /train swap did not show on tick {HUB_SWAP_TICK} (gap {swap_gap:.3e})")
+    # Before the swap: the planted keywords on the track's session, nothing on the noise sessions (and so over
+    # the whole track without the swap). After it, the personalized model's events, equal to the unsharded hub's.
+    for what, answers in (("before the swap", sharded["answers"][:HUB_SWAP_TICK]), ("without it", no_swap["answers"])):
+        fired = [[(e["time_s"], e["label"]) for a in answers for e in a[i]["events"]] for i in range(HUB_SLOTS)]
+        if len(fired[0]) != len(positions) or any(
+                lab != w or abs(ts - t) > 0.25 for (ts, lab), (t, w) in zip(fired[0], positions)):
+            fail(f"hub over ranks, {what}: the track session's events {fired[0]}, planted {positions}")
+        if any(fired[1:]):
+            fail(f"hub over ranks, {what}: false alarms on the noise sessions: {fired[1:]}")
+    planted = fired[0]
+    after_swap = sum(len(c["events"]) for c in sharded["closed"]) - len(planted)
+    launches = sharded["launches"]
+    if dict(launches) != {"mfcc": n_ticks + 1, "res_stack": n_ticks, "assemble": 0} or launches.by_mode[
+            "float32"] != n_ticks:
+        fail(f"hub over ranks: launched {launches} ({launches.by_mode}) over {n_ticks} ticks and one /train: "
+             f"expected one mfcc and one float32 res stack a tick, and /train's one mfcc")
+    prof = sharded["profile"]
+    out.update({
+        "launches": launches, "track_events": planted, "swap": sharded["swap"], "swap_tick_gap": swap_gap,
+        "events_after_swap": after_swap,
+        "host_ms_per_tick": {k: ms_summary(r["tick_ms"]) for k, r in (
+            ("data_axis_nccl_world1", sharded), ("unsharded", unsharded), ("unsharded_no_swap", no_swap),
+            ("unsharded_push_rows", direct))},
+        "device_ms_per_tick": prof["device_ms"], "device_kernels_per_tick": prof["device_kernels_per_step"],
+        "device_idle_share": prof["device_idle_share"], "top_kernels_ms": prof["top_kernels_ms"][:4],
+    })
+
+    # The same hub over HUB_RANKS gloo ranks on the card, against world size 1.
+    ranks, ranks_s = hub_ranks(torch, HUB_RANKS, {
+        "checkpoint": CHECKPOINT, "pcm": pcm, "chunk": CHUNK, "n_slots": HUB_SLOTS, "cfg": STREAM_CFG,
+        "swap_at": HUB_SWAP_TICK, "swap": {k: v.cpu() for k, v in new_sd.items()}})
+    post_gap, prob_gap = check_hub_ranks(ranks, sharded["answers"], sharded["closed"], n_ticks, "gloo")
+    out["gloo_ranks"] = {
+        "ranks": HUB_RANKS, "s": ranks_s, "posterior_max_abs_err": post_gap,
+        "prob_max_abs_err": prob_gap, "launches": [rk["launches"] for rk in ranks],
+        "rows": [rk["rows"] for rk in ranks],
+        "rank0_host_ms_per_tick": ms_summary(ranks[0]["tick_ms"]),
+    }
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[hub_ranks] {smi}: " + json.dumps(out))
+    return out
+
+
 def decisive_argmax_equal(got, ref, margin: float) -> tuple[bool, int, int]:
     """Whether argmax agrees on every row whose reference top-two margin exceeds
     ``margin`` (a near tie inside the logit gate may go either way), and how many
@@ -2371,6 +2661,9 @@ def main() -> int:
     # 31. The Orbax loader (tensorstore where the machine has it, else its refusal).
     orbax = phase_orbax(torch, counters, serve, requests[:4], svc, smi)
 
+    # 32. The stream hub sharded over ranks: world size 1 on NCCL, then two gloo ranks on the card.
+    hub_ranks = phase_hub_ranks(torch, counters, smi)
+
     C, H, W = pooled.shape[1:]
     L, n_lab = packed[0].shape[0], packed[3].shape[1]
 
@@ -2401,6 +2694,7 @@ def main() -> int:
         "stream_offline_res8_data_axis": data_parallel["stream_file_launches"],
         "stream_batch8_res8_data_axis": data_parallel["batch_streamer_launches"],
         "make_forward_res8_bf16": bf16_eval["launches"], "listen_res8_orbax": orbax.get("launches"),
+        "stream_hub_push_bin_res8_data_axis_nccl_world1": hub_ranks["launches"],
     }
     by_path = {p: v for p, v in by_path.items() if v is not None}
     res_modes = {p: v.by_mode for p, v in by_path.items()}  # the res stack's launches by mode, as read on each path
@@ -2466,7 +2760,7 @@ def main() -> int:
                       "personalize": personalize, "datagen": datagen, "worker_thread": worker,
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if k != "times"},
-                      "bf16_eval": bf16_eval, "orbax": orbax}))
+                      "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

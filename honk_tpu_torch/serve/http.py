@@ -445,8 +445,10 @@ def serve(
         orig_close = httpd.server_close
 
         def _close_all():
-            hub.shutdown()
-            orig_close()
+            try:
+                hub.shutdown()
+            finally:
+                orig_close()
 
         httpd.server_close = _close_all
     return httpd

@@ -63,13 +63,39 @@ stream, so later ticks keep running on the card meanwhile. The hub owns
 the only slab state; the step writes new state tensors and masked slots
 keep theirs bit for bit.
 
+Ranks (``data_axis``, one process per card): the slab's slots are split
+over the ranks in blocks (``DataMesh.shard_rows``), every rank holding its
+block's state, and every rank builds the hub with the same arguments.
+
+- Rank 0 leads. It holds the sessions, serves HTTP (``make_handler``)
+  and runs the ticks, as a hub of one rank does.
+- Ranks > 0 follow: they call ``follow()``, which blocks until rank 0's
+  ``shutdown()``.
+- Each of rank 0's slab jobs (the step of a tick, the slot reset of
+  ``open``, a weight swap, ``shutdown``) first becomes a message to the
+  followers (``parallel.RankChannel``: the store carries the op, and
+  once every follower has it the group carries the chunks as bytes or
+  the pickled weights), then runs on every rank: the step's all-gather
+  gives every rank every slot's posteriors, and only the rank that holds
+  a slot resets it. All of it runs on rank 0's worker thread, so the
+  collectives run in one order on every rank.
+- Rank 0 validates a push before it sends anything, and fetches its
+  rows alone (the followers drop theirs). A follower that died makes
+  rank 0's next job raise naming it, after the group's timeout, before
+  any collective (on any backend), and every job after it at once.
+
+A world of one rank sends nothing: with ``data_axis`` it is the hub
+without it, bit for bit.
+
 Unlike the JAX hub (whose tick history stays reachable and whose empty
 push and shutdown race remain there): a tick drops its rollback links
 once dispatched and its device result once fetched; ``push_rows`` with no
 session returns ``{}`` without dispatching; and ``shutdown`` hands the
 fetchers their sentinels under the same lock as every tick, so a tick
 dispatched after it is applied by its own leader instead of waiting for a
-fetcher that is gone.
+fetcher that is gone. The JAX hub with ``data_axis`` shards its slab only
+under an ambient mesh on the pushing thread: pushed from any other thread
+(an HTTP handler's), its step raises.
 """
 
 from __future__ import annotations
@@ -83,10 +109,11 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import StreamConfig
 from ..frontend import filters as F
-from ..parallel import world_size
+from ..parallel import RankChannel, broadcast_bytes, world_size
 from ..stream.streamer import HOP, WINDOW_FRAMES, Detection
 
 
@@ -177,15 +204,20 @@ class StreamHub:
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32|int16, got {wire_dtype!r}")
         self.wire_dtype = np.int16 if wire_dtype == "int16" else np.float32
-        if data_axis is not None and world_size() > 1:
-            raise ValueError(
-                f"StreamHub(data_axis={data_axis!r}) in a world of {world_size()} ranks: one HTTP process "
-                "drives the hub's ticks, and a hub sharded over ranks is not in the port (ROADMAP.md §1)")
         self._worker = service.worker
-        self._bs = service.make_batch_streamer(n_slots, self.cfg, chunk_samples, data_axis)
+        ranks = world_size() if data_axis is not None else 1
+        try:
+            self._bs = service.make_batch_streamer(n_slots, self.cfg, chunk_samples, data_axis)
+        except ValueError as e:
+            if ranks == 1:
+                raise
+            raise ValueError(f"StreamHub(n_slots={n_slots}) over {ranks} ranks: each rank holds a block of the slots, "
+                             f"and {e}") from e
         device = self._bs.device
         self._stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
         self._state = self._worker.run(self._on_stream_call, self._bs.reset)
+        # Rank 0's messages to the other ranks (none in a world of one).
+        self._channel = RankChannel("stream_hub") if ranks > 1 else None
         self._free = list(range(n_slots))
         self._sessions: dict[str, StreamSession] = {}
         self._lock = threading.Lock()
@@ -222,23 +254,84 @@ class StreamHub:
         with self._on_stream(), torch.no_grad():
             return fn(*args)
 
+    def _follower(self) -> bool:
+        return self._channel is not None and not self._channel.leader
+
+    def _refuse_on_follower(self, what: str) -> None:
+        if self._follower():
+            raise RuntimeError(f"{what} on rank {self._channel.rank}: rank 0 leads the hub, the other ranks follow()")
+
     def set_variables(self, variables) -> None:
         """Swap the slab's model weights (a state dict in the port's names)
-        from the next dispatch on; open sessions keep their state."""
+        from the next dispatch on; open sessions keep their state. Rank 0
+        sends them to the followers, which swap them at the same point."""
+        self._refuse_on_follower("set_variables")
         with self._lock:
-            self._worker.run(self._bs.set_variables, variables)
+            self._worker.run(self._on_stream_call, self._set_variables, variables)
+
+    def _set_variables(self, variables) -> None:
+        if self._channel is not None:
+            self._channel.send("weights")
+            dist.broadcast_object_list([{k: v.detach().cpu() for k, v in variables.items()}], src=0,
+                                       device=self._bs.device)
+        self._bs.set_variables(variables)
 
     def _zero_slot(self, slot: int) -> None:
-        for leaf in self._state:  # in place: the hub owns the only state
-            leaf[slot].zero_()
+        if self._channel is not None:
+            self._channel.send("zero", slot=slot)
+        self._zero_rows(slot)
+
+    def _zero_rows(self, slot: int) -> None:
+        """Zero ``slot``'s state where it lives: on this rank, if its block holds it."""
+        start, stop = self._bs.rows
+        if start <= slot < stop:
+            for leaf in self._state:  # in place: the hub owns the only state
+                leaf[slot - start].zero_()
 
     def _dispatch(self, chunks: np.ndarray, mask: np.ndarray):
         """The slab step and the start of its rows' fetch: a worker job.
         Returns without waiting for the device."""
-        self._state, post = self._bs.process(self._state, chunks, mask)
+        if self._channel is None:
+            self._state, post = self._bs.process(self._state, chunks, mask)
+            return _start_fetch(post)
+        self._channel.send("step", slots=np.flatnonzero(mask).tolist())
+        shared = broadcast_bytes(torch.from_numpy(chunks).to(self._bs.device))
+        self._state, post = self._bs.process(self._state, shared, mask)
         return _start_fetch(post)
 
+    def follow(self) -> None:
+        """Ranks > 0 of a hub over several ranks: replay rank 0's slab jobs
+        on this rank's slots, in rank 0's order, until rank 0's
+        ``shutdown()``. Blocks; call it right after building the hub."""
+        if not self._follower():
+            raise ValueError("follow() is for the ranks > 0 of a StreamHub with data_axis in a world of "
+                             "several ranks; rank 0 leads (open, push, set_variables, shutdown)")
+        self._worker.run(self._on_stream_call, self._follow)
+
+    def _follow(self) -> None:
+        channel, dev = self._channel, self._bs.device
+        wire = torch.int16 if self.wire_dtype == np.int16 else torch.float32
+        while True:
+            msg = channel.receive()
+            op = msg["op"]
+            if op == "step":
+                mask = np.zeros((self.n_slots,), bool)
+                mask[msg["slots"]] = True
+                chunks = broadcast_bytes(torch.empty((self.n_slots, self.chunk), dtype=wire, device=dev))
+                self._state, _ = self._bs.process(self._state, chunks, mask)  # rank 0 fetches the rows
+            elif op == "zero":
+                self._zero_rows(msg["slot"])
+            elif op == "weights":
+                variables = [None]
+                dist.broadcast_object_list(variables, src=0, device=dev)
+                self._bs.set_variables(variables[0])
+            elif op == "stop":
+                return
+            else:
+                raise RuntimeError(f"rank {channel.rank}: unknown message {msg!r} from rank 0")
+
     def open(self) -> str:
+        self._refuse_on_follower("open")
         with self._lock:
             if not self._free:
                 raise RuntimeError(f"all {self.n_slots} stream slots in use")
@@ -451,11 +544,15 @@ class StreamHub:
             del tick  # an idle fetcher keeps no tick alive
 
     def shutdown(self) -> None:
-        """Stop the background fetcher pool (pipelined mode) and wait for it.
+        """Stop the background fetcher pool (pipelined mode) and wait for it;
+        on rank 0 of several, then stop the followers (their ``follow()``
+        returns) and wait until each has the message.
 
         Ticks already queued are applied before the threads exit: the
         sentinels go in behind them, under the lock that queues ticks, and
-        ticks dispatched later are applied by their own leaders. Idempotent.
+        ticks dispatched later are applied by their own leaders (over
+        several ranks, such a tick's dispatch raises: the followers are
+        gone). Idempotent; raises if a follower could not be stopped.
         """
         with self._cv:
             if self._closed:
@@ -467,6 +564,8 @@ class StreamHub:
             fetchers, self._fetchers = self._fetchers, []
         for th in fetchers:
             th.join(timeout=60)
+        if self._channel is not None and self._channel.leader:
+            self._worker.run(self._on_stream_call, self._channel.stop)
 
     def _ensure_applied(self, tick: _Tick) -> None:
         """Fetch + apply ``tick`` exactly once; all other callers wait."""

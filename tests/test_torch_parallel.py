@@ -23,16 +23,19 @@ gates say what the port's ranks must compute (``tests/test_parallel.py``,
   (1e-4); masked-off slots bit for bit;
 - ``train`` in two processes: replicated weights' checksums within rtol
   1e-12, equal test accuracy, "final test accuracy:" on rank 0 only; a
-  checkpoint resumes across 1 and 2 ranks both ways; the CLI and the dry
-  run start their own ranks.
+  checkpoint resumed on the ranks that wrote it is bit for bit the
+  uninterrupted run, in float32 and bf16; one resumes across 1 and 2
+  ranks both ways, the float32 runs within twice the largest of the JAX
+  package's own 1-vs-2-device gaps over five corpora (the bf16 runs held
+  to JAX's gap on the corpus are an open difference, a strict xfail);
+  the CLI and the dry run start their own ranks. The corpus is written
+  with a fixed hash seed.
 
 Ranks are processes joined by gloo over 127.0.0.1, each started with a
 free port, waited for with a timeout, and killed by exact PID.
 """
 
 import os
-import socket
-import subprocess
 import sys
 
 import jax
@@ -42,6 +45,8 @@ import pytest
 import torch
 
 import torch_parallel_worker as W
+import torch_resume as R
+from torch_ranks import REPO, TIMEOUT, free_port, rank_env, run_ranks
 from honk_tpu import stream as jstream
 from honk_tpu.config import StreamConfig as JStreamConfig
 from honk_tpu.data import augment as JA
@@ -52,49 +57,19 @@ from honk_tpu.parallel import replicate as jreplicate
 from honk_tpu.train import state as JS
 from honk_tpu.train import steps as JT
 from honk_tpu_torch.data import augment as A
-from honk_tpu_torch.data import generate_dataset
 from honk_tpu_torch.models import find_config, find_model, from_flax_variables
 from honk_tpu_torch.parallel import DataMesh, make_data_mesh
 from honk_tpu_torch.stream import BatchStreamer, stream_file
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 300
 LOSS_RTOL = 1e-5
 DP_PARAM_ATOL, DP_PARAM_MAX = 5e-4, 1e-3
 JAX_LOSS_ATOL = 1e-5
 JAX_PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
 STREAM_RANKS_ATOL = 1e-6
 SMOOTH_ATOL = 1e-4
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _env() -> dict:
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    env.pop("XLA_FLAGS", None)
-    return env
-
-
-def _run_ranks(cmds: list[list[str]]) -> list[str]:
-    """Start one process per command, wait for all, kill by exact PID on timeout; their outputs."""
-    procs = [subprocess.Popen(c, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail("ranks timed out")
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, f"rank failed:\n{log[-3000:]}"
-    return logs
+# Twice the largest JAX 1-vs-2-device gap of the resume recipe, float32, over
+# the corpora of hash seeds 0-4 (scripts/probe_torch_topology_gap.py).
+TOPOLOGY_GAP_F32 = 2 * 3.8933753967285156e-3
 
 
 def _jax_draws(key, n, cfg, n_noise, batch):
@@ -190,14 +165,15 @@ def dp(tmp_path_factory):
         "chunks": [(srng.standard_normal((n_streams, chunk)) * 0.3).astype(np.float32) for _ in range(n_chunks)],
     }
     data_dir = str(tmp / "sc")
-    generate_dataset(data_dir, clips_per_word=6, n_speakers=3, noise_seconds=3)
+    # The same corpus under every hash seed of this process.
+    R.write_corpus(data_dir, "0", rank_env(), TIMEOUT)
     spec["train"] = {"data_dir": data_dir}
     spec_path = str(tmp / "spec.pt")
     torch.save(spec, spec_path)
 
-    port = _free_port()
+    port = free_port()
     outs = [str(tmp / f"out{r}.pt") for r in range(2)]
-    logs = _run_ranks([[sys.executable, os.path.join(REPO, "tests", "torch_parallel_worker.py"),
+    logs = run_ranks([[sys.executable, os.path.join(REPO, "tests", "torch_parallel_worker.py"),
                         str(r), "2", str(port), spec_path, outs[r]] for r in range(2)])
     ranks = [torch.load(o, weights_only=False) for o in outs]
 
@@ -348,43 +324,77 @@ def test_two_process_training_agrees_and_only_rank_zero_prints(dp):
     assert "[train_epoch]" not in dp["logs"][1]
 
 
-def _cli(args: list[str], tmp) -> str:
-    return _run_ranks([[sys.executable, "-m", "honk_tpu_torch.cli.train", "--device", "cpu",
-                        "--model", "res8-narrow", "--batch_size", "16", "--lr", "0.01", "--schedule",
-                        "--dev_every", "2", "--eval_batch_size", "32", "--noise_prob", "0.1",
-                        "--steps_per_call", "4", *args]])[0]
+@pytest.fixture(scope="module")
+def resumed_float32(dp, tmp_path_factory):
+    return R.resume_runs(dp["spec"]["train"]["data_dir"], "float32", tmp_path_factory.mktemp("resume_float32"))
 
 
-def _latest(ck: str) -> dict:
-    name = max(f for f in os.listdir(ck) if f.startswith("step_"))
-    return torch.load(os.path.join(ck, name), weights_only=True)
+@pytest.fixture(scope="module")
+def resumed_bfloat16(dp, tmp_path_factory):
+    return R.resume_runs(dp["spec"]["train"]["data_dir"], "bfloat16", tmp_path_factory.mktemp("resume_bfloat16"))
 
 
-def test_checkpoints_resume_across_one_and_two_ranks(dp, tmp_path):
-    """1 -> 2 ranks and 2 -> 1, through the CLI: the resumed run continues where the other stopped."""
-    data = ["--data_dir", dp["spec"]["train"]["data_dir"]]
-    ck1, ck2 = str(tmp_path / "ck1"), str(tmp_path / "ck2")
-    _cli([*data, "--n_epochs", "2", "--output_dir", ck1, "--save_every_epochs", "1"], tmp_path)
-    step_one = int(_latest(ck1)["state"]["step"])
-    out = _cli([*data, "--n_epochs", "4", "--output_dir", ck1, "--n_devices", "2"], tmp_path)
-    assert out.count("final test accuracy:") == 1 and "[resume]" in out
-    resumed_on_two = _latest(ck1)["state"]
+def _assert_resumed_across(r: dict) -> None:
+    """1 -> 2 ranks and 2 -> 1 resumed where the other topology stopped, and finished as a run does."""
+    half = int(r["state"]["half1"]["step"])
+    assert int(r["state"]["half2"]["step"]) == half
+    for n in ("1to2", "2to1"):
+        assert "[resume]" in r["logs"][n] and r["logs"][n].count("final test accuracy:") == 1, n
+        assert int(r["state"][n]["step"]) == 2 * half == int(r["state"]["whole1"]["step"]), n
+        assert r["best"][n], n
 
-    _cli([*data, "--n_epochs", "2", "--output_dir", ck2, "--n_devices", "2", "--save_every_epochs", "1"], tmp_path)
-    assert int(_latest(ck2)["state"]["step"]) == step_one
-    out = _cli([*data, "--n_epochs", "4", "--output_dir", ck2], tmp_path)
-    assert "[resume]" in out
-    resumed_on_one = _latest(ck2)["state"]
-    assert int(resumed_on_two["step"]) == int(resumed_on_one["step"]) == 2 * step_one
-    assert os.path.isfile(os.path.join(ck1, "best.pt")) and os.path.isfile(os.path.join(ck2, "best.pt"))
-    # The same data, seeds and epochs: the two topologies' weights agree to reduction noise.
-    for k, v in resumed_on_one["model"].items():
-        if v.is_floating_point():
-            np.testing.assert_allclose(resumed_on_two["model"][k].numpy(), v.numpy(), atol=5e-2, rtol=5e-2)
+
+@pytest.mark.parametrize("ranks", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_resume_on_one_topology_is_bitwise_the_uninterrupted_run(request, dtype, ranks):
+    """2 epochs, then 2 more resumed on the same ranks: the model and the optimizer bit for bit the 4-epoch run's."""
+    r = request.getfixturevalue(f"resumed_{dtype}")
+    resumed, whole = r["state"][f"{ranks}to{ranks}"], r["state"][f"whole{ranks}"]
+    assert "[resume]" in r["logs"][f"{ranks}to{ranks}"] and "[resume]" not in r["logs"][f"whole{ranks}"]
+    assert int(resumed["step"]) == int(whole["step"]) > int(r["state"][f"half{ranks}"]["step"])
+    a, b = R.flat_tensors(resumed), R.flat_tensors(whole)
+    assert a.keys() == b.keys() and any("momentum" in k for k in a)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_checkpoints_resume_across_one_and_two_ranks(resumed_float32):
+    """1 -> 2 ranks and 2 -> 1, through the CLI: the resumed run continues where the other stopped.
+
+    float32. The two resumed runs, and the two uninterrupted topologies,
+    part no further than TOPOLOGY_GAP_F32: twice the largest of the JAX
+    package's own 1-vs-2-device gaps on this recipe over the corpora of
+    hash seeds 0-4 (``scripts/probe_torch_topology_gap.py``). Reassociated
+    sums grow over 4 epochs into noise of no steady size, so one corpus's
+    JAX gap is no limit: over those corpora JAX's runs 7.5e-5 to 3.9e-3,
+    the port's 3.8e-6 to 6.9e-3 (ROADMAP.md §3).
+    """
+    r = resumed_float32
+    _assert_resumed_across(r)
+    w = {n: R.port_weights(r["state"][n]) for n in ("1to2", "2to1", "whole1", "whole2")}
+    for a, b in (("1to2", "2to1"), ("whole1", "whole2")):
+        gap = R.max_gap(w[a], w[b])
+        assert gap <= TOPOLOGY_GAP_F32, f"{a} and {b} {gap:.6g} apart; the limit {TOPOLOGY_GAP_F32:.6g}"
+
+
+def test_bf16_checkpoints_resume_across_one_and_two_ranks(resumed_bfloat16):
+    """The CLI's default dtype, bfloat16: 1 -> 2 ranks and 2 -> 1 resume where the other topology stopped."""
+    _assert_resumed_across(resumed_bfloat16)
+
+
+@pytest.mark.xfail(strict=True, raises=AssertionError,
+                   reason="open difference, ROADMAP.md §3: in bf16 the port's 1 and 2 ranks part further "
+                          "than the JAX package's 1 and 2 devices")
+def test_bf16_resumes_across_one_and_two_ranks_within_the_jax_gap(dp, resumed_bfloat16):
+    """The two resumed bf16 runs part no further than the JAX package's 1 and 2 devices in bf16 on the same corpus."""
+    data = dp["spec"]["train"]["data_dir"]
+    jax_gap = R.max_gap(*(R.jax_weights(data, "bfloat16", n) for n in (1, 2)))
+    gap = R.max_gap(*(R.port_weights(resumed_bfloat16["state"][n]) for n in ("1to2", "2to1")))
+    assert gap <= jax_gap, f"1 -> 2 and 2 -> 1 ranks {gap:.6g} apart; JAX's 1 and 2 devices {jax_gap:.6g}"
 
 
 def test_dryrun_multichip_on_two_gloo_ranks():
-    out = _run_ranks([[sys.executable, "-m", "honk_tpu_torch.parallel.dryrun", "--n", "2", "--device", "cpu"]])[0]
+    out = run_ranks([[sys.executable, "-m", "honk_tpu_torch.parallel.dryrun", "--n", "2", "--device", "cpu"]])[0]
     for what in ("exact train step ok", "subrow train step ok", "sharded eval ok, acc=", "sharded streaming ok",
                  "masked session slab ok", "sharded slab weight refresh ok"):
         assert out.count(f"dryrun_multichip(2): {what}") == 1, out

@@ -250,8 +250,10 @@ def test_stream_file_shorter_than_a_window(narrow, n):
 
 def test_data_axis_is_refused(narrow, monkeypatch):
     """data_axis is ported: in a world of one rank it is the unsharded run,
-    bit for bit; the stream hub alone refuses it across more than one rank
-    (tests/test_torch_parallel.py drives two ranks)."""
+    bit for bit. The stream hub refuses it only where it cannot shard: with
+    fewer slots than its ranks can split, and ``follow()`` outside a world
+    of several ranks (tests/test_torch_parallel.py and
+    tests/test_torch_streams_ranks.py drive 2 and 4 ranks)."""
     _, _, model = narrow
     audio = _audio(32000, seed=7)
     sharded, unsharded = (tstream.stream_file(model, None, audio, data_axis=ax)[0] for ax in ("data", None))
@@ -262,12 +264,16 @@ def test_data_axis_is_refused(narrow, monkeypatch):
         bs = tstream.BatchStreamer(model, None, 2, data_axis=ax)
         outs.append(bs.process(bs.reset(), chunks, np.array([True, False]))[1])
     assert torch.equal(outs[0], outs[1])
+    from honk_tpu_torch.parallel import runtime
     from honk_tpu_torch.serve import streams
 
+    svc = LabelService("res8-narrow", {k: v for k, v in model.state_dict().items()}, device="cpu")
+    with pytest.raises(ValueError, match="rank 0 leads"):
+        streams.StreamHub(svc, 2, data_axis="data").follow()
     monkeypatch.setattr(streams, "world_size", lambda: 2)
-    with pytest.raises(ValueError, match="not in the port"):
-        streams.StreamHub(LabelService("res8-narrow", {k: v for k, v in model.state_dict().items()},
-                                       device="cpu"), 2, data_axis="data")
+    monkeypatch.setattr(runtime, "world_size", lambda: 2)
+    with pytest.raises(ValueError, match=r"StreamHub\(n_slots=1\) over 2 ranks.*without a row"):
+        streams.StreamHub(svc, 1, data_axis="data")
 
 
 # ---- online: Streamer and BatchStreamer ----
