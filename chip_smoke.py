@@ -180,7 +180,18 @@ after phase 16, 31 last):
     refuses two ranks on one device), rank 0 leading and rank 1 following,
     within RANKS_ATOL of world size 1 with the same events, each rank's
     launches one a tick; host ms per tick of each run, device ms per tick
-    of the world-1 run.
+    of the world-1 run;
+
+and the bf16 training step (right after phase 11):
+
+33. phase 9's three train steps of res8 at B=64 in bf16 on cuda and on the
+    CPU, and in float32 on cuda: every layer's output dtype equal on both
+    devices and flax's (bf16 but the output Dense); the bf16 pool
+    (layers.avg_pool) bitwise equal on both, forward and backward, on
+    conv0's bf16 ReLU output; the weights' cuda-CPU distance within
+    BF16_TRAIN_RATIO of their cuda bf16-float32 distance over all tensors
+    and BF16_TRAIN_TENSOR_RATIO a tensor; phase 11's bf16 and float32
+    steps' host ms, device ms and kernels beside each other.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -242,6 +253,16 @@ ASSEMBLE_ATOL = 1e-6
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_PARAM_TOL = dict(atol=1e-4, rtol=1e-3)
 TRAIN_BATCH = 64
+# Phase 33: the weights after three bf16 steps, the cuda run's distance from
+# the CPU's as a share of its distance from the cuda float32 run (Frobenius
+# norms): over all tensors at most BF16_TRAIN_RATIO, the rule that holds the
+# port's bf16 step to JAX's on the CPU (tests/test_torch_bf16_train.py), and
+# each tensor nearer the other bf16 run than the float32 one. cuDNN and
+# oneDNN sum bf16 products in other orders, and a rounding decided the other
+# way grows through BN: JAX's own compiled and op-by-op bf16 steps part by
+# up to 0.65 a tensor at res8 B=64 (scripts/probe_bf16_step_spread.py).
+BF16_TRAIN_RATIO = 0.5
+BF16_TRAIN_TENSOR_RATIO = 1.0
 # Streaming (phases 17-21): the ground-truth track of tests/test_stream.py,
 # keywords planted at known positions in 60 s of noise, and its detection
 # config; smoothed posteriors cuda against cpu within 1e-4 (probabilities
@@ -426,18 +447,23 @@ def phase_assemble(torch, dev, A, K):
     return max(e for e, _, _ in errs.values()), exact, cfg
 
 
+def train_step_inputs(A):
+    """Phases 9, 15 and 33's corpus: 256 clips of seeded noise, labels, background noise, the augmentation."""
+    rng = np.random.default_rng(SEED + 9)
+    n = 256
+    raw = (rng.standard_normal((n, 16000)) * 3000).clip(-32768, 32767).astype(np.int16)
+    labels = rng.integers(0, 12, n, dtype=np.int32)
+    noise = (rng.standard_normal(16000 * 8) * 0.1).astype(np.float32)
+    return raw, labels, noise, A.AugmentConfig(n_silence=n // 10)
+
+
 def phase_train_steps(torch, dev, A, conf: str = "res8", batch: int = TRAIN_BATCH):
     """9 and 15. Three float32 train steps on cuda and on the CPU: same weights, same draws, same dropout masks."""
     from honk_tpu_torch.models import find_config, find_model, init_weights
     from honk_tpu_torch.train import create_train_state, make_optimizer
     from honk_tpu_torch.train.steps import make_train_step
 
-    rng = np.random.default_rng(SEED + 9)
-    n = 256
-    raw = (rng.standard_normal((n, 16000)) * 3000).clip(-32768, 32767).astype(np.int16)
-    labels = rng.integers(0, 12, n, dtype=np.int32)
-    noise = (rng.standard_normal(16000 * 8) * 0.1).astype(np.float32)
-    cfg = A.AugmentConfig(n_silence=n // 10)
+    raw, labels, noise, cfg = train_step_inputs(A)
     sides = {}
     for side, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         model = init_weights(find_model(conf)(find_config(conf)), torch.Generator().manual_seed(SEED)).to(d)
@@ -477,6 +503,132 @@ def phase_train_steps(torch, dev, A, conf: str = "res8", batch: int = TRAIN_BATC
           f"{param_err:.3e} (atol {TRAIN_PARAM_TOL['atol']}, rtol {TRAIN_PARAM_TOL['rtol']}), "
           f"at most {gate_share:.2f} of an element's limit")
     return {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err, "param_gate_share": gate_share}
+
+
+@contextlib.contextmanager
+def layer_dtypes(model):
+    """The dtype of each layer's output in a res model's forwards inside, by layer ("pool": the stem's pool)."""
+    from honk_tpu_torch.models import res
+
+    names = {id(m): n for n, m in model.named_modules()}
+    seen: dict[str, str] = {}
+    conv, pool, bn = res.conv, res.avg_pool, res.batch_norm_train
+
+    def rec(name, y):
+        seen[name] = str(y.dtype).replace("torch.", "")
+        return y
+
+    hook = model.output.register_forward_hook(lambda m, i, o: rec("output", o))
+    res.conv = lambda layer, x, dtype: rec(names[id(layer)], conv(layer, x, dtype))
+    res.avg_pool = lambda x, window: rec("pool", pool(x, window))
+    res.batch_norm_train = lambda x, module, mesh=None: rec(names[id(module)], bn(x, module, mesh))
+    try:
+        yield seen
+    finally:
+        res.conv, res.avg_pool, res.batch_norm_train = conv, pool, bn
+        hook.remove()
+
+
+def phase_bf16_train(torch, dev, A, step_times, smi) -> dict:
+    """33. The bf16 train step on the card: phase 9's three steps of res8 at full width, B=64, in bf16
+    on cuda and on the CPU (and float32 on cuda), the same initial weights and draws (made on the CPU).
+
+    Every layer's output dtype is flax's and equal on both devices; the bf16
+    pool (chained bf16 adds, a bf16 division) is bitwise equal on both, forward
+    and backward; the weights' cuda-CPU distance is at most BF16_TRAIN_RATIO of
+    their cuda bf16-float32 distance over all tensors, and at most
+    BF16_TRAIN_TENSOR_RATIO a tensor. The step's host and device ms and
+    kernel count are phase 11's, bf16 beside float32."""
+    import torch.nn.functional as F
+
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.models import find_config, find_model, init_weights
+    from honk_tpu_torch.models.layers import avg_pool, conv
+    from honk_tpu_torch.train import create_train_state, make_optimizer
+    from honk_tpu_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    raw, labels, noise, cfg = train_step_inputs(A)
+    cpu = torch.device("cpu")
+    runs = {("cuda", "bfloat16"): (dev, torch.bfloat16), ("cpu", "bfloat16"): (cpu, torch.bfloat16),
+            ("cuda", "float32"): (dev, torch.float32)}
+    cpu_arrays = A.prepare_train_arrays(raw, labels, noise, cfg)
+    states, losses, dtypes, first_audio = {}, {}, {}, None
+    for key, (d, dtype) in runs.items():
+        model = init_weights(find_model("res8")(find_config("res8"), dtype=dtype),
+                             torch.Generator().manual_seed(SEED)).to(d)
+        tx = make_optimizer(lrs=(0.01, 0.001), boundaries=(2,))
+        state, train_step = create_train_state(model, tx), make_train_step(tx, TRAIN_BATCH, cfg)
+        arrays = A.prepare_train_arrays(raw, labels, noise, cfg, device=d)
+        losses[key], states[key] = [], []
+        for step in range(3):
+            gen = A.step_generator(SEED + 1, step, "cpu")
+            draws = A.Draws(*(t.to(d) for t in A.draw_batch(gen, cpu_arrays, TRAIN_BATCH, cfg)))
+            audio, lab = A.assemble_batch(draws, arrays, cfg)
+            if step == 0 and key == ("cuda", "bfloat16"):
+                first_audio = audio
+            with layer_dtypes(model) as seen:
+                _, m = train_step.apply_batch(state, audio, lab)
+            if step == 0:
+                dtypes[key] = dict(seen)
+            losses[key].append(float(m["loss"]))
+            states[key].append({k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                                if v.is_floating_point()})
+    if not all(math.isfinite(v) for v in sum(losses.values(), [])):
+        fail(f"bf16 train steps: losses {losses}")
+    want = {n: "bfloat16" for n in dtypes[("cuda", "float32")]} | {"output": "float32"}
+    if not dtypes[("cuda", "bfloat16")] == dtypes[("cpu", "bfloat16")] == want:
+        fail(f"bf16 train step: layer output dtypes cuda {dtypes[('cuda', 'bfloat16')]}, "
+             f"cpu {dtypes[('cpu', 'bfloat16')]}, flax's {want}")
+
+    def share(step):
+        """Each tensor's, and all tensors' ("all"), distance of the CPU bf16 run from the cuda one as a
+        share of the cuda bf16 run's distance from the cuda float32 run, after ``step`` + 1 steps."""
+        c16, o, c32 = (states[k][step] for k in (("cuda", "bfloat16"), ("cpu", "bfloat16"), ("cuda", "float32")))
+        per = {k: float((c16[k] - o[k]).norm() / (c16[k] - c32[k]).norm()) for k in c16}
+        num = math.sqrt(sum(float((c16[k] - o[k]).norm()) ** 2 for k in c16))
+        per["all"] = num / math.sqrt(sum(float((c16[k] - c32[k]).norm()) ** 2 for k in c16))
+        return per
+
+    shares = [share(s) for s in range(3)]
+    by_step = [[s["all"], *max((v, k) for k, v in s.items() if k != "all")[::-1]] for s in shares]
+    ratios = shares[2]
+    worst = max((k for k in ratios if k != "all"), key=ratios.get)
+    if not (ratios["all"] <= BF16_TRAIN_RATIO and ratios[worst] <= BF16_TRAIN_TENSOR_RATIO):
+        fail(f"bf16 train steps cuda vs cpu: {ratios['all']:.3f} of the bf16-float32 distance over all tensors "
+             f"(limit {BF16_TRAIN_RATIO}), {worst} {ratios[worst]:.3f} (limit {BF16_TRAIN_TENSOR_RATIO}); "
+             f"by tensor {ratios}")
+
+    # The pool alone, on conv0's bf16 ReLU output of the first batch, with a seeded cotangent.
+    model = init_weights(find_model("res8")(find_config("res8"), dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED)).to(dev)
+    with torch.no_grad():
+        y = F.relu(conv(model.conv0, compute_mfccs(first_audio)[:, None], torch.bfloat16))
+    ct_shape = (y.shape[0], y.shape[1], y.shape[2] // model.pool[0], y.shape[3] // model.pool[1])
+    ct = torch.from_numpy(np.random.default_rng(SEED + 33).standard_normal(ct_shape).astype(np.float32))
+    pooled = {}
+    for side, d in (("cuda", dev), ("cpu", cpu)):
+        x = y.detach().to(d).requires_grad_(True)
+        out = avg_pool(x, model.pool)
+        out.backward(ct.to(d, torch.bfloat16))
+        pooled[side] = (out.detach().cpu(), x.grad.cpu())
+    (fwd_g, bwd_g), (fwd_c, bwd_c) = pooled["cuda"], pooled["cpu"]
+    if not (fwd_g.dtype == bwd_g.dtype == torch.bfloat16 and torch.equal(fwd_g, fwd_c) and torch.equal(bwd_g, bwd_c)):
+        fail(f"bf16 pool cuda vs cpu: forward {int((fwd_g != fwd_c).sum())} and backward "
+             f"{int((bwd_g != bwd_c).sum())} elements differ ({fwd_g.dtype}, {bwd_g.dtype})")
+
+    clocks = {dt: {k: step_times[dt].get(k) for k in ("step_wall", "device_ms", "device_kernels_per_step",
+                                                        "device_idle_share")} for dt in ("float32", "bfloat16")}
+    out = {"losses": {f"{s}_{dt}": v for (s, dt), v in losses.items()}, "layer_dtypes": dtypes[("cuda", "bfloat16")],
+           "ratios": ratios, "by_step": by_step, "pool_shape": list(y.shape),
+           "pool_bitwise": True, "step_b64": clocks, "card": smi, "s": time.perf_counter() - t0}
+    print(f"[bf16_train] res8 B={TRAIN_BATCH}, 3 bf16 steps on cuda and cpu: layer dtypes equal and flax's "
+          f"({len(want)} layers); pool {list(y.shape)} bitwise equal, forward and backward; cuda-cpu distance "
+          f"as a share of bf16-float32 after steps 1-3 [all, worst tensor, its share]: {json.dumps(by_step)} "
+          f"(limits {BF16_TRAIN_RATIO} all, {BF16_TRAIN_TENSOR_RATIO} a tensor); step (phase 11) "
+          f"float32 {json.dumps(clocks['float32'])} bf16 {json.dumps(clocks['bfloat16'])}; {smi}; "
+          f"{out['s']:.1f} s")
+    return out
 
 
 def run_cli(main, argv) -> tuple[int, str]:
@@ -2605,6 +2757,8 @@ def main() -> int:
         train_launches, epochs, train_acc, train_modes = phase_entry_point(torch, corpus, tmp, counters)
         train_times, step_times, assemble_ops = phase_step_times(torch, dev, A, assemble_kernel, mfcc_kernel,
                                                                  arrays, aug)
+        # 33. The bf16 train step: flax's dtype flow on cuda and on the CPU, the bf16 pool bitwise.
+        bf16_train = phase_bf16_train(torch, dev, A, step_times, smi)
 
         # 25-27. Data parallel at world size 1 on NCCL, each kernel on a rank's rows, --profile-dir.
         t0 = time.perf_counter()
@@ -2760,7 +2914,7 @@ def main() -> int:
                       "personalize": personalize, "datagen": datagen, "worker_thread": worker,
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if k != "times"},
-                      "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks}))
+                      "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -10,9 +10,10 @@
 -narrow forms, and the ten cnn-* (cnn-trad-pool2's recorded recipe is
 ``--lr 0.003 0.0003 --schedule 440``). Runs on ``--device cuda`` (the
 default; it raises where no CUDA device is present) or ``--device cpu``.
-``--compute_dtype bfloat16`` (the default) runs the convolutions (and a
-CNN's hidden dense layers, and res8 / res26's res-stack kernel) with bf16
-operands, in the training steps and in the dev and test sweeps of the run,
+``--compute_dtype bfloat16`` (the default) runs the model as flax's
+``dtype=bfloat16`` does (bf16 convolutions, CNN hidden dense layers and
+activations between them, res8 / res26's res-stack kernel in its bf16
+mode), in the training steps and in the dev and test sweeps of the run,
 as the JAX package does; ``float32`` is the parity mode. ``--type eval`` is
 float32 whatever the flag says. TF32 is off either way. A train run writes
 ``<output_dir>/best.pt`` (a honk state dict) and ``step_XXXXXXXX.pt``
@@ -71,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_batch_size", type=int, default=t.eval_batch_size)
     p.add_argument(
         "--compute_dtype", choices=["bfloat16", "float32"], default=t.compute_dtype,
-        help="operand dtype of the training convs and hidden dense layers (float32 = strict parity mode)",
+        help="compute dtype of the model, as flax's dtype (bf16 convs, hidden dense layers and the activations "
+             "between them; float32 = strict parity mode)",
     )
     p.add_argument(
         "--steps_per_call", type=int, default=t.steps_per_call,

@@ -55,8 +55,9 @@ class TrainConfig:
     eval_batch_size: int = 256
     input_file: str = ""  # warm-start checkpoint
     output_file: str = "model_best.ckpt"
-    # Operand dtype of the train-time convolutions ("bfloat16": cuDNN on the
-    # tensor cores; params, BN, the mean, the Dense and the loss stay f32).
+    # Compute dtype of the model ("bfloat16": flax's dtype flow, cuDNN on the
+    # tensor cores; params, BN statistics, the mean, the output Dense and the
+    # loss stay f32).
     # Use "float32" for strict reference-numerics parity runs.
     compute_dtype: str = "bfloat16"
     # Train steps per chunk of the epoch loop (a Python loop in the port; the

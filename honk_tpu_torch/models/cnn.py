@@ -15,12 +15,13 @@ names are honk's (``conv1.weight`` / ``bias``, ``conv2.*``, ``lin.*``,
 ``dnn1.*``, ``dnn2.*``, ``output.*``), so a honk ``.pt`` loads with no
 converter.
 
-The eval and training forwards run the convs and ``lin`` / ``dnn*`` with
-``dtype`` operands (bf16 in, float32 out, through ``layers.conv`` /
-``layers.dense``; cuDNN convs and cuBLAS dense layers: the JAX package has
-no Pallas kernel for this family either) and the ``output`` layer in
-float32, as flax's ``dtype`` does: a float32 model is float32 throughout,
-a bf16 one (a training run's dev and test sweeps) evaluates in bf16.
+The eval and training forwards run the convs and ``lin`` / ``dnn*`` in
+``dtype`` (``layers.conv`` / ``layers.dense``: cuDNN convs and cuBLAS
+dense layers, the JAX package has no Pallas kernel for this family either)
+and the ``output`` layer in float32, as flax's ``dtype`` does: a float32
+model is float32 throughout; in a bf16 one every layer returns bf16 (ReLU,
+dropout and the max pools included) and the input to ``output`` is cast
+to float32, as ``honk_tpu/models/cnn.py`` casts it.
 ``frozen_forward`` runs the float32 eval forward in either mode, for
 personalization to differentiate. The training forward applies dropout with
 flax's arithmetic (``layers.apply_dropout``). Its keep masks come from an explicit
@@ -58,9 +59,9 @@ def _conv_maps(cfg: dict[str, Any]) -> tuple[list[tuple[int, int, int]], tuple[i
 class SpeechModel(nn.Module):
     """CNN keyword spotter. Input: (B, 101, 40) MFCC -> (B, n_labels) logits.
 
-    ``dtype`` is the operand dtype of the convs and hidden dense layers
-    (flax's ``dtype``), in training and in eval: ``torch.bfloat16`` or None /
-    ``torch.float32``.
+    ``dtype`` is the compute dtype of the convs, the hidden dense layers and
+    their activations (flax's ``dtype``), in training and in eval:
+    ``torch.bfloat16`` or None / ``torch.float32``.
     """
 
     def __init__(self, config: dict[str, Any], dtype: torch.dtype | None = None):
@@ -153,4 +154,4 @@ class SpeechModel(nn.Module):
             x = drop(x if self.tf_variant else F.relu(x))
         if hasattr(self, "dnn2"):
             x = drop(dense(self.dnn2, x, dtype))
-        return self.output(x)
+        return self.output(x.float())

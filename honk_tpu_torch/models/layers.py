@@ -2,8 +2,11 @@
 
 - ``init_weights``: the JAX package's initialisers, drawn from an explicit
   generator (``honk_tpu/models/res.py``, ``honk_tpu/models/cnn.py``).
-- ``conv`` / ``dense``: a layer with its operands in the compute dtype
-  (flax's ``dtype``: bf16 operands, the result returned in float32).
+- ``conv`` / ``dense``: a layer in the compute dtype, as flax's ``nn.Conv`` /
+  ``nn.Dense`` with ``dtype``: bf16 operands, a bf16 product, then the
+  bias added in bf16 (two roundings), the result left in bf16.
+- ``avg_pool``: flax's ``nn.avg_pool``; in bf16 its window sum is a chain of
+  bf16 adds, then a bf16 division by the window's size.
 - ``draw_keep_masks`` / ``apply_dropout``: flax's ``nn.Dropout`` with the
   keep masks drawn from an explicit generator, or given from outside.
 """
@@ -53,19 +56,60 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with its operands in ``dtype``; float32 out."""
+    """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``,
+    then the bias added in ``dtype`` (not fused into the product)."""
     if dtype == torch.float32:
         return layer(x)
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride, layer.padding,
-                    layer.dilation).float()
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding, layer.dilation)
+    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
 
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with its operands in ``dtype``; float32 out."""
+    """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``, then the bias added in ``dtype``."""
     if dtype == torch.float32:
         return layer(x)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)).float()
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def avg_pool(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:
+    """flax's ``nn.avg_pool(window, strides=window, padding="VALID")`` of NCHW ``x``, in ``x``'s dtype.
+
+    float32: ``F.avg_pool2d``. In bf16, flax's ``reduce_window`` adds the
+    window's values one by one in bf16 in row-major window order, and the sum
+    is divided by the window's size in bf16; ``F.avg_pool2d`` would sum in
+    float and round once. The backward is JAX's transpose: the cotangent
+    divided by the window's size in bf16, broadcast over the window.
+    """
+    if x.dtype == torch.float32:
+        return F.avg_pool2d(x, window)
+    return _ChainedAvgPool.apply(x, tuple(window))
+
+
+def _windows(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:
+    """(B, C, H, W) -> the (B, C, H // ph, ph, W // pw, pw) view of the rows and columns the pool reads."""
+    (ph, pw), (b, c, h, w) = window, x.shape
+    return x[:, :, : h // ph * ph, : w // pw * pw].view(b, c, h // ph, ph, w // pw, pw)
+
+
+class _ChainedAvgPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:
+        ctx.shape, ctx.window = x.shape, window
+        v = _windows(x, window)
+        acc = v[:, :, :, 0, :, 0]
+        for i in range(window[0]):
+            for j in range(window[1]):
+                if i or j:
+                    acc = acc + v[:, :, :, i, :, j]
+        return acc / (window[0] * window[1])
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        ph, pw = ctx.window
+        g = g / (ph * pw)
+        gx = g.new_zeros(ctx.shape)
+        _windows(gx, ctx.window).copy_(g[:, :, :, None, :, None].expand(-1, -1, -1, ph, -1, pw))
+        return gx, None
 
 
 def draw_keep_masks(generator: torch.Generator, shapes: Sequence[tuple[int, ...]],

@@ -23,25 +23,32 @@ float32 model (every service, ``--type eval``) is float32 throughout, a
 bf16 one (a training run's dev and test sweeps at the default
 ``--compute_dtype bfloat16``) multiplies bf16 operands with float32 sums.
 For res8 and res26 it runs conv0 (``layers.conv`` in ``dtype``), ReLU and
-the pool as PyTorch ops (the JAX package leaves them to XLA outside its
-kernel too) and the rest through the res-stack kernel's wrapper in that
-mode. The kernel takes no dilated convs (nor does the TPU's), so res15 runs
-every conv through cuDNN in ``dtype``, with BN from the running statistics
-folded as the kernel's operands fold it (``fold_bn``); ``use_full_f32``
-keeps the float32 convs out of TF32. ``frozen_forward`` is the float32
-eval forward of every config as PyTorch ops under autograd, with that fold:
+the pool as PyTorch ops in float32 (``stem``: the JAX package leaves them
+to XLA outside its kernel too) and the rest through the res-stack kernel's
+wrapper in that mode, whose activations are float32 as the TPU kernel's.
+The kernel takes no dilated convs (nor does the TPU's), so res15 runs
+every conv through cuDNN in ``dtype`` with flax's dtype flow (below), with
+BN from the running statistics folded as the kernel's operands fold it
+(``fold_bn``) and, in bf16, rounded back to bf16 as flax's eval BN
+returns it; ``use_full_f32`` keeps the float32 convs out of TF32.
+``frozen_forward`` is the float32 eval forward of every config as PyTorch
+ops under autograd, with that fold:
 personalization differentiates it (``serve.TrainingService``), as the JAX
 package fine-tunes its float32 service model.
 
 The training forward (``model.train()``) is plain PyTorch with autograd:
 the convolutions go through cuDNN (the JAX package has no Pallas kernel for
-them either), in ``dtype`` (bfloat16 operands, float32 out) or float32.
-BN uses batch statistics with flax's semantics (``honk_tpu/models/res.py``):
-the biased batch variance as ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5,
-in float32, and running statistics updated by hand,
-``r = 0.9 * r + 0.1 * batch`` with the *biased* variance (``nn.BatchNorm2d``
-would use the unbiased one). Params, BN, the mean, the Dense and the loss
-stay float32.
+them either), in ``dtype`` or float32. In bf16 it computes what flax's
+``apply(train=True)`` of a bf16 model computes: every conv returns bf16,
+ReLU, the pool (``layers.avg_pool``: bf16 adds in window order) and the
+residual add stay bf16, BN takes its statistics over the float32 values,
+normalises in float32 and returns bf16, and the global mean is taken over
+the float32 values. BN uses batch statistics with flax's semantics
+(``honk_tpu/models/res.py``): the biased batch variance as
+``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5, in float32, and running
+statistics updated by hand, ``r = 0.9 * r + 0.1 * batch`` with the
+*biased* variance (``nn.BatchNorm2d`` would use the unbiased one). Params,
+the running statistics, the Dense and the loss stay float32.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ import torch.nn.functional as F
 
 from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_stack
 from ..parallel.mesh import DataMesh
-from .layers import conv
+from .layers import avg_pool, conv
 
 BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batch
 
@@ -62,8 +69,9 @@ BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batc
 class SpeechResModel(nn.Module):
     """Residual keyword spotter. Input: (B, 101, 40) MFCC -> (B, n_labels) logits.
 
-    ``dtype`` is the operand dtype of the convolutions (flax's ``dtype``),
-    in training and in eval: ``torch.bfloat16`` or None / ``torch.float32``.
+    ``dtype`` is the compute dtype of the convolutions and the activations
+    (flax's ``dtype``), in training and in eval: ``torch.bfloat16`` or None /
+    ``torch.float32``.
     """
 
     def __init__(self, config: dict[str, Any], dtype: torch.dtype | None = None):
@@ -87,8 +95,9 @@ class SpeechResModel(nn.Module):
         return fold_bn(self) if self.dilated else pack_res_params(self, self.dtype)
 
     def stem(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """conv0 -> ReLU -> pool: (B, 101, 40) -> (B, C, H, W), the res stack's input."""
-        y = F.relu(conv(self.conv0, x[:, None], dtype))
+        """conv0 (operands in ``dtype``) -> ReLU -> pool in float32: (B, 101, 40) ->
+        (B, C, H, W), the res-stack kernel's input."""
+        y = F.relu(conv(self.conv0, x[:, None], dtype).float())
         if self.pool is not None:
             y = F.avg_pool2d(y, self.pool)
         return y.contiguous()
@@ -122,12 +131,13 @@ class SpeechResModel(nn.Module):
     def _folded_stack(self, x: torch.Tensor, dtype: torch.dtype, scale: torch.Tensor,
                       offset: torch.Tensor) -> torch.Tensor:
         scale, offset = scale[:, :, None, None], offset[:, :, None, None]
-        return self._stack(x, dtype, lambda i, y: y * scale[i - 1] + offset[i - 1])
+        return self._stack(x, dtype, lambda i, y: (y * scale[i - 1] + offset[i - 1]).to(y.dtype))
 
     def _stack(self, x: torch.Tensor, dtype: torch.dtype,
                norm: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """The whole model as PyTorch ops, convs in ``dtype``, BN of layer i as ``norm(i, x)``."""
-        x = old = self.stem(x, dtype)
+        """The whole model as PyTorch ops in ``dtype``'s flow, BN of layer i as ``norm(i, x)``."""
+        y = F.relu(conv(self.conv0, x[:, None], dtype))
+        x = old = y if self.pool is None else avg_pool(y, self.pool)
         for i in range(1, self.n_layers + 1):
             y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype))
             if i % 2 == 0:
@@ -135,7 +145,7 @@ class SpeechResModel(nn.Module):
             else:
                 x = y
             x = norm(i, x)
-        return self.output(x.mean(dim=(2, 3)))
+        return self.output(x.float().mean(dim=(2, 3)))
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None = None) -> torch.Tensor:
@@ -145,17 +155,21 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None 
     per-channel sums, sums of squares and the count are all-reduced (with
     autograd), so every rank normalises by the global batch's statistics
     and updates the same running statistics, as GSPMD's BN does.
+
+    A bf16 ``x`` is normalised as flax normalises it: statistics over its
+    float32 values, ``x - mean`` in float32, the result rounded to bf16.
     """
+    xf = x.float()  # its own cast, as flax's: the cotangents of the two casts are added in bf16
     if mesh is None or mesh.size == 1:
-        mean = x.mean(dim=(0, 2, 3))
-        meansq = (x * x).mean(dim=(0, 2, 3))
+        mean = xf.mean(dim=(0, 2, 3))
+        meansq = (xf * xf).mean(dim=(0, 2, 3))
     else:
         c = x.shape[1]
-        count = x.new_full((1,), x.numel() // c)
-        stats = mesh.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+        count = xf.new_full((1,), x.numel() // c)
+        stats = mesh.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
         mean, meansq = stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
     var = (meansq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
-    return (x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]
+    return ((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]).to(x.dtype)

@@ -87,8 +87,9 @@ def train(
     """Full training run. Returns {'state', 'best', 'best_dev_acc', 'test_acc', 'model', 'dataset'}.
 
     ``device`` defaults to cuda (and raises without one). Any model of the
-    registry trains. ``compute_dtype`` is the model's operand dtype (the
-    convs and a CNN's hidden dense layers, the res stack's kernel mode),
+    registry trains. ``compute_dtype`` is the model's compute dtype (flax's
+    ``dtype``: the convs, a CNN's hidden dense layers and the activations
+    between them, the res stack's kernel mode),
     in its training steps and in the dev and test sweeps alike, as the JAX
     loop builds one model for both; ``float32`` is the parity mode. TF32 is
     off either way (``use_full_f32``): what runs in float32 stays float32.

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """How far apart one and two ranks train, in the port and in the JAX package, on one corpus.
 
-    python scripts/probe_torch_topology_gap.py --hashseed 0 [--dtypes bfloat16 float32]
+    python scripts/probe_torch_topology_gap.py --hashseed 0 [--seed 0] [--dtypes bfloat16 float32]
 
 Writes the synthetic corpus of ``tests/test_torch_parallel.py`` in a
 process with ``PYTHONHASHSEED`` set to ``--hashseed`` (its file names, and
@@ -14,7 +14,10 @@ dtype:
 - the JAX package (``honk_tpu.train.train``, in this process, with 8
   virtual CPU devices): 4 epochs on one device and on two.
 
-``--xla_flags`` adds XLA flags to the JAX runs alone.
+``--seed`` is the runs' seed, as both training CLIs' ``--seed`` (the
+initial weights, the batches and the split's draws; each package draws
+its own from it). ``--xla_flags`` adds XLA
+flags to the JAX runs alone.
 
 Prints one JSON line: for each pair of runs the largest absolute difference
 over every floating-point tensor of the final weights (parameters and BN
@@ -39,18 +42,18 @@ import torch_resume as R  # noqa: E402
 from torch_ranks import TIMEOUT, rank_env  # noqa: E402
 
 
-def probe(hashseed: str, dtypes: list[str], tmp: str) -> dict:
+def probe(hashseed: str, dtypes: list[str], tmp: str, seed: int = 0) -> dict:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     data = os.path.join(tmp, "sc")
     R.write_corpus(data, hashseed, rank_env(), TIMEOUT)
-    out: dict = {"hashseed": hashseed, "xla_flags": os.environ["XLA_FLAGS"]}
+    out: dict = {"hashseed": hashseed, "seed": seed, "xla_flags": os.environ["XLA_FLAGS"]}
     finals = {}
     for dtype in dtypes:
-        runs = R.resume_runs(data, dtype, pathlib.Path(tmp) / dtype)
+        runs = R.resume_runs(data, dtype, pathlib.Path(tmp) / dtype, seed)
         port = {n: R.port_weights(st) for n, st in runs["state"].items()}
-        jax_runs = {n: R.jax_weights(data, dtype, n) for n in (1, 2)}
+        jax_runs = {n: R.jax_weights(data, dtype, n, seed) for n in (1, 2)}
         finals[dtype] = (port["whole1"], jax_runs[1])
         out[dtype] = {
             "port_resume_1_rank": R.max_gap(port["whole1"], port["1to1"]),
@@ -68,6 +71,7 @@ def probe(hashseed: str, dtypes: list[str], tmp: str) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--hashseed", default="0", help="PYTHONHASHSEED of the process that writes the corpus")
+    p.add_argument("--seed", type=int, default=0, help="the runs' training seed")
     p.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"])
     p.add_argument("--xla_flags", default="", help="more XLA flags for the JAX runs, e.g. "
                    "--xla_allow_excess_precision=false")
@@ -75,7 +79,7 @@ def main() -> int:
     # Before JAX starts; the port's ranks drop XLA_FLAGS (torch_ranks.rank_env).
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count=8 {args.xla_flags}"
     with tempfile.TemporaryDirectory() as tmp:
-        print(json.dumps(probe(args.hashseed, args.dtypes, tmp)))
+        print(json.dumps(probe(args.hashseed, args.dtypes, tmp, args.seed)))
     return 0
 
 

@@ -18,9 +18,13 @@ Gates and why:
   1e-3: both round the same float32 values to bf16 to nearest even, so
   only float32 sum orders differ (measured 0 here), and one rounding they
   decide differently moves a logit by about 1e-3.
-- The port's bf16 eval forward against flax's bf16 apply: 0.05 and argmax
-  equal. Flax also rounds every layer's output to bf16, the port keeps
-  activations float32 as the TPU kernel does.
+- The port's bf16 eval forward against flax's bf16 apply: argmax equal,
+  and for res8 / res26 (the kernel) 0.05: flax also rounds every layer's
+  output to bf16, the kernel keeps activations float32 as the TPU kernel
+  does. res15 and the CNNs follow flax's dtype flow (every layer returns
+  bf16, BN's output rounded back to bf16): NO_KERNEL_ATOL, 1e-4 (measured
+  9.4e-6 for res15-narrow, 2.9e-5 for cnn-trad-pool2, where the float32
+  activations before had 1.3e-4 for res15-narrow).
 - ``make_forward``: argmax equal, and the logit gap within the JAX
   package's own gap between its fast and exact bf16 forwards plus 0.05.
 - A bf16 training run's dev and test accuracies equal JAX's
@@ -54,6 +58,7 @@ from test_torch_loop import corpus  # noqa: F401 (a fixture)
 
 BF16_GATE = dict(atol=0.05, rtol=0.05)  # tests/test_res_kernel.py's bf16 gate
 PLAIN_MAX = 1e-3
+NO_KERNEL_ATOL = 1e-4
 FWD_GAP = 0.05
 CONFS = ["res8-narrow", "res15-narrow", "cnn-trad-pool2"]
 
@@ -205,7 +210,10 @@ def test_bf16_eval_forward_matches_flax_bf16_apply(conf):
         got = _port(conf, variables, torch.bfloat16)(torch.from_numpy(feats)).numpy()
         f32 = _port(conf, variables)(torch.from_numpy(feats)).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
-    np.testing.assert_allclose(got, want, **BF16_GATE)
+    if conf.startswith("res8"):  # the kernel's float32 activations
+        np.testing.assert_allclose(got, want, **BF16_GATE)
+    else:  # flax's dtype flow
+        np.testing.assert_allclose(got, want, atol=NO_KERNEL_ATOL, rtol=0)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
     assert np.abs(got - f32).max() > 0  # not the float32 forward
 

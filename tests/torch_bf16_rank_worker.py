@@ -1,0 +1,42 @@
+"""One rank of the bf16 data-parallel test of the port (``tests/test_torch_bf16_train.py``).
+
+    python tests/torch_bf16_rank_worker.py <rank> <world> <port> <spec.pt> <out.pt>
+
+Joins a gloo process group of ``world`` ranks over 127.0.0.1 and runs the
+train steps of ``tests/torch_parallel_worker.py`` on models built in bf16,
+for each config in ``spec['confs']``; writes what it computed to ``out.pt``.
+With world 1 it joins no group: the one-rank reference, which also runs
+the float32 steps. Imports nothing of JAX.
+"""
+
+import os
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from torch_parallel_worker import train_steps  # noqa: E402
+from honk_tpu_torch.parallel import initialize_distributed, make_data_mesh, shutdown  # noqa: E402
+
+
+def main() -> int:
+    rank, world, port, spec_path, out_path = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    if world > 1:
+        initialize_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    try:
+        spec = torch.load(spec_path, weights_only=False)
+        mesh = make_data_mesh(world if world > 1 else 0, "data")
+        out = {conf: train_steps(spec, conf, mesh, torch.bfloat16) for conf in spec["confs"]}
+        if world == 1:  # and the float32 steps, to show the bf16 ones are another computation
+            out["float32"] = {conf: train_steps(spec, conf, mesh) for conf in spec["confs"]}
+        torch.save(out, out_path)
+    finally:
+        if world > 1:
+            shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

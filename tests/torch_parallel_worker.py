@@ -31,17 +31,17 @@ from honk_tpu_torch.train import create_train_state, make_eval_sweep, make_optim
 from honk_tpu_torch.train import train  # noqa: E402
 
 
-def model_of(conf: str, state_dict=None):
-    model = init_weights(find_model(conf)(find_config(conf)), torch.Generator().manual_seed(0))
+def model_of(conf: str, state_dict=None, dtype=None):
+    model = init_weights(find_model(conf)(find_config(conf), dtype=dtype), torch.Generator().manual_seed(0))
     return model if state_dict is None else load_state_dict(model, state_dict)
 
 
-def train_steps(spec: dict, conf: str, mesh) -> dict:
-    """``spec['steps']`` steps of ``conf`` from seed-0 weights; the last step's collectives recorded."""
+def train_steps(spec: dict, conf: str, mesh, dtype=None) -> dict:
+    """``spec['steps']`` steps of ``conf`` from seed-0 weights in ``dtype``; the last step's collectives recorded."""
     aug = A.AugmentConfig(n_silence=spec["n_silence"])
     arrays = A.prepare_train_arrays(spec["raw"], spec["labels"], spec["noise"], aug)
     tx = make_optimizer(lrs=(0.01,), boundaries=())
-    state = create_train_state(model_of(conf), tx)
+    state = create_train_state(model_of(conf, dtype=dtype), tx)
     step = make_train_step(tx, spec["batch"], aug, mesh)
     losses = []
     for s in range(spec["steps"]):

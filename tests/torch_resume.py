@@ -32,15 +32,17 @@ def write_corpus(data_dir: str, hashseed: str, env: dict, timeout: float) -> Non
                    env=dict(env, PYTHONHASHSEED=hashseed), check=True, timeout=timeout)
 
 
-def port_cli(data_dir: str, dtype: str, out_dir: str, epochs: int, ranks: int, save_every: int | None = None) -> list:
-    """The port's training CLI on the CPU: ``epochs`` in all into ``out_dir`` (resuming what it holds)."""
+def port_cli(data_dir: str, dtype: str, out_dir: str, epochs: int, ranks: int, save_every: int | None = None,
+             seed: int = 0) -> list:
+    """The port's training CLI on the CPU: ``epochs`` in all into ``out_dir`` (resuming what it holds);
+    ``seed`` draws the initial weights and the batches."""
     cmd = [sys.executable, "-m", "honk_tpu_torch.cli.train", "--device", "cpu", *PORT_RECIPE, "--data_dir", data_dir,
-           "--compute_dtype", dtype, "--n_epochs", str(epochs), "--output_dir", out_dir]
+           "--compute_dtype", dtype, "--n_epochs", str(epochs), "--output_dir", out_dir, "--seed", str(seed)]
     cmd += ["--n_devices", str(ranks)] if ranks > 1 else []
     return cmd + (["--save_every_epochs", str(save_every)] if save_every else [])
 
 
-def resume_runs(data: str, dtype: str, tmp: pathlib.Path) -> dict:
+def resume_runs(data: str, dtype: str, tmp: pathlib.Path, seed: int = 0) -> dict:
     """The recipe in ``dtype``: 4 epochs uninterrupted on 1 and on 2 ranks (``whole1``,
     ``whole2``), and 2 epochs on each resumed on each for 2 more (``1to1``, ``1to2``, ``2to1``, ``2to2``)."""
     d = {}
@@ -50,11 +52,12 @@ def resume_runs(data: str, dtype: str, tmp: pathlib.Path) -> dict:
 
     half = EPOCHS // 2
     first = {"whole1": (EPOCHS, 1), "whole2": (EPOCHS, 2), "half1": (half, 1, 1), "half2": (half, 2, 1)}
-    logs = dict(zip(first, run_ranks([port_cli(data, dtype, out(n), *a) for n, a in first.items()])))
+    logs = dict(zip(first, run_ranks([port_cli(data, dtype, out(n), *a, seed=seed) for n, a in first.items()])))
     resumes = ["1to1", "1to2", "2to1", "2to2"]
     for n in resumes:
         shutil.copytree(out(f"half{n[0]}"), out(n))
-    logs.update(zip(resumes, run_ranks([port_cli(data, dtype, out(n), EPOCHS, int(n[-1])) for n in resumes])))
+    logs.update(zip(resumes, run_ranks([port_cli(data, dtype, out(n), EPOCHS, int(n[-1]), seed=seed)
+                                        for n in resumes])))
     # Each rank's log; the state and whether best.pt is there, by run.
     return {"logs": logs, "state": {n: latest(p) for n, p in d.items()},
             "best": {n: os.path.isfile(os.path.join(p, "best.pt")) for n, p in d.items()}}
@@ -95,7 +98,7 @@ def port_weights(state: dict) -> dict:
     return {k: v.numpy() for k, v in state["model"].items()}
 
 
-def jax_weights(data_dir: str, dtype: str, n_devices: int) -> dict:
+def jax_weights(data_dir: str, dtype: str, n_devices: int, seed: int = 0) -> dict:
     """The JAX package's weights after the recipe's 4 epochs on ``n_devices`` of the virtual CPU devices."""
     import jax
 
@@ -104,9 +107,9 @@ def jax_weights(data_dir: str, dtype: str, n_devices: int) -> dict:
     from honk_tpu.train import train
 
     cfg = ExperimentConfig(
-        data=DataConfig(data_dir=data_dir, noise_prob=0.1),
+        data=DataConfig(data_dir=data_dir, noise_prob=0.1, seed=seed),  # the CLI's --seed sets both seeds
         train=TrainConfig(model="res8-narrow", batch_size=16, n_epochs=EPOCHS, lr=(0.01,), schedule=(), dev_every=2,
-                          eval_batch_size=32, steps_per_call=4, compute_dtype=dtype),
+                          eval_batch_size=32, steps_per_call=4, compute_dtype=dtype, seed=seed),
         mesh=MeshConfig(n_devices=n_devices))
     with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
         st = train(cfg, logger=MetricsLogger(stream=sink))["state"]
