@@ -35,7 +35,8 @@ nvcc. Phases, in order; any failure exits non-zero:
 10. the training path through its entry point: honk_tpu_torch.cli.train
     trains res8 (bf16, B=64) for 2 epochs on a synthetic corpus, with exact
     launch counts of all three kernels over the run (the res stack's in its
-    bf16 mode: the run's dev and test sweeps evaluate its bf16 model); then
+    bf16-activation mode: the run's dev and test sweeps evaluate its bf16
+    model in flax's dtype flow); then
     --type eval of its best.pt (float32) on cuda and on the CPU must give
     the same accuracy;
 11. timings with CUDA events: the assembly kernel and its plain version
@@ -142,26 +143,36 @@ hard_v2 corpus, 24 last):
 then the bf16 eval path and the Orbax loader (29 right after phase 7, 30
 after phase 16, 31 last):
 
-29. the res stack's bf16 mode against its plain version (bf16 operands,
-    float32 sums): zoo/res8.pt, built bf16, at B = 1, 3, 8, 256 and 2,996
-    on its bf16 stem, and random res8-narrow, res26 and res26-narrow weights
-    at B = 1 and 3, held row by row (BF16_KERNEL_ROWS) on the stack's first
-    two layers at every shape and on the whole stack from B=256, each of
-    three faults run beside it as plain versions (float32 operands,
-    truncation, an unrounded mean) outside that gate; every logit within
-    0.05, argmax equal outside that margin of a tie;
-    argmax against the float32 mode on the same input, the cluster
+29. the res stack's two bf16 modes against their plain versions (bf16
+    operands, float32 sums). The bf16 mode (the TPU kernel's float32
+    activations and bf16 Dense): zoo/res8.pt, built bf16, at B = 1, 3, 8,
+    256 and 2,996 on its bf16 stem, and random res8-narrow, res26 and
+    res26-narrow weights at B = 1 and 3, held row by row (BF16_KERNEL_ROWS)
+    on the stack's first two layers at every shape and on the whole stack
+    from B=256, each of three faults run beside it as plain versions
+    (float32 operands, truncation, an unrounded mean) outside that gate.
+    The bf16-activation mode (flax's dtype flow: each layer's output, the
+    residual sum and BN's output rounded to bf16, a float32 Dense) the same
+    way at B = 1, 8, 256 and 2,996 and on the random models at B = 1 and 3
+    (BF16_FLOW_ROWS on the whole stack, BF16_FLOW_LAYER_ROWS on two layers),
+    its faults the Pallas flow, float32 activations and a bf16 Dense. Every logit within 0.05, argmax equal outside that margin of
+    a tie; argmax against the float32 mode on the same input, the cluster
     geometry, ptxas registers and spills, CUDA-event times beside the
     float32 mode's and the bound (bytes over HBM or flops over dense bf16);
 30. the bf16 eval path through its entry points: the training CLI runs of
     phases 10 and 15 (the CLI's default --compute_dtype bfloat16) launch
-    only the res stack's bf16 mode in their dev and test sweeps (res8) or
-    none (res15, cnn-trad-pool2), and their --type eval stays float32; then
-    make_forward of a bf16 res8 (zoo_hard_v2/res8.pt) on 256 hard_v2 test
-    clips on the card against the same forward on the CPU, held row by row
-    (BF16_FORWARD_ROWS) with the float32 forward outside that gate, argmax
-    equal outside 0.05 of a tie, one mfcc and one bf16 res-stack
-    launch, its times beside the float32 forward's;
+    only the res stack's bf16-activation mode in their dev and test sweeps
+    (res8) or none (res15, cnn-trad-pool2), and their --type eval stays
+    float32; then make_forward of a bf16 res8 (zoo_hard_v2/res8.pt) on 256
+    hard_v2 test clips on the card against the same forward on the CPU,
+    held row by row (BF16_FORWARD_ROWS) with the float32 forward outside
+    that gate, argmax equal outside 0.05 of a tie, one mfcc and one
+    bf16-activation res-stack launch, its times beside the float32
+    forward's; then the TPU kernel's fused forward (res_forward_fused: the
+    float32 stem, then the bf16 mode) on the same clips, one mfcc and one
+    bf16-mode launch, cuda against the CPU by the same rows. Whether the
+    port's bf16 forward computes flax's bf16 apply is held on the CPU
+    (tests/test_torch_bf16.py), not here;
 31. the Orbax loader: whether tensorstore imports; if it does, /listen from
     zoo/res8/best against the zoo/res8.pt service's answers, if not, the
     refusal LabelService raises for it;
@@ -192,6 +203,18 @@ and the bf16 training step (right after phase 11):
     BF16_TRAIN_RATIO of their cuda bf16-float32 distance over all tensors
     and BF16_TRAIN_TENSOR_RATIO a tensor; phase 11's bf16 and float32
     steps' host ms, device ms and kernels beside each other.
+
+and the recipe's accuracy (right after phase 30, on phase 14's corpus):
+
+34. python -m honk_tpu_torch.cli.zoo build trains res8 and res15 on the
+    regenerated hard_v2 at zoo_hard_v2's recipe (26 epochs, B=64, bf16,
+    lr 0.1 / 0.01 / 0.001 at steps 220 / 440, dev 10 %, test 80 %), seed 0,
+    with exact launch counts (res8's sweeps in the bf16-activation mode),
+    then cli.zoo compare --against zoo_hard_v2 scores both in float32 on
+    the 9,559 test clips: each test_acc_recheck must lie within the JAX
+    package's seeds 0-2 (runs/seed_variance_r04.json) widened by 2 SE, and
+    res15 must beat res8 (McNemar z > 0); prints both accuracies, the z,
+    the paired z against the committed vectors and each model's wall time.
 
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
@@ -314,6 +337,24 @@ BF16_OUTER = 0.05  # no logit further; a row whose top two are closer may take e
 BF16_DEPTH = 2  # one plain layer and one residual layer
 BF16_FULL_ROWS = 256
 BF16_BATCHES = (1, 3, 8, 256, 2996)  # a /listen, a few, a hub tick, an eval batch, a 10 min track's windows
+BF16_FLOW_BATCHES = (1, 8, 256, 2996)
+# Phase 34: the models cli.zoo builds at zoo_hard_v2's recipe (res15 over res8 is
+# the JAX zoo's closest resolved ordering, runs/seed_variance_r04.json).
+RECIPE_MODELS = ("res8", "res15")
+# The bf16-activation mode's row gates (median row gap, tail gap, largest share
+# of rows past it), on the whole stack from BF16_FULL_ROWS rows and on its first
+# BF16_DEPTH layers at every shape. Every layer rounds its output to bf16, so a
+# flipped rounding carries on through the layers: on the whole stack nearly
+# every row has one, and the median row moves by 1.2e-4-2.0e-4 (on an NVIDIA
+# H100 80GB HBM3 at 700 W: res8 B=256 and 2,996, res26 and res26-narrow at
+# B = 1 and 3; PERF.md §6), where the f32 mean and Dense keep each flip to
+# ~1e-4; its faults read 3.9e-3 (float32 activations) to 7.7e-3 (the Pallas
+# flow) on res8 from B=256, and as little as 3.7e-4 on res26 at B=1, so the
+# whole stack is gated from B=256 only. On two layers the kernel's median is
+# at most 4.4e-6 and the faults' at least 4.8e-5 (float32 activations on
+# res26-narrow): each limit sits between the two.
+BF16_FLOW_ROWS = (5e-4, 2e-3, 0.1)
+BF16_FLOW_LAYER_ROWS = (2e-5, 2e-3, 0.1)
 
 
 def fail(msg: str) -> None:
@@ -678,8 +719,8 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
         fail(f"cli.train launched {launches}, expected {expect} "
              f"({steps} train steps, {evals} eval batches)")
     # The run's model is bf16 (the CLI's default --compute_dtype), so are its dev and test sweeps.
-    if by_mode != {"float32": 0, "bfloat16": expect["res_stack"]}:
-        fail(f"cli.train's sweeps launched the res stack's modes {by_mode}: expected bf16 only")
+    if by_mode != bf16_eval_modes(expect["res_stack"]):
+        fail(f"cli.train's sweeps launched the res stack's modes {by_mode}: expected the bf16-activation mode only")
     train_acc = final_accuracy(out)
     best = os.path.join(out_dir, "best.pt")
     if not os.path.isfile(best):
@@ -817,20 +858,32 @@ def phase_family_eval(torch, LabelService, counters, utts) -> tuple[dict, dict]:
     return services, errs
 
 
+def hard_v2_manifest() -> dict:
+    with open(os.path.join(HARD_V2, "MANIFEST.json")) as f:
+        return json.load(f)
+
+
+def hard_v2_corpus(root: str) -> float:
+    """Regenerate the hard_v2 corpus into ``root`` from zoo_hard_v2/MANIFEST.json's
+    corpus_recipe; returns the seconds it took."""
+    from honk_tpu_torch.data import generate_hard_dataset
+
+    recipe = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in hard_v2_manifest()["corpus_recipe"].items() if k != "generator"}
+    t0 = time.perf_counter()
+    generate_hard_dataset(root, **recipe)
+    return time.perf_counter() - t0
+
+
 def phase_hard_v2(torch, dev, counters, tmp) -> dict:
     """14. The committed zoo_hard_v2 models on the card, clip by clip against their committed vectors."""
-    from honk_tpu_torch.data import generate_hard_dataset, load_speech_commands
+    from honk_tpu_torch.data import load_speech_commands
     from honk_tpu_torch.frontend import compute_mfccs
     from honk_tpu_torch.models import find_config, find_model, load_honk_checkpoint
 
-    with open(os.path.join(HARD_V2, "MANIFEST.json")) as f:
-        manifest = json.load(f)
-    recipe = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in manifest["corpus_recipe"].items() if k != "generator"}
+    manifest = hard_v2_manifest()
     root = os.path.join(tmp, "hard_v2")
-    t0 = time.perf_counter()
-    generate_hard_dataset(root, **recipe)
-    gen_s = time.perf_counter() - t0
+    gen_s = hard_v2_corpus(root)
     t0 = time.perf_counter()
     ds = load_speech_commands(root, dev_pct=10, test_pct=80)
     load_s = time.perf_counter() - t0
@@ -996,11 +1049,18 @@ class Launches(dict):
 
 def read(counters, bf16: bool = False) -> Launches:
     """Each kernel's launches since ``reset``. Only a path that evaluates a bf16
-    model (``bf16=True``) may have launched the res stack's bf16 mode."""
+    model or the TPU kernel's bf16 forward (``bf16=True``) may have launched one
+    of the res stack's bf16 modes."""
     launches = Launches(counters)
-    if not bf16 and launches.by_mode["bfloat16"]:
-        fail(f"a float32 path launched the res stack's bf16 mode: {launches.by_mode}")
+    if not bf16 and any(n for mode, n in launches.by_mode.items() if mode != "float32"):
+        fail(f"a float32 path launched a bf16 mode of the res stack: {launches.by_mode}")
     return launches
+
+
+def bf16_eval_modes(n: int) -> dict:
+    """The res stack's launches by mode where a bf16 model's eval forward ran ``n`` times:
+    its bf16-activation mode (flax's flow) alone."""
+    return {"float32": 0, "bfloat16": 0, "bfloat16_activations": n}
 
 
 def check_ground_truth(what: str, events, positions, labels) -> None:
@@ -1895,8 +1955,8 @@ def phase_data_parallel(torch, dev, root, tmp, counters, single_acc, smi, A, arr
              f"{single['state']['step']}, weights max abs err {weight_err:.3e}, accuracy {acc} vs {single_acc}; "
              f"a second single-device run against the first: {again_err:.3e}")
 
-    if by_mode != {"float32": 0, "bfloat16": launches["res_stack"]}:
-        fail(f"cli.train on a world-1 NCCL group: res stack modes {by_mode}, expected bf16 only")
+    if by_mode != bf16_eval_modes(launches["res_stack"]):
+        fail(f"cli.train on a world-1 NCCL group: res stack modes {by_mode}, expected the bf16-activation mode only")
     out = {"train_s": train_s, "launches": launches, "res_stack_by_mode": by_mode, "weights_max_abs_err": weight_err,
            "weights_bitwise": bitwise, "final_test_accuracy": acc}
     initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
@@ -2175,7 +2235,7 @@ def check_hub_ranks(ranks: list[dict], ref_ticks: list, ref_closed: list, n_tick
     for r, rk in enumerate(ranks):
         want = {"mfcc": n_ticks, "res_stack": n_ticks}
         if rk["backend"] != backend or rk["rows"] != [r * block, min((r + 1) * block, HUB_SLOTS)] or {
-                k: rk["launches"][k] for k in want} != want or rk["launches"]["res_stack_by_mode"]["bfloat16"]:
+                k: rk["launches"][k] for k in want} != want or rk["launches"]["res_stack_by_mode"]["float32"] != n_ticks:
             fail(f"hub over {world} ranks, rank {r}: {rk['backend']}, rows {rk['rows']}, launched "
                  f"{rk['launches']}: expected {backend}, its block, one mfcc and one float32 res stack a tick")
     return post_gap, prob_gap
@@ -2372,6 +2432,33 @@ def bf16_faults(torch, x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> dict:
     return {"float32_operands": stack(same, same), "truncated": stack(trunc, trunc), "mean_unrounded": stack(rne, same)}
 
 
+def flow_faults(torch, x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> dict:
+    """The plain stack with each fault the bf16-activation mode could have, on the
+    operands of ``pack_res_params(model, bfloat16, bfloat16)`` (bf16 conv weights,
+    a float32 Dense): the Pallas flow (the bf16 mode's float32 activations and
+    bf16 Dense), float32 activations with flax's float32 Dense, and flax's bf16
+    activations with the Dense's operands rounded to bf16."""
+    F = torch.nn.functional
+
+    def rne(t):
+        return t.to(torch.bfloat16).float()
+
+    def same(t):
+        return t
+
+    def stack(act, dense):
+        C, old, h = x.shape[1], x, x
+        for i in range(w_all.shape[0]):
+            y = F.relu(act(F.conv2d(rne(h), w_all[i].reshape(3, 3, C, C).permute(3, 2, 0, 1), padding=1)))
+            if (i + 1) % 2 == 0:
+                y = act(y + old)
+                old = y
+            h = act(y * bn_scale[i, :, None, None] + bn_offset[i, :, None, None])
+        return dense(h.mean(dim=(2, 3))) @ dense(dense_w) + dense_b
+
+    return {"pallas_flow": stack(same, rne), "float32_activations": stack(same, same), "bf16_dense": stack(rne, rne)}
+
+
 def check_rows(what: str, reading: dict, faults: dict, gate) -> None:
     """The kernel's row reading within ``gate``, and each fault's median past
     the median limit and BF16_NEARER times the kernel's: the gate tells the
@@ -2396,12 +2483,15 @@ def bf16_res8(torch, dev, checkpoint: str = CHECKPOINT):
 
 
 def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> dict:
-    """29. The res stack's bf16 mode against its plain version: zoo/res8.pt at
-    B = 1, 3, 8, 256 and 2,996 (its bf16 stem, as a bf16 model feeds it), random
-    res8-narrow, res26 and res26-narrow weights at B = 1 and 3, each held by rows
-    beside its faults (check_rows) on its first BF16_DEPTH layers, and on the
-    whole stack from BF16_FULL_ROWS rows; argmax against the f32 mode on the same
-    input; geometry, ptxas, CUDA-event times beside the f32 mode's and the bound."""
+    """29. The res stack's two bf16 modes against their plain versions, each held by
+    rows beside its faults (check_rows) on its first BF16_DEPTH layers, and on the
+    whole stack from BF16_FULL_ROWS rows. The bf16 mode (the TPU kernel's):
+    zoo/res8.pt at B = 1, 3, 8, 256 and 2,996 on its bf16 stem, random res8-narrow,
+    res26 and res26-narrow weights at B = 1 and 3, faults bf16_faults. The
+    bf16-activation mode (flax's flow, the bf16 eval forward's): zoo/res8.pt at
+    BF16_FLOW_BATCHES, the random models at B = 1 and 3, faults flow_faults.
+    Argmax against the f32 mode on the same input; geometry, ptxas, CUDA-event
+    times beside the f32 mode's and the bound."""
     from honk_tpu_torch.models import SpeechResModel, find_config
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -2409,11 +2499,16 @@ def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> d
     audio = torch.from_numpy((rng.standard_normal((BF16_BATCHES[-1], 16000)) * 0.2).astype(np.float32)).to(dev)
     model = bf16_res8(torch, dev)
     out = {"ptxas": [ln for ln in ptxas_summary(logs.get("res_stack", "")) if "Bf16" in ln or "bf16" in ln],
-           "checks": {}, "times": {}}
+           "checks": {}, "flow_checks": {}, "times": {}, "flow_times": {}}
+    modes = {"bfloat16": (bf16, f32, (BF16_KERNEL_ROWS, BF16_KERNEL_ROWS), bf16_faults),
+             "bfloat16_activations": (bf16, bf16, (BF16_FLOW_ROWS, BF16_FLOW_LAYER_ROWS), flow_faults)}
     with torch.inference_mode():
         pooled = model.stem(mfcc_kernel.mfcc(audio), bf16)
-        packed, packed32 = model.eval_operands(), res_kernel.pack_res_params(model)
-        cases = [("res8", b, pooled[:b].contiguous(), packed, packed32) for b in BF16_BATCHES]
+        packs = {"bfloat16": res_kernel.pack_res_params(model, bf16), "bfloat16_activations": model.eval_operands()}
+        packed32 = res_kernel.pack_res_params(model)
+        cases = [("bfloat16", "res8", b, pooled[:b].contiguous(), packs["bfloat16"], packed32) for b in BF16_BATCHES]
+        cases += [("bfloat16_activations", "res8", b, pooled[:b].contiguous(), packs["bfloat16_activations"],
+                   packed32) for b in BF16_FLOW_BATCHES]
         for conf in ("res8-narrow", "res26", "res26-narrow"):
             torch.manual_seed(SEED)
             m = SpeechResModel(find_config(conf), dtype=bf16)
@@ -2423,58 +2518,66 @@ def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> d
                 bn.running_var.uniform_(0.5, 1.0)
             m = m.to(dev).eval()
             p_m = m.stem(mfcc_kernel.mfcc(audio[:3]), bf16)
-            cases += [(conf, b, p_m[:b].contiguous(), m.eval_operands(), res_kernel.pack_res_params(m))
-                      for b in (1, 3)]
-        res8_err = 0.0
-        for conf, b, x, p16, p32 in cases:
-            what = f"res_stack bf16 mode against its plain version, {conf} B={b}"
+            cases += [(mode, conf, b, p_m[:b].contiguous(), res_kernel.pack_res_params(m, bf16, act),
+                       res_kernel.pack_res_params(m))
+                      for mode, (_, act, _, _) in modes.items() for b in (1, 3)]
+        res8_err = {mode: 0.0 for mode in modes}
+        for mode, conf, b, x, p16, p32 in cases:
+            compute, act, gates, faults_of = modes[mode]
+            what = f"res_stack {mode} mode against its plain version, {conf} B={b}"
             check = {}
-            for part, p in (("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))):
-                got = res_kernel.res_stack(x, *p, compute_dtype=bf16)
-                ref = res_kernel.res_stack_plain(x, *p, compute_dtype=bf16)
+            for (part, p), gate in zip((("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))),
+                                       gates):
+                got = res_kernel.res_stack(x, *p, compute_dtype=compute, activation_dtype=act)
+                ref = res_kernel.res_stack_plain(x, *p, compute_dtype=compute, activation_dtype=act)
                 torch.cuda.synchronize()
                 if got.shape != ref.shape or not torch.isfinite(got).all():
                     fail(f"{what}, {part}: shape {tuple(got.shape)} or non-finite values")
-                reading = row_reading(got, ref, BF16_KERNEL_ROWS)
-                faults = {k: row_reading(v, ref, BF16_KERNEL_ROWS) for k, v in bf16_faults(torch, x, *p).items()}
+                reading = row_reading(got, ref, gate)
+                faults = {k: row_reading(v, ref, gate) for k, v in faults_of(torch, x, *p).items()}
                 check[part] = {"rows": reading, "faults": faults}
-                print(f"[bf16_kernel] {conf} B={b} {part}: kernel row gaps {reading}; faults' {faults}")
+                print(f"[bf16_kernel] {mode} {conf} B={b} {part}: kernel row gaps {reading}; faults' {faults}")
                 if part != "full" or b >= BF16_FULL_ROWS:
-                    check_rows(f"{what}, {part}", reading, faults, BF16_KERNEL_ROWS)
+                    check_rows(f"{what}, {part}", reading, faults, gate)
                 elif reading["max"] > BF16_OUTER:
                     fail(f"{what}: max abs err {reading['max']:.3e} past {BF16_OUTER}")
                 if part == "full":
-                    full = got
-            ref = res_kernel.res_stack_plain(x, *p16, compute_dtype=bf16)
-            decisive, near, differ = decisive_argmax_equal(full, ref, BF16_OUTER)
+                    full, full_ref = got, ref
+            decisive, near, differ = decisive_argmax_equal(full, full_ref, BF16_OUTER)
             if not decisive:
                 fail(f"{what}: argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
             mode32 = res_kernel.res_stack(x, *p32)
-            out["checks"][f"{conf} B={b}"] = {
+            out["checks" if mode == "bfloat16" else "flow_checks"][f"{conf} B={b}"] = {
                 "max_abs_err": check["full"]["rows"]["max"], **check,
                 "argmax_differs_plain": differ, "near_ties": near,
                 "argmax_equal_f32_mode": float((full.argmax(-1) == mode32.argmax(-1)).float().mean()),
                 "max_abs_diff_f32_mode": max_err(full, mode32), "geometry": res_kernel.geometry(x, bf16)}
             if conf == "res8":
-                res8_err = max(res8_err, check["full"]["rows"]["max"])
+                res8_err[mode] = max(res8_err[mode], check["full"]["rows"]["max"])
         C, H, W = pooled.shape[1:]
-        L, n_lab = packed[0].shape[0], packed[3].shape[1]
-        for b in (1, 8, BATCH, BF16_BATCHES[-1]):
-            x = pooled[:b].contiguous()
-            iters = 200 if b <= 8 else 20 if b <= BATCH else 5
-            t = {"ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed, compute_dtype=bf16), iters),
-                 "f32_mode_ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed32), iters),
-                 "plain_ms": time_ms(torch, lambda: res_kernel.res_stack_plain(x, *packed, compute_dtype=bf16),
-                                     iters)}
-            t["bound_ms"], t["bound_by"] = bound(*res_work(b, C, H, W, L, n_lab), name, bf16=True)
-            t["f32_mode_bound_ms"], _ = bound(*res_work(b, C, H, W, L, n_lab), name, tf32x3=True)
-            out["times"][b] = t
-    out["res8_max_abs_err"] = res8_err
-    median, tail, share = BF16_KERNEL_ROWS
-    print(f"[bf16_kernel] {smi}: the res stack's bf16 mode against its plain version (per row, on the first "
-          f"{BF16_DEPTH} layers at every shape and on the whole stack from B={BF16_FULL_ROWS}: median gap at most "
-          f"{median}, at most {share} of rows past {tail}, each fault's median past {BF16_NEARER}x the kernel's; "
-          f"every gap within {BF16_OUTER}; argmax equal outside {BF16_OUTER} of a tie): " + json.dumps(out))
+        L, n_lab = packed32[0].shape[0], packed32[3].shape[1]
+        for mode, key, batches in (("bfloat16", "times", (1, 8, BATCH, BF16_BATCHES[-1])),
+                                   ("bfloat16_activations", "flow_times", BF16_FLOW_BATCHES)):
+            compute, act = modes[mode][:2]
+            p = packs[mode]
+            for b in batches:
+                x = pooled[:b].contiguous()
+                iters = 200 if b <= 8 else 20 if b <= BATCH else 5
+                t = {"ms": time_ms(torch, lambda: res_kernel.res_stack(x, *p, compute_dtype=compute,
+                                                                       activation_dtype=act), iters),
+                     "f32_mode_ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed32), iters),
+                     "plain_ms": time_ms(torch, lambda: res_kernel.res_stack_plain(x, *p, compute_dtype=compute,
+                                                                                   activation_dtype=act), iters)}
+                t["bound_ms"], t["bound_by"] = bound(*res_work(b, C, H, W, L, n_lab), name, bf16=True)
+                t["f32_mode_bound_ms"], _ = bound(*res_work(b, C, H, W, L, n_lab), name, tf32x3=True)
+                out[key][b] = t
+    out["res8_max_abs_err"], out["flow_res8_max_abs_err"] = res8_err["bfloat16"], res8_err["bfloat16_activations"]
+    print(f"[bf16_kernel] {smi}: the res stack's bf16 modes against their plain versions (per row, on the first "
+          f"{BF16_DEPTH} layers at every shape and on the whole stack from B={BF16_FULL_ROWS}: median gap, share of "
+          f"rows past the tail gap (bf16 mode {BF16_KERNEL_ROWS}, bf16-activation mode {BF16_FLOW_ROWS}, on its "
+          f"first layers {BF16_FLOW_LAYER_ROWS}), each "
+          f"fault's median past {BF16_NEARER}x the kernel's; every gap within {BF16_OUTER}; argmax equal outside "
+          f"{BF16_OUTER} of a tie): " + json.dumps(out))
     return out
 
 
@@ -2482,13 +2585,16 @@ def phase_bf16_eval(torch, dev, counters, hard_v2_root, train_runs, smi) -> dict
     """30. The bf16 eval path through its entry points: the training CLI's sweeps
     (phases 10 and 15, read by mode), then make_forward of a bf16 res8 at B=256
     on the card against the same forward on the CPU, and its times beside the f32
-    forward's."""
+    forward's; then the TPU kernel's fused forward (res_forward_fused: the float32
+    stem and the bf16 mode) on the same clips, cuda against the CPU."""
     from honk_tpu_torch.data import load_speech_commands
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.ops.res_kernel import res_forward_fused
     from honk_tpu_torch.train.steps import make_forward
 
     for conf, by_mode in train_runs.items():
-        want = by_mode["bfloat16"] if uses_res_stack(conf) else 0
-        if by_mode != {"float32": 0, "bfloat16": want} or (uses_res_stack(conf) and not want):
+        want = by_mode["bfloat16_activations"] if uses_res_stack(conf) else 0
+        if by_mode != bf16_eval_modes(want) or (uses_res_stack(conf) and not want):
             fail(f"cli.train {conf}: res stack modes {by_mode} in its dev and test sweeps")
     ds = load_speech_commands(hard_v2_root, dev_pct=10, test_pct=80)
     clips = torch.from_numpy(ds.test.audio[:BATCH].astype(np.float32) / 32768.0)
@@ -2505,7 +2611,7 @@ def phase_bf16_eval(torch, dev, counters, hard_v2_root, train_runs, smi) -> dict
     torch.cuda.synchronize()
     launches = read(counters, bf16=True)
     by_mode = launches.by_mode
-    if launches != {"assemble": 0, "mfcc": 1, "res_stack": 1} or by_mode != {"float32": 0, "bfloat16": 1}:
+    if launches != {"assemble": 0, "mfcc": 1, "res_stack": 1} or by_mode != bf16_eval_modes(1):
         fail(f"make_forward of a bf16 res8 launched {launches}, res stack modes {by_mode}")
     got = got.cpu()
     ref = forward(models["cpu"], clips)
@@ -2526,6 +2632,23 @@ def phase_bf16_eval(torch, dev, counters, hard_v2_root, train_runs, smi) -> dict
            "acc": {"bfloat16": float((got.argmax(-1) == labels).float().mean()),
                    "float32": float((f32.argmax(-1) == labels).float().mean())},
            "train_cli_res_stack_by_mode": train_runs, "times": {}}
+    # The TPU kernel's fused forward (its public entry point; bf16 operands by default): the bf16 mode alone.
+    reset(counters)
+    fused = res_forward_fused(models["float32"], compute_mfccs(a))
+    torch.cuda.synchronize()
+    fused_launches = read(counters, bf16=True)
+    if fused_launches != {"assemble": 0, "mfcc": 1, "res_stack": 1} or fused_launches.by_mode != {
+            "float32": 0, "bfloat16": 1, "bfloat16_activations": 0}:
+        fail(f"res_forward_fused of res8 launched {fused_launches}, res stack modes {fused_launches.by_mode}")
+    fused = fused.cpu()
+    fused_ref = res_forward_fused(load_honk_checkpoint(ckpt, SpeechResModel(find_config("res8"))).eval(),
+                                  compute_mfccs(clips))
+    fused_reading = row_reading(fused, fused_ref, BF16_FORWARD_ROWS)
+    fused_faults = {"float32_forward": row_reading(f32, fused_ref, BF16_FORWARD_ROWS)}
+    print(f"[bf16_eval] res_forward_fused cuda vs cpu row gaps {fused_reading}; the float32 forward's {fused_faults}")
+    check_rows("res_forward_fused res8 cuda vs cpu", fused_reading, fused_faults, BF16_FORWARD_ROWS)
+    out["fused"] = {"launches": fused_launches, "res_stack_by_mode": fused_launches.by_mode, "rows": fused_reading,
+                    "faults": fused_faults, "max_abs_diff_make_forward": max_err(fused, got)}
     with torch.inference_mode():
         for k in ("float32", "bfloat16", "bfloat16", "float32"):  # in turns
             t = out["times"].setdefault(k, {"events_ms": [], "wall_ms": [], "profiler_device_ms": []})
@@ -2537,6 +2660,85 @@ def phase_bf16_eval(torch, dev, counters, hard_v2_root, train_runs, smi) -> dict
     print(f"[bf16_eval] {smi}: make_forward B={BATCH} on the first {BATCH} hard_v2 test clips, "
           f"zoo_hard_v2/res8.pt; logits cuda vs cpu held by rows {BF16_FORWARD_ROWS} against the float32 forward: "
           + json.dumps(out))
+    return out
+
+
+def recipe_ranges() -> dict:
+    """Each recipe model's accuracy range: the JAX package's seeds 0-2
+    (runs/seed_variance_r04.json) widened by 2 SE of the MANIFEST's test split."""
+    with open(os.path.join(ROOT, "runs", "seed_variance_r04.json")) as f:
+        seeds = json.load(f)["per_seed"]
+    se = hard_v2_manifest()["models"]["res8"]["test_acc_se"]
+    return {m: (min(r[m] for r in seeds) - 2 * se, max(r[m] for r in seeds) + 2 * se) for m in RECIPE_MODELS}
+
+
+def phase_recipe(torch, counters, root, tmp, smi, seed: int = 0, compute_dtype: str | None = None,
+                 gate: bool = True) -> dict:
+    """34. The recipe's accuracy: ``python -m honk_tpu_torch.cli.zoo build`` trains
+    RECIPE_MODELS on the hard_v2 corpus at ``root`` at zoo_hard_v2's recipe (its
+    MANIFEST: 26 epochs, B=64, bf16, the lr ladder at 220 / 440, dev 10 %, test
+    80 %) from ``seed``, with exact launch counts (the sweeps of a bf16 res8 in
+    the bf16-activation mode), then ``cli.zoo compare --against zoo_hard_v2``
+    scores both in float32 and pairs them with each other and with the committed
+    vectors. With ``gate``, each test_acc_recheck lies in recipe_ranges() and
+    res15 beats res8 (McNemar z > 0). ``compute_dtype`` overrides the recipe's."""
+    from honk_tpu_torch.cli.zoo import main as zoo_main
+    from honk_tpu_torch.data import load_speech_commands
+
+    recipe = hard_v2_manifest()["models"]["res8"]["recipe"]
+    dtype = compute_dtype or recipe["compute_dtype"]
+    split = ["--dev_pct", str(recipe["dev_pct"]), "--test_pct", str(recipe["test_pct"])]
+    flags = ["--n_epochs", str(recipe["n_epochs"]), "--batch_size", str(recipe["batch_size"]), "--seed", str(seed),
+             "--compute_dtype", dtype, "--lr", *map(str, recipe["lr"]), "--schedule", *map(str, recipe["schedule"]),
+             "--data_dir", root, *split]
+    ds = load_speech_commands(root, dev_pct=recipe["dev_pct"], test_pct=recipe["test_pct"])
+    n_train, b, eval_b = len(ds.train), recipe["batch_size"], 256
+    steps = recipe["n_epochs"] * math.ceil((n_train + int(0.1 * n_train)) / b)
+    evals = recipe["n_epochs"] * math.ceil(len(ds.dev) / eval_b) + math.ceil(len(ds.test) / eval_b)
+    zoo_dir = os.path.join(tmp, f"zoo_recipe_seed{seed}_{dtype}")
+    out = {"seed": seed, "compute_dtype": dtype, "models": {}}
+    for name in RECIPE_MODELS:
+        reset(counters)
+        t0 = time.perf_counter()
+        rc, _ = run_cli(zoo_main, ["build", zoo_dir, "--models", name, *flags])
+        wall = time.perf_counter() - t0
+        launches = read(counters, bf16=dtype == "bfloat16")
+        n_res = evals if uses_res_stack(name) else 0
+        by_mode = bf16_eval_modes(n_res) if dtype == "bfloat16" else {"float32": n_res, "bfloat16": 0,
+                                                                        "bfloat16_activations": 0}
+        if rc != 0:
+            fail(f"cli.zoo build {name} returned {rc}")
+        if launches != {"assemble": steps, "mfcc": steps + evals, "res_stack": n_res} or launches.by_mode != by_mode:
+            fail(f"cli.zoo build {name}: launched {launches} ({launches.by_mode}), expected {steps} steps, "
+                 f"{evals} eval batches, res stack {by_mode}")
+        out["models"][name] = {"wall_s": wall, "launches": launches, "res_stack_by_mode": launches.by_mode}
+    n_test = math.ceil(len(ds.test) / eval_b)
+    reset(counters)
+    rc, _ = run_cli(zoo_main, ["compare", zoo_dir, "--data_dir", root, *split, "--against", HARD_V2])
+    launches = read(counters)
+    want = {"assemble": 0, "mfcc": n_test * len(RECIPE_MODELS), "res_stack": n_test * sum(map(uses_res_stack,
+                                                                                                RECIPE_MODELS))}
+    if rc != 0 or launches != want:
+        fail(f"cli.zoo compare returned {rc}, launched {launches}: expected {want}")
+    with open(os.path.join(zoo_dir, "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    ranges = recipe_ranges()
+    for name, m in out["models"].items():
+        e = manifest["models"][name]
+        m.update(test_acc=e["test_acc"], test_acc_recheck=e["test_acc_recheck"], test_acc_se=e["test_acc_se"],
+                 jax_range=ranges[name], against=manifest["against_stats"]["pairwise"][name])
+        m["in_range"] = ranges[name][0] <= e["test_acc_recheck"] <= ranges[name][1]
+    pair = manifest["ladder_stats"]["pairwise"]["_vs_".join(RECIPE_MODELS)]
+    out.update(z_res15_over_res8=-pair["mcnemar_z"], pair=pair, compare_launches=launches)
+    print(f"[recipe] {smi}: cli.zoo build {' '.join(RECIPE_MODELS)} at zoo_hard_v2's recipe, seed {seed}, {dtype} "
+          f"({steps} steps, {evals} eval batches a model), then compare --against zoo_hard_v2: " + json.dumps(out))
+    if gate:
+        for name, m in out["models"].items():
+            if not m["in_range"]:
+                fail(f"recipe {name} seed {seed}: test_acc_recheck {m['test_acc_recheck']} outside the JAX "
+                     f"package's seeds widened by 2 SE, {ranges[name]}")
+        if not out["z_res15_over_res8"] > 0:
+            fail(f"recipe seed {seed}: res15 over res8 McNemar z {out['z_res15_over_res8']}, not > 0")
     return out
 
 
@@ -2796,6 +2998,8 @@ def main() -> int:
         # 30. The bf16 eval path: the CLI runs' sweeps by mode, make_forward of a bf16 res8.
         bf16_eval = phase_bf16_eval(torch, dev, counters, os.path.join(tmp, "hard_v2"),
                                     {"res8": train_modes, **{c: v[3] for c, v in family_train.items()}}, smi)
+        # 34. The recipe's accuracy: cli.zoo build res8 and res15 on hard_v2, compare against zoo_hard_v2.
+        recipe = phase_recipe(torch, counters, os.path.join(tmp, "hard_v2"), tmp, smi)
 
     # 17-21. Streaming: the MFCC kernel's causal framing, offline, online, the hub over HTTP, res15 and cnn.
     streaming = phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name)
@@ -2828,13 +3032,15 @@ def main() -> int:
         return res_work(b, C, H, W, L, n_lab)
 
     # "launches" counts the training path's run (phase 10) for mfcc, assemble
-    # and the res stack's bf16 mode (its dev and test sweeps), and the serving
-    # path's 8 requests (phase 6) for the res stack's float32 mode, the path
-    # named by "launches_path"; "launches_listen" the serving path's; and
-    # "launches_by_path" every path the script drives with the counts set to 0
-    # just before it (the res stack by mode: read() refuses a bf16 launch on
-    # every path but the CLI runs and make_forward of a bf16 model). ms /
-    # plain_ms / bound_ms are at "batch"; the other keys give the other sizes.
+    # and the res stack's bf16-activation mode (its dev and test sweeps), the
+    # serving path's 8 requests (phase 6) for the res stack's float32 mode, and
+    # the TPU kernel's fused forward (res_forward_fused, phase 30) for its bf16
+    # mode, the path named by "launches_path"; "launches_listen" the serving
+    # path's; and "launches_by_path" every path the script drives with the
+    # counts set to 0 just before it (the res stack by mode: read() refuses a
+    # bf16 launch on every path but the CLI runs, the recipe's builds,
+    # make_forward of a bf16 model and res_forward_fused). ms / plain_ms /
+    # bound_ms are at "batch"; the other keys give the other sizes.
     by_path = {
         "train_res8": train_launches, "listen_res8": launches,
         **{f"listen_{c}": v["launches"] for c, v in family_listen.items()},
@@ -2848,6 +3054,9 @@ def main() -> int:
         "stream_offline_res8_data_axis": data_parallel["stream_file_launches"],
         "stream_batch8_res8_data_axis": data_parallel["batch_streamer_launches"],
         "make_forward_res8_bf16": bf16_eval["launches"], "listen_res8_orbax": orbax.get("launches"),
+        "res_forward_fused_res8": bf16_eval["fused"]["launches"],
+        **{f"recipe_build_{c}": m["launches"] for c, m in recipe["models"].items()},
+        "recipe_compare": recipe["compare_launches"],
         "stream_hub_push_bin_res8_data_axis_nccl_world1": hub_ranks["launches"],
     }
     by_path = {p: v for p, v in by_path.items() if v is not None}
@@ -2878,19 +3087,22 @@ def main() -> int:
     kernels[0].update({"ms_b64": train_times["mfcc_b64"], "plain_ms_b64": train_times["mfcc_plain_b64"],
                        "bound_ms_b64": b64, "bound_by_b64": by64, "streaming": streaming["mfcc"]})
     kernels[1]["streaming"] = streaming["res_stack"]
-    t16 = bf16_kernel["times"]
-    kernels.append({
-        "name": "res_stack[bf16]", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/res_stack.cu",
-        "replaces": "honk_tpu/ops/res_kernel.py:139", "launches": res_modes["train_res8"]["bfloat16"],
-        "launches_path": "train_res8", "launches_listen": res_modes["listen_res8"]["bfloat16"],
-        "launches_dp": res_modes["train_res8_nccl_world1"]["bfloat16"],
-        "launches_by_path": {p: m["bfloat16"] for p, m in res_modes.items()},
-        "max_abs_err": bf16_kernel["res8_max_abs_err"],
-        "ms": t16[BATCH]["ms"], "plain_ms": t16[BATCH]["plain_ms"], "bound_ms": t16[BATCH]["bound_ms"],
-        "bound_by": t16[BATCH]["bound_by"], "library_ms": None, "batch": BATCH,
-        "ms_f32_mode": t16[BATCH]["f32_mode_ms"],
-        "by_batch": {str(b): t for b, t in t16.items()},
-    })
+    for kname, mode, path, times, err, replaces in (
+            ("res_stack[bf16]", "bfloat16", "res_forward_fused_res8", bf16_kernel["times"],
+             bf16_kernel["res8_max_abs_err"], "honk_tpu/ops/res_kernel.py:139"),
+            ("res_stack[bf16_activations]", "bfloat16_activations", "train_res8", bf16_kernel["flow_times"],
+             bf16_kernel["flow_res8_max_abs_err"], "honk_tpu/models/res.py:41")):
+        t = times[BATCH]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "honk_tpu_torch/ops/csrc/res_stack.cu",
+            "replaces": replaces, "launches": res_modes[path][mode],
+            "launches_path": path, "launches_listen": res_modes["listen_res8"][mode],
+            "launches_dp": res_modes["train_res8_nccl_world1"][mode],
+            "launches_by_path": {p: m[mode] for p, m in res_modes.items()},
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "batch": BATCH, "ms_f32_mode": t["f32_mode_ms"],
+            "by_batch": {str(b): bt for b, bt in times.items()},
+        })
     a64, aby64 = bound(*assemble_ops[TRAIN_BATCH], name)
     a1024, aby1024 = bound(*assemble_ops[1024], name)
     kernels.append({
@@ -2913,8 +3125,9 @@ def main() -> int:
                       "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")},
                       "personalize": personalize, "datagen": datagen, "worker_thread": worker,
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
-                      "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if k != "times"},
-                      "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train}))
+                      "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
+                      "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
+                      "recipe": recipe}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -81,9 +81,9 @@ class Checkpointer:
     def save_step(self, step: int, tree: Any) -> None:
         self.save(f"step_{step:08d}", tree)
 
-    def save_best(self, state_dict: dict[str, torch.Tensor]) -> None:
-        """``best.pt`` in honk's layout: BN's ``num_batches_tracked`` (never read) left out."""
-        self.save("best", {k: v for k, v in state_dict.items() if not k.endswith(".num_batches_tracked")})
+    def save_best(self, state_dict: dict[str, torch.Tensor], name: str = "best") -> None:
+        """``<name>.pt`` (``best.pt``) in honk's layout: BN's ``num_batches_tracked`` (never read) left out."""
+        self.save(name, {k: v for k, v in state_dict.items() if not k.endswith(".num_batches_tracked")})
 
     def restore(self, name: str, template: Any | None = None) -> Any:
         """Load ``<name>.pt`` on the CPU; with a template, check every tensor's shape against it."""

@@ -12,8 +12,8 @@
 default; it raises where no CUDA device is present) or ``--device cpu``.
 ``--compute_dtype bfloat16`` (the default) runs the model as flax's
 ``dtype=bfloat16`` does (bf16 convolutions, CNN hidden dense layers and
-activations between them, res8 / res26's res-stack kernel in its bf16
-mode), in the training steps and in the dev and test sweeps of the run,
+activations between them, res8 / res26's res-stack kernel in its
+bf16-activation mode), in the training steps and in the dev and test sweeps of the run,
 as the JAX package does; ``float32`` is the parity mode. ``--type eval`` is
 float32 whatever the flag says. TF32 is off either way. A train run writes
 ``<output_dir>/best.pt`` (a honk state dict) and ``step_XXXXXXXX.pt``

@@ -17,20 +17,25 @@ Parameter names are honk's state-dict names (``conv{i}.weight``,
 ``bn{i}.running_mean`` / ``running_var``, ``output.weight`` / ``bias``), so
 a honk ``.pt`` loads with no converter (``torch_compat``).
 
-The eval forward (``model.eval()``) takes ``dtype`` operands, as flax's
-``model.apply(train=False)`` of a model built with that ``dtype`` does: a
-float32 model (every service, ``--type eval``) is float32 throughout, a
-bf16 one (a training run's dev and test sweeps at the default
-``--compute_dtype bfloat16``) multiplies bf16 operands with float32 sums.
-For res8 and res26 it runs conv0 (``layers.conv`` in ``dtype``), ReLU and
-the pool as PyTorch ops in float32 (``stem``: the JAX package leaves them
-to XLA outside its kernel too) and the rest through the res-stack kernel's
-wrapper in that mode, whose activations are float32 as the TPU kernel's.
-The kernel takes no dilated convs (nor does the TPU's), so res15 runs
-every conv through cuDNN in ``dtype`` with flax's dtype flow (below), with
-BN from the running statistics folded as the kernel's operands fold it
-(``fold_bn``) and, in bf16, rounded back to bf16 as flax's eval BN
-returns it; ``use_full_f32`` keeps the float32 convs out of TF32.
+The eval forward (``model.eval()``) computes what flax's
+``model.apply(train=False)`` of a model built with that ``dtype``
+computes: a float32 model (every service, ``--type eval``) is float32
+throughout; a bf16 one (a training run's dev and test sweeps at the
+default ``--compute_dtype bfloat16``, ``make_forward`` of a bf16 model)
+follows flax's dtype flow, as in training (below), with BN from the
+running statistics rounded back to bf16. For res8 and res26 it runs conv0
+(``layers.conv`` in ``dtype``), ReLU and the pool (``layers.avg_pool``) as
+PyTorch ops (``stem``, bf16 in a bf16 model) and the rest through the
+res-stack kernel's wrapper: float32 in a float32 model, its
+``bfloat16_activations`` mode in a bf16 one (bf16 operands, each layer's
+output, the residual sum and BN's output rounded to bf16, the mean in
+float32 and a float32 Dense). The kernel's ``bfloat16`` mode, the TPU
+kernel's float32 activations with a bf16 Dense, is not on this path. The
+kernel takes no dilated convs (nor does the TPU's), so res15 runs every
+conv through cuDNN in ``dtype`` with flax's dtype flow, with BN folded as
+the kernel's operands fold it (``fold_bn``) and, in bf16, rounded back to
+bf16 as flax's eval BN returns it; ``use_full_f32`` keeps the float32
+convs out of TF32.
 ``frozen_forward`` is the float32 eval forward of every config as PyTorch
 ops under autograd, with that fold:
 personalization differentiates it (``serve.TrainingService``), as the JAX
@@ -91,16 +96,18 @@ class SpeechResModel(nn.Module):
     def eval_operands(self) -> tuple[torch.Tensor, ...]:
         """What the eval forward takes from the weights, to prepare once per set
         of weights: the res-stack kernel's operands for the model's ``dtype``
-        (``pack_res_params``), or for a dilated config the BN fold (``fold_bn``)."""
-        return fold_bn(self) if self.dilated else pack_res_params(self, self.dtype)
+        (``pack_res_params``: its ``bfloat16_activations`` mode for a bf16
+        model), or for a dilated config the BN fold (``fold_bn``)."""
+        return fold_bn(self) if self.dilated else pack_res_params(self, self.dtype, self.dtype)
 
     def stem(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """conv0 (operands in ``dtype``) -> ReLU -> pool in float32: (B, 101, 40) ->
-        (B, C, H, W), the res-stack kernel's input."""
-        y = F.relu(conv(self.conv0, x[:, None], dtype).float())
+        """conv0 -> ReLU -> pool in ``dtype``'s flow (flax's: in bf16 each returns
+        bf16, the pool ``layers.avg_pool``): (B, 101, 40) -> (B, C, H, W) float32,
+        the res-stack kernel's input (holding bf16 values for a bf16 ``dtype``)."""
+        y = F.relu(conv(self.conv0, x[:, None], dtype))
         if self.pool is not None:
-            y = F.avg_pool2d(y, self.pool)
-        return y.contiguous()
+            y = avg_pool(y, self.pool)
+        return y.float().contiguous()
 
     def forward(self, x: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None,
                 dropout: Any = None, mesh: DataMesh | None = None) -> torch.Tensor:
@@ -117,7 +124,8 @@ class SpeechResModel(nn.Module):
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
-            return res_stack(self.stem(x, self.dtype), *packed, compute_dtype=self.dtype)
+            return res_stack(self.stem(x, self.dtype), *packed, compute_dtype=self.dtype,
+                             activation_dtype=self.dtype)
         return self._folded_stack(x, self.dtype, *packed)
 
     def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
 // Res-stack kernel for Hopper (sm_90a): the eval-mode residual stack of the
 // res8 / res8-narrow / res26(-narrow) models after conv0 and the pool, plus
-// the global mean and the Dense layer, with float32 activations and either
-// of the TPU kernel's two operand types (its compute_dtype): float32, taken
-// as 3xTF32, or bfloat16.
+// the global mean and the Dense layer, in three modes: the TPU kernel's two
+// operand types (its compute_dtype) with float32 activations, float32 taken
+// as 3xTF32 or bfloat16, and bfloat16 operands with bf16 activations, the
+// dtype flow of flax's eval apply of a bf16 model.
 //
 // Replaces the TPU kernel honk_tpu/ops/res_kernel.py::_res_stack_call
-// (Pallas body _make_kernel). Semantics kept exactly (models/res.py):
+// (Pallas body _make_kernel) and, in the bf16-activation mode, what the JAX
+// package runs through XLA for a bf16 model's eval forward
+// (honk_tpu/models/res.py, apply(train=False)). Semantics (models/res.py):
 //     x = old = pooled conv0 output
 //     for each layer i = 1..L:  y = relu(conv3x3_i(x))            (SAME, no bias)
 //                               if i even: y += old; old = y      (pre-BN sum)
@@ -21,11 +24,11 @@
 // tensor-core products per product, so the operations bound is
 // 3 x flops / 495 TFLOP/s (dense TF32), and the result stays within f32
 // parity gates where one TF32 product would not
-// (tests/test_torch_kernel_design.py). In the bf16 mode (Bf16) each
-// product is one bf16 product, so the bound is flops / 989 TFLOP/s (dense
-// bf16), and a weight stage is a quarter of the tf32 mode's for res8's 45
-// maps (half the bytes a value, one tile in place of big and small; a
-// third for the narrow models' 19, whose K pads to 32).
+// (tests/test_torch_kernel_design.py). In the bf16 modes (Bf16, Bf16Act)
+// each product is one bf16 product, so the bound is flops / 989 TFLOP/s
+// (dense bf16), and a weight stage is a quarter of the tf32 mode's for
+// res8's 45 maps (half the bytes a value, one tile in place of big and
+// small; a third for the narrow models' 19, whose K pads to 32).
 //
 // Two kernels, launched one after the other by res_stack_forward:
 // - res_stack_pack puts each tap's weights in the shared-memory layout that
@@ -33,7 +36,7 @@
 //   ops/res_kernel.py::fragment_index) and splits them once, a big and a
 //   small tile per K chunk, so that no warp of the stack kernel rounds or
 //   splits a weight; res_stack_pack_bf16 rounds them to bf16 into K chunks
-//   of 16 (the table's bf16 layout).
+//   of 16 (the table's bf16 layout), for both bf16 modes.
 // - res_stack_kernel: one thread block cluster per utterance. CTA `rank` of
 //   a cluster of `cs` owns the output rows [rank*H/cs, (rank+1)*H/cs) for
 //   every channel, in two zero-bordered channel-last activation buffers in
@@ -56,9 +59,9 @@
 //   small terms and the big one, added in the epilogue: the tensor cores'
 //   f32 accumulation truncates, so the big products' chain is kept apart.
 // - Epilogue as the reference: ReLU, the residual add on even layers with
-//   `old` carried pre-BN, then the folded BN; then the band's channel sums
-//   go to rank 0, which takes the mean and the Dense layer.
-// - The operand type is a template parameter. Bf16 is the TPU kernel's
+//   `old` carried pre-BN, then the folded BN (one fmaf); then the band's
+//   channel sums go to rank 0, which takes the mean and the Dense layer.
+// - The mode is a template parameter. Bf16 is the TPU kernel's
 //   bf16-operand mode: wgmma.m64nNk16 bf16 with A from registers, each
 //   bf16x2 register made by cvt.rn.bf16x2.f32 from two f32 activations
 //   (one float2 load), one accumulator set, K = 9 taps x KT*16 with KT =
@@ -66,9 +69,15 @@
 //   stride covers KT*16 channels (res8's 45 pad to 48, the narrow models'
 //   19 to 32), the padding zero in the activations and the weights alike.
 //   The Dense layer takes bf16-rounded features and weights, as the TPU
-//   kernel's does. Rounding is to nearest even in both places, so the
-//   kernel and ops/res_kernel.py::res_stack_plain round the same f32
-//   values to the same bf16 values; only f32 sum orders differ.
+//   kernel's does. Bf16Act multiplies as Bf16 does, but its epilogue
+//   follows flax's bf16 dtype flow: the conv's f32 sum rounded to bf16,
+//   ReLU, on even layers the bf16 carry added and the sum rounded, the
+//   folded BN taken in f32 and rounded back to bf16; the mean is taken over
+//   those values in f32 and the Dense layer multiplies f32 operands. Its
+//   activations stay in the f32 buffers, holding bf16 values, so the
+//   layout and the wgmma path are Bf16's. Rounding is to nearest even
+//   everywhere, so the kernel and ops/res_kernel.py::res_stack_plain round
+//   the same f32 values to the same bf16 values; only f32 sum orders differ.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -203,6 +212,7 @@ struct Tf32x3 {
     small = __float_as_uint(x - __uint_as_float(big));
   }
   __device__ __forceinline__ static float operand(float x) { return x; }  // the Dense layer's, in f32
+  __device__ __forceinline__ static float act(float x) { return x; }
 };
 
 // bf16 operands, the TPU kernel's compute_dtype=bfloat16: each conv's
@@ -220,6 +230,16 @@ struct Bf16 {
     return r;
   }
   __device__ __forceinline__ static float operand(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+  __device__ __forceinline__ static float act(float x) { return x; }  // activations stay f32
+};
+
+// bf16 operands with bf16 activations, flax's eval flow for a bf16 model:
+// every activation the epilogue writes (the conv's output, the residual sum,
+// BN's output) is rounded to bf16, to nearest even, and the Dense layer
+// multiplies the f32 mean by the f32 weights.
+struct Bf16Act : Bf16 {
+  __device__ __forceinline__ static float operand(float x) { return x; }
+  __device__ __forceinline__ static float act(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 };
 
 // Per (layer, tap): for each K chunk kc, a big then a small B tile of
@@ -435,7 +455,8 @@ res_stack_kernel(const float* __restrict__ x_in,      // (B, C, H, W) pooled con
       }
       if (tap != 8) continue;
 
-      // Epilogue of layer l: ReLU, residual on even (1-based) layers, folded BN.
+      // Epilogue of layer l: ReLU, residual on even (1-based) layers, folded BN, each
+      // result rounded to bf16 in the Bf16Act mode (Op::act).
       const bool residual = (l & 1) != 0;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -452,12 +473,12 @@ res_stack_kernel(const float* __restrict__ x_in,      // (B, C, H, W) pooled con
             if (c >= C) continue;
             float v = acc[0][r];
             if constexpr (!BF16) v += acc[1][r];
-            v = fmaxf(v, 0.f);
+            v = fmaxf(Op::act(v), 0.f);
             if (residual) {
-              v += o[c];
+              v = Op::act(v + o[c]);
               o[c] = v;
             }
-            d[c] = v * bn[c] + bn[MAX_C + c];
+            d[c] = Op::act(fmaf(v, bn[c], bn[MAX_C + c]));
           }
       }
 #pragma unroll
@@ -551,20 +572,21 @@ static int launch(const float* x, const float* wpack, const float* bn_scale, con
 // Launches on `stream`: the pack kernel into `wpack` (tf32: L * 9 * NT * NT
 // * 128 floats, NT = ceil(C/8); bf16: L * 9 * KT * NT * 128 bf16, KT =
 // ceil(C/16)) by `frag_idx` (the index table of that mode), then `cluster`
-// CTAs per utterance, one cluster each, with 3xTF32 operands or, if `bf16`,
-// bf16 operands. Returns the cudaError_t of the launches (0 = success); a
-// shape the kernel does not take is cudaErrorInvalidValue.
+// CTAs per utterance, one cluster each, in `mode` 0 (3xTF32 operands), 1
+// (bf16 operands, f32 activations) or 2 (bf16 operands and activations).
+// Returns the cudaError_t of the launches (0 = success); a shape or mode the
+// kernel does not take is cudaErrorInvalidValue.
 extern "C" int res_stack_forward(const float* x, const float* w_all, const int* frag_idx,
                                  const float* bn_scale, const float* bn_offset,
                                  const float* dense_w, const float* dense_b, float* out, float* wpack,
                                  int batch, int C, int H, int W, int L, int n_labels, int cluster,
-                                 int bf16, void* stream) {
-  if (C < 1 || C > MAX_C || cluster < 1 || cluster > MAX_CLUSTER || cluster > H || L < 1 ||
-      ((H + cluster - 1) / cluster * W + 15) / 16 > WARPS)
+                                 int mode, void* stream) {
+  if (C < 1 || C > MAX_C || cluster < 1 || cluster > MAX_CLUSTER || cluster > H || L < 1 || mode < 0 ||
+      mode > 2 || ((H + cluster - 1) / cluster * W + 15) / 16 > WARPS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int NT = (C + 7) / 8, KT = (C + 15) / 16;
-  if (bf16) {
+  if (mode != 0) {
     const int n_pack = L * 9 * KT * NT * 128;
     res_stack_pack_bf16<<<(n_pack + 255) / 256, 256, 0, s>>>(w_all, frag_idx, reinterpret_cast<__nv_bfloat16*>(wpack),
                                                              C, KT * NT * 128, L);
@@ -577,10 +599,12 @@ extern "C" int res_stack_forward(const float* x, const float* w_all, const int* 
   switch (NT) {
 #define CASE(nt) \
   case nt: \
-    return bf16 ? launch<Bf16, nt>(x, wpack, bn_scale, bn_offset, dense_w, dense_b, out, batch, C, H, W, L, \
-                                   n_labels, cluster, s) \
-                : launch<Tf32x3, nt>(x, wpack, bn_scale, bn_offset, dense_w, dense_b, out, batch, C, H, W, L, \
-                                     n_labels, cluster, s);
+    return mode == 2   ? launch<Bf16Act, nt>(x, wpack, bn_scale, bn_offset, dense_w, dense_b, out, batch, C, H, W, L, \
+                                             n_labels, cluster, s) \
+           : mode == 1 ? launch<Bf16, nt>(x, wpack, bn_scale, bn_offset, dense_w, dense_b, out, batch, C, H, W, L, \
+                                          n_labels, cluster, s) \
+                       : launch<Tf32x3, nt>(x, wpack, bn_scale, bn_offset, dense_w, dense_b, out, batch, C, H, W, L, \
+                                            n_labels, cluster, s);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
   }

@@ -1,12 +1,21 @@
 """Res-stack kernel: the eval-mode residual stack after conv0 + pool, mean and Dense.
 
 Hopper counterpart of ``honk_tpu/ops/res_kernel.py`` (Pallas
-``_res_stack_call`` / ``_make_kernel``, packer ``pack_res_params``), in both
-of its operand types (``compute_dtype``): float32, and bfloat16, the TPU
-kernel's default, where each conv's activations and weights and the Dense
-layer's features and weights are rounded to bf16 (to nearest even) and
-multiplied with f32 sums, while activations, the residual carry and BN
-stay f32. The CUDA source is ``csrc/res_stack.cu``; its header says what
+``_res_stack_call`` / ``_make_kernel``, packer ``pack_res_params``), in three
+modes (``MODES``, by ``compute_dtype`` and ``activation_dtype``):
+- ``float32``: the TPU kernel in float32;
+- ``bfloat16``: the TPU kernel's default operand type, where each conv's
+  activations and weights and the Dense layer's features and weights are
+  rounded to bf16 (to nearest even) and multiplied with f32 sums, while
+  activations, the residual carry and BN stay f32;
+- ``bfloat16_activations``: bf16 operands with flax's dtype flow, what the
+  JAX package computes for a bf16 model's eval forward through XLA
+  (``honk_tpu/models/res.py``, ``apply(train=False)``): each conv's f32 sum
+  rounded to bf16, ReLU, the residual add rounded to bf16 (the carry holds
+  bf16 values), the folded BN taken in f32 and rounded back to bf16, then
+  the mean over those values in f32 and a float32 Dense.
+
+The CUDA source is ``csrc/res_stack.cu``; its header says what
 bounds it on the card (the convolutions' products, on the tensor cores in
 3xTF32 or in bf16) and how the design meets that: a small kernel packs (and
 splits or rounds) the weights, then a thread block cluster per utterance,
@@ -22,10 +31,11 @@ and res26-narrow. res15's dilated convs are not covered, as on the TPU:
 ``res_stack`` is the wrapper: on CUDA tensors it launches the kernel in the
 mode asked for (or raises), on CPU tensors it runs ``res_stack_plain``, the
 same function as plain ``F.conv2d`` layers with the same BN folding and,
-in the bf16 mode, the same operands rounded to bf16 and the convs run in
+in the bf16 modes, the same operands rounded to bf16 and the convs run in
 f32 (a product of two bf16 values is exact in f32 and in TF32, so this is
-the kernel's arithmetic up to the order of f32 sums). ``launches`` counts
-kernel launches in either mode, ``launches_by_mode`` each mode's.
+the kernel's arithmetic up to the order of f32 sums), and the same
+roundings of the activations. ``launches`` counts kernel launches in every
+mode, ``launches_by_mode`` each mode's.
 """
 
 from __future__ import annotations
@@ -41,7 +51,10 @@ import torch.nn.functional as F
 from . import _build
 
 launches = 0
-MODES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}  # compute_dtype -> its name
+# (compute_dtype, activation_dtype) -> the mode's name, and its number in csrc/res_stack.cu.
+MODES = {(torch.float32, torch.float32): "float32", (torch.bfloat16, torch.float32): "bfloat16",
+         (torch.bfloat16, torch.bfloat16): "bfloat16_activations"}
+_MODE_ARG = {name: i for i, name in enumerate(MODES.values())}
 launches_by_mode = {name: 0 for name in MODES.values()}
 BN_EPS = 1e-5
 MAX_MAPS = 64
@@ -73,31 +86,38 @@ def fold_bn(model: torch.nn.Module) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(scales).contiguous(), torch.stack(offsets).contiguous()
 
 
-def _mode(compute_dtype: torch.dtype) -> str:
-    if compute_dtype not in MODES:
-        raise ValueError(f"res_stack's compute_dtype is torch.float32 or torch.bfloat16, not {compute_dtype}")
-    return MODES[compute_dtype]
+def _mode(compute_dtype: torch.dtype, activation_dtype: torch.dtype = torch.float32) -> str:
+    if (compute_dtype, activation_dtype) not in MODES:
+        raise ValueError(
+            "res_stack's (compute_dtype, activation_dtype) is one of "
+            f"{[(str(c), str(a)) for c, a in MODES]}, not ({compute_dtype}, {activation_dtype})")
+    return MODES[(compute_dtype, activation_dtype)]
 
 
 def round_operand(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """An operand as the kernel multiplies it: as it is, or rounded to bf16
-    (to nearest even) and held in ``t``'s dtype."""
+    """An operand as the kernel multiplies it (or an activation as the mode
+    keeps it): as it is, or rounded to bf16 (to nearest even) and held in
+    ``t``'s dtype."""
     return t if compute_dtype == torch.float32 else t.to(torch.bfloat16).to(t.dtype)
 
 
 @torch.no_grad()
-def pack_res_params(model: torch.nn.Module, dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
-    """Fold a res model's eval-mode weights into the kernel's operands.
+def pack_res_params(model: torch.nn.Module, dtype: torch.dtype = torch.float32,
+                    activation_dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
+    """Fold a res model's eval-mode weights into the kernel's operands for the
+    mode ``(dtype, activation_dtype)``.
 
     Returns ``(w_all (L, 9C, C), bn_scale (L, C), bn_offset (L, C),
     dense_w (C, n_labels), dense_b (n_labels,))`` float32 on the model's
     device. ``w_all`` is tap-major like the TPU packer's: row
     ``(dy*3 + dx)*C + ic``, column ``oc``. The BN fold is ``fold_bn``'s. For
-    ``dtype=torch.bfloat16`` the conv and Dense weights are the bf16 values
-    that mode multiplies (``round_operand``), still float32 tensors: the
-    kernel and ``res_stack_plain`` round them again, which changes nothing.
+    ``dtype=torch.bfloat16`` the conv weights, and in the ``bfloat16`` mode
+    the Dense weights, are the bf16 values that mode multiplies
+    (``round_operand``), still float32 tensors: the kernel and
+    ``res_stack_plain`` round them again, which changes nothing. The
+    ``bfloat16_activations`` mode keeps the Dense float32, as flax's.
     """
-    _mode(dtype)
+    mode = _mode(dtype, activation_dtype)
     w_all = torch.stack([
         getattr(model, f"conv{i}").weight.permute(2, 3, 1, 0).reshape(-1, model.n_maps)
         for i in range(1, model.n_layers + 1)
@@ -105,7 +125,7 @@ def pack_res_params(model: torch.nn.Module, dtype: torch.dtype = torch.float32) 
     return (
         round_operand(w_all, dtype).contiguous(),
         *fold_bn(model),
-        round_operand(model.output.weight.t(), dtype).contiguous(),
+        round_operand(model.output.weight.t(), torch.bfloat16 if mode == "bfloat16" else torch.float32).contiguous(),
         model.output.bias.detach().clone(),
     )
 
@@ -184,33 +204,56 @@ def cluster_size(B: int, C: int, H: int, W: int, n_sm: int = 132, dtype: torch.d
     return best[1]
 
 
-def res_stack_plain(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
-                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(B, C, H, W) pooled activation -> (B, n_labels) logits as plain PyTorch ops.
+def _fma(y: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """``fmaf(y, scale, offset)`` elementwise: the product of two float32 values is
+    exact in float64, so one rounding of the float64 sum to float32 is the
+    kernel's single rounding (a second rounding can differ from it only when
+    the float64 sum lies within 2^-53 of a float32 tie)."""
+    return (y.double() * scale.double() + offset.double()).float()
 
-    In the bf16 mode each conv's and the Dense layer's operands are rounded
-    to bf16 (``round_operand``) and multiplied in float32: only operands are
-    rounded, never a product, a sum or an activation (``F.conv2d`` on bf16
-    tensors would round its output too).
+
+def res_stack_plain(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
+                    compute_dtype: torch.dtype = torch.float32,
+                    activation_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, C, H, W) pooled activation -> (B, n_labels) logits as plain PyTorch ops,
+    in the mode ``(compute_dtype, activation_dtype)``.
+
+    In the bf16 modes each conv's operands are rounded to bf16
+    (``round_operand``) and multiplied in float32 (``F.conv2d`` on bf16
+    tensors would round its output too). In the ``bfloat16`` mode only
+    operands are rounded, the Dense layer's too, never a product, a sum or
+    an activation. In the ``bfloat16_activations`` mode each layer's conv
+    output, the residual sum and BN's output (``fmaf(y, scale, offset)``,
+    as the kernel takes it) are rounded to bf16, the mean is taken over
+    those values in float32 and the Dense multiplies float32 operands.
     """
+    mode = _mode(compute_dtype, activation_dtype)
     C = x.shape[1]
     old = x
     for i in range(w_all.shape[0]):
         w = w_all[i].reshape(3, 3, C, C).permute(3, 2, 0, 1)  # (out, in, kh, kw)
-        y = F.relu(F.conv2d(round_operand(x, compute_dtype), round_operand(w, compute_dtype), padding=1))
+        y = F.conv2d(round_operand(x, compute_dtype), round_operand(w, compute_dtype), padding=1)
+        y = F.relu(round_operand(y, activation_dtype))
         if (i + 1) % 2 == 0:
-            y = y + old
+            y = round_operand(y + old, activation_dtype)
             old = y
-        x = y * bn_scale[i, :, None, None] + bn_offset[i, :, None, None]
-    return round_operand(x.mean(dim=(2, 3)), compute_dtype) @ round_operand(dense_w, compute_dtype) + dense_b
+        scale, offset = bn_scale[i, :, None, None], bn_offset[i, :, None, None]
+        if mode == "bfloat16_activations":
+            x = round_operand(_fma(y, scale, offset), activation_dtype)
+        else:
+            x = y * scale + offset
+    dense_dtype = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    return round_operand(x.mean(dim=(2, 3)), dense_dtype) @ round_operand(dense_w, dense_dtype) + dense_b
 
 
 def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
-              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              compute_dtype: torch.dtype = torch.float32,
+              activation_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, C, H, W) f32 -> (B, n_labels) f32: the kernel on CUDA, plain on CPU,
-    with ``compute_dtype`` operands (float32 or bfloat16)."""
+    with ``compute_dtype`` operands and ``activation_dtype`` activations
+    (a mode of ``MODES``)."""
     args = (x, w_all, bn_scale, bn_offset, dense_w, dense_b)
-    _mode(compute_dtype)
+    _mode(compute_dtype, activation_dtype)
     B, C, H, W = x.shape if x.ndim == 4 else (0, 0, 0, 0)
     L = w_all.shape[0] if w_all.ndim == 3 else 0
     shapes_ok = (
@@ -229,10 +272,28 @@ def res_stack(x, w_all, bn_scale, bn_offset, dense_w, dense_b,
         raise ValueError("res_stack takes contiguous float32 tensors on one device")
     cluster_size(B, C, H, W, dtype=compute_dtype)  # the same maps are refused on every device
     if x.device.type == "cpu":
-        return res_stack_plain(*args, compute_dtype=compute_dtype)
+        return res_stack_plain(*args, compute_dtype=compute_dtype, activation_dtype=activation_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"res_stack runs on cuda or cpu tensors, not {x.device}")
-    return _launch(*args, compute_dtype=compute_dtype)
+    return _launch(*args, compute_dtype=compute_dtype, activation_dtype=activation_dtype)
+
+
+@torch.no_grad()
+def res_forward_fused(model: torch.nn.Module, feats: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None,
+                      compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The TPU kernel's fused inference forward for a res8 / res26 model
+    (``honk_tpu/ops/res_kernel.py::res_forward_fused``): (B, 101, 40) MFCC ->
+    (B, n_labels) logits, conv0, ReLU and the pool in float32
+    (``model.stem``), then the kernel with ``compute_dtype`` operands and
+    float32 activations (bf16 by default, as the TPU's: the ``bfloat16``
+    mode). ``packed`` is ``pack_res_params(model, compute_dtype)``, computed
+    if None. A bf16 model's eval forward, ``model(feats)``, is flax's flow
+    instead (the ``bfloat16_activations`` mode)."""
+    if model.dilated:
+        raise ValueError("res_forward_fused takes res8 / res26 geometries; dilated res15 runs its eval forward")
+    if packed is None:
+        packed = pack_res_params(model, compute_dtype)
+    return res_stack(model.stem(feats), *packed, compute_dtype=compute_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,11 +311,11 @@ def geometry(x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> dic
 
 
 def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, compute_dtype: torch.dtype = torch.float32,
-            cluster: int | None = None) -> torch.Tensor:
+            activation_dtype: torch.dtype = torch.float32, cluster: int | None = None) -> torch.Tensor:
     """The kernel on checked CUDA operands; ``cluster`` overrides the
     wrapper's choice (scripts/probe_torch_res_stack.py compares them)."""
     global launches
-    mode = _mode(compute_dtype)
+    mode = _mode(compute_dtype, activation_dtype)
     lib = _build.load("res_stack")
     fn = lib.res_stack_forward
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -266,7 +327,7 @@ def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, compute_dtype: torc
     nt, kt = -(-C // 8), -(-C // 16)
     # The B tiles, in floats: (L, 9 taps, NT K chunks, big and small, NT * 64)
     # split for 3xTF32, or (L, 9 taps, KT K chunks, NT * 128 bf16).
-    n_floats = L * 9 * (kt * nt * 64 if mode == "bfloat16" else nt * nt * 128)
+    n_floats = L * 9 * (kt * nt * 64 if compute_dtype == torch.bfloat16 else nt * nt * 128)
     wpack = torch.empty(n_floats, dtype=torch.float32, device=x.device)
     out = torch.empty((B, n_labels), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -274,7 +335,7 @@ def _launch(x, w_all, bn_scale, bn_offset, dense_w, dense_b, compute_dtype: torc
         err = fn(
             x.data_ptr(), w_all.data_ptr(), idx.data_ptr(), bn_scale.data_ptr(),
             bn_offset.data_ptr(), dense_w.data_ptr(), dense_b.data_ptr(), out.data_ptr(),
-            wpack.data_ptr(), B, C, H, W, L, n_labels, cs, int(mode == "bfloat16"), stream,
+            wpack.data_ptr(), B, C, H, W, L, n_labels, cs, _MODE_ARG[mode], stream,
         )
     _build.check(err, "res_stack")
     launches += 1

@@ -10,7 +10,8 @@ run the MFCC kernel and the model's eval forward (res8 / res26: the
 res-stack kernel) on fixed-size batches, with the model's eval operands
 (``model.eval_operands()``) prepared once per sweep. The eval forward
 follows the model's dtype, so a training run's sweeps of its bf16 model
-are bf16, as the JAX package's. Every model trains
+are bf16 in flax's dtype flow (res8 / res26: the kernel's
+``bfloat16_activations`` mode), as the JAX package's. Every model trains
 and evaluates through the same calls; a model without BN (cnn-*) has no
 running statistics to update, as the JAX step's ``has_bn``.
 
@@ -178,7 +179,7 @@ def make_eval_step() -> Callable:
 
 def make_forward() -> Callable:
     """``forward(model, audio (B, 16000) f32) -> logits``: the eval forward on raw audio,
-    in the model's dtype (a bf16 model: bf16 operands, as the JAX
+    in the model's dtype (a bf16 model: flax's bf16 dtype flow, as the JAX
     ``make_forward`` of a bf16 model; the frontend is the one float32 MFCC
     kernel, see ``compute_mfccs``)."""
 

@@ -102,7 +102,7 @@ def main() -> int:
                             "max_abs_err_vs_plain": float((got - plain).abs().max()),
                             "argmax_equal_plain": float((got.argmax(-1) == plain.argmax(-1)).float().mean()),
                         }
-                    print(json.dumps({"model": conf, "mode": R.MODES[dtype], "batch": b,
+                    print(json.dumps({"model": conf, "mode": R.MODES[(dtype, torch.float32)], "batch": b,
                                       "wrapper_cluster": R.cluster_size(b, C, H, W, n_sm, dtype),
                                       "by_cluster": by_cluster, "plain_f32_max_abs_err_vs_f64": plain_err}))
     return 0
