@@ -216,6 +216,15 @@ and the recipe's accuracy (right after phase 30, on phase 14's corpus):
     res15 must beat res8 (McNemar z > 0); prints both accuracies, the z,
     the paired z against the committed vectors and each model's wall time.
 
+and the scaling harness (right after phase 33):
+
+35. python -m honk_tpu_torch.cli.scaling 1 on the card (scripts/scaling_bench.py's
+    harness: res8 float32, 128 utterances a step, scans of 20 and 80 steps
+    timed twice after one untimed run of each): its row has scaling_bench's
+    keys and a finite step time, printed beside phase 11's float32 step at
+    B=64; the assembly and MFCC kernels launched exactly once a step and the
+    res stack never. Two and four cards: scripts/chip_train_nccl.py.
+
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
@@ -2742,6 +2751,36 @@ def phase_recipe(torch, counters, root, tmp, smi, seed: int = 0, compute_dtype: 
     return out
 
 
+SCALING_KEYS = ["n_devices", "global_batch", "step_ms", "audio_s_per_s", "scaling_efficiency_vs_1"]
+
+
+def phase_scaling(torch, counters, step_times, smi) -> dict:
+    """35. ``python -m honk_tpu_torch.cli.scaling 1`` on the card: scaling_bench's row, launches exact
+    (assembly and MFCC once a step, no res stack), its step beside phase 11's float32 step at B=64."""
+    from honk_tpu_torch.cli import scaling
+
+    knobs = scaling.settings(torch.device("cuda"))
+    steps = (1 + scaling.REPS) * (knobs["scan_short"] + knobs["scan_long"])
+    reset(counters)
+    t0 = time.perf_counter()
+    rc, out = run_cli(scaling.main, ["1"])
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    if rc != 0 or len(rows) != 1 or list(rows[0]) != SCALING_KEYS or rows[0]["n_devices"] != 1:
+        fail(f"cli.scaling 1 returned {rc}, printed {out!r}: expected one row with scaling_bench's keys")
+    row = rows[0]
+    if not (math.isfinite(row["step_ms"]) and row["step_ms"] > 0 and row["scaling_efficiency_vs_1"] == 1.0):
+        fail(f"cli.scaling 1: {row}")
+    if launches != {"assemble": steps, "mfcc": steps, "res_stack": 0}:
+        fail(f"cli.scaling 1 launched {launches}: expected {steps} assemble and mfcc, no res stack")
+    f32 = step_times["float32"]
+    result = {"row": row, "knobs": knobs, "launches": launches, "wall_s": wall, "host_cores": os.cpu_count(),
+              "phase11_f32_step_b64": {"cuda_event_ms": f32["step"], "host_ms": f32["step_wall"]}}
+    print(f"[scaling] {smi}: " + json.dumps(result))
+    return result
+
+
 def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
     """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
     from zoo/res8/best on the card against the .pt service's answers; if not,
@@ -2961,6 +3000,8 @@ def main() -> int:
                                                                  arrays, aug)
         # 33. The bf16 train step: flax's dtype flow on cuda and on the CPU, the bf16 pool bitwise.
         bf16_train = phase_bf16_train(torch, dev, A, step_times, smi)
+        # 35. The scaling harness at one card, beside phase 11's step.
+        scaling = phase_scaling(torch, counters, step_times, smi)
 
         # 25-27. Data parallel at world size 1 on NCCL, each kernel on a rank's rows, --profile-dir.
         t0 = time.perf_counter()
@@ -3058,6 +3099,7 @@ def main() -> int:
         **{f"recipe_build_{c}": m["launches"] for c, m in recipe["models"].items()},
         "recipe_compare": recipe["compare_launches"],
         "stream_hub_push_bin_res8_data_axis_nccl_world1": hub_ranks["launches"],
+        "scaling_1": scaling["launches"],
     }
     by_path = {p: v for p, v in by_path.items() if v is not None}
     res_modes = {p: v.by_mode for p, v in by_path.items()}  # the res stack's launches by mode, as read on each path
@@ -3127,7 +3169,7 @@ def main() -> int:
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
                       "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
-                      "recipe": recipe}))
+                      "recipe": recipe, "scaling": scaling}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

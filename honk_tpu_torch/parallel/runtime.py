@@ -13,11 +13,14 @@ Launch, one process per device:
 or let ``--n_devices N`` start N local ranks over 127.0.0.1.
 
 A process group that fails to initialise raises: a rank never runs alone
-in place of a group it was asked to join.
+in place of a group it was asked to join. A collective that waits longer
+than ``GROUP_TIMEOUT`` for the other ranks fails the group (NCCL's
+watchdog, gloo's timeout), where NCCL's default would wait ten minutes.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 import subprocess
@@ -26,6 +29,13 @@ import time
 
 import torch
 import torch.distributed as dist
+
+# Longer than any wait of a healthy rank for the others (a rank's first kernel
+# build, rank 0's checkpoint write); also the store's timeout.
+GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+# How long the launcher waits for the ranks it killed to be gone.
+EXIT_WAIT_S = 60
+_PF_EXITING = 0x4  # the flag of a process that has begun to exit (/proc/<pid>/stat)
 
 
 def initialize_distributed(
@@ -53,6 +63,7 @@ def initialize_distributed(
         init_method=f"tcp://{coordinator_address}",
         world_size=num_processes,
         rank=process_id,
+        timeout=GROUP_TIMEOUT,
     )
 
 
@@ -100,14 +111,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _exit_status(pid: int) -> int | None:
+    """The status (waitpid's form) of a process that has begun to exit, None while it runs.
+
+    Linux sets it as the process starts to exit, where ``waitpid`` reports
+    the process only once it has finished exiting, which a CUDA process
+    can take long to do.
+    """
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return int(fields[49]) if int(fields[6]) & _PF_EXITING else None
+    except (OSError, IndexError, ValueError):  # gone, or a kernel without the field
+        return None
+
+
 def launch_local_ranks(module: str, argv: list[str], n: int) -> int:
     """Run ``python -m <module> <argv>`` as ``n`` ranks over 127.0.0.1 and wait for them all.
 
     Each rank is a child process with the same arguments plus
     ``--coordinator``, ``--num-processes`` and its own ``--process-id``; their
-    output goes to this process's. If one fails, the others are killed (they
-    would wait in a collective for it). Returns the first non-zero exit
-    code, or 0.
+    output goes to this process's. If one fails, or begins to exit with a
+    non-zero status, the others are killed (they would wait in a collective
+    for it), and the launcher waits up to EXIT_WAIT_S for them all. Returns
+    the first non-zero exit code (1 for a rank still exiting), or 0.
     """
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
@@ -118,14 +145,21 @@ def launch_local_ranks(module: str, argv: list[str], n: int) -> int:
     procs = [subprocess.Popen([sys.executable, "-m", module, *argv, "--coordinator", coord,
                                "--num-processes", str(n), "--process-id", str(i)], env=env)
              for i in range(n)]
+    failed = False
     try:
-        while any(proc.poll() is None for proc in procs):
-            if any(proc.returncode for proc in procs):
-                break
+        while not failed and any(proc.poll() is None for proc in procs):
+            failed = any(proc.returncode or (proc.returncode is None and _exit_status(proc.pid))
+                         for proc in procs)
             time.sleep(0.1)
     finally:
         for proc in procs:  # exact child PIDs only
             if proc.poll() is None:
                 proc.kill()
-            proc.wait()
-    return next((proc.returncode for proc in procs if proc.returncode), 0)
+        deadline = time.monotonic() + EXIT_WAIT_S
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                print(f"launch_local_ranks: rank process {proc.pid} had not exited {EXIT_WAIT_S} s after it was "
+                      "killed", file=sys.stderr)
+    return next((proc.returncode for proc in procs if proc.returncode), 1 if failed else 0)

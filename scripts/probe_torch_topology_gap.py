@@ -14,6 +14,11 @@ dtype:
 - the JAX package (``honk_tpu.train.train``, in this process, with 8
   virtual CPU devices): 4 epochs on one device and on two.
 
+``--full_width`` runs only the JAX package, float32, on chip_smoke.py
+phase 10's corpus and recipe at res8's full width (``torch_resume.FULL_CORPUS``
+and ``FULL_RECIPE``, the float32 runs of ``scripts/chip_train_nccl.py``):
+2 epochs on 1, 2 and 4 devices, and prints the 1-vs-2 and 1-vs-4 gaps.
+
 ``--seed`` is the runs' seed, as both training CLIs' ``--seed`` (the
 initial weights, the batches and the split's draws; each package draws
 its own from it). ``--xla_flags`` adds XLA
@@ -68,18 +73,31 @@ def probe(hashseed: str, dtypes: list[str], tmp: str, seed: int = 0) -> dict:
     return out
 
 
+def probe_full_width(hashseed: str, tmp: str) -> dict:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    data = os.path.join(tmp, "sc")
+    R.write_corpus(data, hashseed, rank_env(), TIMEOUT, R.FULL_CORPUS)
+    w = {n: R.jax_weights(data, "float32", n, full_width=True) for n in (1, 2, 4)}
+    return {"hashseed": hashseed, "jax_1_vs_2_devices": R.max_gap(w[1], w[2]),
+            "jax_1_vs_4_devices": R.max_gap(w[1], w[4])}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--hashseed", default="0", help="PYTHONHASHSEED of the process that writes the corpus")
     p.add_argument("--seed", type=int, default=0, help="the runs' training seed")
     p.add_argument("--dtypes", nargs="+", default=["bfloat16", "float32"])
+    p.add_argument("--full_width", action="store_true", help="JAX's float32 gaps at phase 10's full-width recipe")
     p.add_argument("--xla_flags", default="", help="more XLA flags for the JAX runs, e.g. "
                    "--xla_allow_excess_precision=false")
     args = p.parse_args()
     # Before JAX starts; the port's ranks drop XLA_FLAGS (torch_ranks.rank_env).
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count=8 {args.xla_flags}"
     with tempfile.TemporaryDirectory() as tmp:
-        print(json.dumps(probe(args.hashseed, args.dtypes, tmp, args.seed)))
+        print(json.dumps(probe_full_width(args.hashseed, tmp) if args.full_width
+                         else probe(args.hashseed, args.dtypes, tmp, args.seed)))
     return 0
 
 

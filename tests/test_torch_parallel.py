@@ -67,9 +67,6 @@ JAX_LOSS_ATOL = 1e-5
 JAX_PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
 STREAM_RANKS_ATOL = 1e-6
 SMOOTH_ATOL = 1e-4
-# Twice the largest JAX 1-vs-2-device gap of the resume recipe, float32, over
-# the corpora of hash seeds 0-4 (scripts/probe_torch_topology_gap.py).
-TOPOLOGY_GAP_F32 = 2 * 3.8933753967285156e-3
 
 
 def _jax_draws(key, n, cfg, n_noise, batch):
@@ -362,7 +359,7 @@ def test_checkpoints_resume_across_one_and_two_ranks(resumed_float32):
     """1 -> 2 ranks and 2 -> 1, through the CLI: the resumed run continues where the other stopped.
 
     float32. The two resumed runs, and the two uninterrupted topologies,
-    part no further than TOPOLOGY_GAP_F32: twice the largest of the JAX
+    part no further than ``torch_resume.TOPOLOGY_GAP_F32``: twice the largest of the JAX
     package's own 1-vs-2-device gaps on this recipe over the corpora of
     hash seeds 0-4 (``scripts/probe_torch_topology_gap.py``). Reassociated
     sums grow over 4 epochs into noise of no steady size, so one corpus's
@@ -374,7 +371,7 @@ def test_checkpoints_resume_across_one_and_two_ranks(resumed_float32):
     w = {n: R.port_weights(r["state"][n]) for n in ("1to2", "2to1", "whole1", "whole2")}
     for a, b in (("1to2", "2to1"), ("whole1", "whole2")):
         gap = R.max_gap(w[a], w[b])
-        assert gap <= TOPOLOGY_GAP_F32, f"{a} and {b} {gap:.6g} apart; the limit {TOPOLOGY_GAP_F32:.6g}"
+        assert gap <= R.TOPOLOGY_GAP_F32, f"{a} and {b} {gap:.6g} apart; the limit {R.TOPOLOGY_GAP_F32:.6g}"
 
 
 def test_bf16_checkpoints_resume_across_one_and_two_ranks(resumed_bfloat16):

@@ -22,6 +22,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def child_pids(pid: int) -> dict[int, str]:
+    """The live child processes of ``pid`` (Linux ``/proc``): each one's command line, its arguments
+    joined by spaces."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == pid:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    out[int(entry)] = f.read().replace(b"\0", b" ").decode().strip()
+        except (FileNotFoundError, ProcessLookupError, IndexError, ValueError):
+            continue  # it exited while we looked
+    return out
+
+
 def rank_env() -> dict:
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
