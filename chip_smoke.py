@@ -225,6 +225,24 @@ and the scaling harness (right after phase 33):
     B=64; the assembly and MFCC kernels launched exactly once a step and the
     res stack never. Two and four cards: scripts/chip_train_nccl.py.
 
+and the measuring tools (right after phase 35, each printing its JSON line):
+
+36. honk_tpu_torch.graft_entry.entry() (__graft_entry__.py's res8 float32
+    raw-audio -> logits forward): its logits on the card against the same
+    entry on the CPU within 2e-4; one MFCC and one float32 res-stack launch;
+37. python -m honk_tpu_torch.cli.bench (bench.py) at BENCH_REPS=3 and scans
+    of 8 / 32 train links (16 / 64 inference links): bench.py's keys, both
+    rates finite and positive, suspect false, and exact launches per link:
+    an inference link one MFCC and one res stack in its bf16-activation mode,
+    a train link one assembly and one MFCC;
+38. python -m honk_tpu_torch.cli.bench_stream (scripts/bench_stream.py) at
+    256 streams of 3200 samples: its keys, a finite step, one causal MFCC
+    and one bf16-activation res stack a step;
+39. python -m honk_tpu_torch.cli.bench_serve (scripts/bench_http_serve.py)
+    for 10 s at 64 slots and 4 gateways on push_bin: its keys, every push
+    answered, and one MFCC and one float32 res stack per slab dispatch (the
+    device-only reference's 53 and the hub's).
+
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
@@ -245,6 +263,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from unittest import mock
 
 import numpy as np
 
@@ -2781,6 +2800,109 @@ def phase_scaling(torch, counters, step_times, smi) -> dict:
     return result
 
 
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "infer_audio_s_per_s", "train_audio_s_per_s",
+              "infer_spread", "train_spread", "batch", "scan_lens", "infer_scan_lens", "model", "device",
+              "implied_tflops", "suspect"]
+STREAM_KEYS = ["model", "n_streams", "chunk_samples", "step_ms", "audio_s_per_s", "realtime_streams_capacity",
+               "device"]
+SERVE_KEYS = ["metric", "value", "unit", "device_only_streams", "host_share", "payload", "pipelined", "inflight",
+              "wire_dtype", "coalesce_ms", "dispatches", "chunks_per_dispatch", "slots", "gateways",
+              "chunk_samples", "seconds", "total_chunks", "model", "checkpoint", "device", "note"]
+BENCH_SMOKE = {"BENCH_REPS": "3", "BENCH_SCAN_SHORT": "8", "BENCH_SCAN_LONG": "32"}  # phase 37's knobs
+SERVE_SMOKE_S = 10
+
+
+def tool_row(what: str, rc: int, out: str, keys: list) -> dict:
+    """A tool's one JSON line, which must carry exactly the reference tool's keys."""
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    if rc != 0 or len(rows) != 1 or list(rows[0]) != keys:
+        fail(f"{what} returned {rc}, printed {out[-2000:]!r}: expected one line with the reference's keys")
+    return rows[0]
+
+
+def phase_tools(torch, counters, smi) -> dict:
+    """36-39. The measuring tools on the card, each with its launches counted from 0."""
+    from honk_tpu_torch import graft_entry
+    from honk_tpu_torch.cli import bench, bench_serve, bench_stream
+
+    name = torch.cuda.get_device_name(0)
+    out = {}
+    # 36. entry(): the res8 float32 forward, cuda against the CPU.
+    fn, (model, audio) = graft_entry.entry()
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    reset(counters)
+    got = fn(model, audio)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    err = max_err(got.cpu(), cpu_fn(*cpu_args))
+    if got.shape != (8, 12) or not torch.isfinite(got).all() or err > LOGIT_ATOL:
+        fail(f"entry(): shape {tuple(got.shape)}, max abs err against the CPU {err:.3e} (gate {LOGIT_ATOL})")
+    if launches != {"mfcc": 1, "res_stack": 1, "assemble": 0} or launches.by_mode["float32"] != 1:
+        fail(f"entry() launched {launches} ({launches.by_mode}): expected one MFCC and one float32 res stack")
+    out["entry"] = {"max_abs_err": err, "launches": launches, "by_mode": launches.by_mode}
+    print(f"[entry] {smi}: " + json.dumps(out["entry"]))
+    del fn, model, audio
+
+    # 37. cli.bench at shortened knobs.
+    with mock.patch.dict(os.environ, BENCH_SMOKE):
+        knobs = bench.settings()
+        reset(counters)
+        t0 = time.perf_counter()
+        rc, text = run_cli(bench.main, [])
+        wall = time.perf_counter() - t0
+        launches = read(counters, bf16=True)
+    torch.cuda.empty_cache()  # the 2,048-clip pool and the corpus go before the next phase
+    row = tool_row("cli.bench", rc, text, BENCH_KEYS)
+    (ts, tl), (i_s, i_l), reps = knobs["scan_lens"], knobs["infer_scan_lens"], knobs["reps"]
+    infer_links, train_links = (1 + reps) * (i_s + i_l), (1 + reps) * (ts + tl)
+    rates = (row["infer_audio_s_per_s"], row["train_audio_s_per_s"])
+    if not all(math.isfinite(r) and r > 0 for r in rates) or row["suspect"] or row["device"] != name:
+        fail(f"cli.bench: {row}")
+    want = {"mfcc": infer_links + train_links, "res_stack": infer_links, "assemble": train_links}
+    if launches != want or launches.by_mode != bf16_eval_modes(infer_links):
+        fail(f"cli.bench launched {launches} ({launches.by_mode}) over {infer_links} inference and {train_links} "
+             f"train links: expected {want}, the res stack in its bf16-activation mode only")
+    out["bench"] = {"row": row, "launches": launches, "by_mode": launches.by_mode, "infer_links": infer_links,
+                    "train_links": train_links, "wall_s": wall}
+    print(f"[bench] {smi}: " + json.dumps(out["bench"]))
+
+    # 38. cli.bench_stream at 256 streams.
+    knobs = bench_stream.settings()
+    reset(counters)
+    t0 = time.perf_counter()
+    rc, text = run_cli(bench_stream.main, [])
+    wall = time.perf_counter() - t0
+    launches = read(counters, bf16=True)
+    row = tool_row("cli.bench_stream", rc, text, STREAM_KEYS)
+    ls, ll = bench_stream.CHAINS
+    steps = (1 + knobs["reps"]) * (ls + ll)
+    if row["n_streams"] != 256 or not (math.isfinite(row["step_ms"]) and row["step_ms"] > 0):
+        fail(f"cli.bench_stream: {row}")
+    if launches != {"mfcc": steps, "res_stack": steps, "assemble": 0} or launches.by_mode != bf16_eval_modes(steps):
+        fail(f"cli.bench_stream launched {launches} ({launches.by_mode}) over {steps} steps: expected one causal "
+             "MFCC and one bf16-activation res stack a step")
+    out["bench_stream"] = {"row": row, "launches": launches, "by_mode": launches.by_mode, "steps": steps,
+                           "wall_s": wall}
+    print(f"[bench_stream] {smi}: " + json.dumps(out["bench_stream"]))
+
+    # 39. cli.bench_serve for SERVE_SMOKE_S at 64 slots and 4 gateways.
+    reset(counters)
+    t0 = time.perf_counter()
+    rc, text = run_cli(bench_serve.main, ["--seconds", str(SERVE_SMOKE_S), "--checkpoint",
+                                          os.path.join(HARD_V2, "res8.pt")])
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    row = tool_row("cli.bench_serve", rc, text, SERVE_KEYS)
+    n = 3 + bench_serve.DEVICE_ITERS + row["dispatches"]  # the device-only loop's steps, then the hub's
+    if row["slots"] != 64 or row["gateways"] != 4 or row["total_chunks"] <= 0 or row["total_chunks"] % 16:
+        fail(f"cli.bench_serve: {row}")
+    if launches != {"mfcc": n, "res_stack": n, "assemble": 0}:
+        fail(f"cli.bench_serve launched {launches}: expected {n} MFCC and float32 res stack, one a slab step")
+    out["bench_serve"] = {"row": row, "launches": launches, "by_mode": launches.by_mode, "wall_s": wall}
+    print(f"[bench_serve] {smi}: " + json.dumps(out["bench_serve"]))
+    return out
+
+
 def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
     """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
     from zoo/res8/best on the card against the .pt service's answers; if not,
@@ -3002,6 +3124,10 @@ def main() -> int:
         bf16_train = phase_bf16_train(torch, dev, A, step_times, smi)
         # 35. The scaling harness at one card, beside phase 11's step.
         scaling = phase_scaling(torch, counters, step_times, smi)
+        # 36-39. The measuring tools: entry(), cli.bench, cli.bench_stream, cli.bench_serve.
+        t0 = time.perf_counter()
+        tools = phase_tools(torch, counters, smi)
+        print(f"[tools] phases 36-39 took {time.perf_counter() - t0:.1f} s")
 
         # 25-27. Data parallel at world size 1 on NCCL, each kernel on a rank's rows, --profile-dir.
         t0 = time.perf_counter()
@@ -3100,6 +3226,7 @@ def main() -> int:
         "recipe_compare": recipe["compare_launches"],
         "stream_hub_push_bin_res8_data_axis_nccl_world1": hub_ranks["launches"],
         "scaling_1": scaling["launches"],
+        **{f"tool_{k}": v["launches"] for k, v in tools.items()},
     }
     by_path = {p: v for p, v in by_path.items() if v is not None}
     res_modes = {p: v.by_mode for p, v in by_path.items()}  # the res stack's launches by mode, as read on each path
@@ -3169,7 +3296,7 @@ def main() -> int:
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
                       "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
-                      "recipe": recipe, "scaling": scaling}))
+                      "recipe": recipe, "scaling": scaling, "tools": tools}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

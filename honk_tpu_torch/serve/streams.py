@@ -245,6 +245,12 @@ class StreamHub:
         self.hop_s = chunk_samples / F.SAMPLE_RATE
         self._shift = self.hop_s - WINDOW_FRAMES * HOP / F.SAMPLE_RATE
 
+    @property
+    def dispatches(self) -> int:
+        """Slab steps dispatched so far (each advances every session of its tick)."""
+        with self._lock:
+            return self._next_seq
+
     def _on_stream(self):
         """The hub's one CUDA stream for the calling thread (nothing on the CPU)."""
         return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()

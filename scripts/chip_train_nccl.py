@@ -58,9 +58,15 @@ cards' name and power limit, then one JSON line of the readings, and exits
    not gated. A seed starts only while the section is inside
    ``--gap_budget_s``.
 7. ``dead``: ``cli.train --n_devices 2`` (bf16, phase 10's corpus). Once
-   rank 0 has logged its first epoch, rank 1 is killed (SIGKILL). The
-   launcher must return non-zero within ``DEAD_RANK_S``, with no rank
-   process left.
+   rank 0 has logged its first epoch, rank 1 is killed (SIGKILL): as it
+   runs, and, in the other ``DEAD_RUNS`` runs, while it waits for rank 0 in
+   a collective (rank 0 stopped for ``STOP_S``, continued a second after
+   the kill). Each time the launcher must return non-zero within
+   ``HEARTBEAT_TIMEOUT_S + EXIT_WAIT_S`` of ``parallel.runtime``, with no
+   rank process left. Prints what the victim's ``/proc`` held
+   ``PROC_READ_S`` after the kill while it was still there (its state,
+   pending signals, ``wchan``, ``stack``, each thread's state) and
+   ``nvidia-smi``'s compute processes.
 
 Imports nothing of JAX. Its default worlds need four cards of one host.
 """
@@ -69,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -86,9 +93,12 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 import chip_smoke as C  # noqa: E402
 
 SECTIONS = ("steps", "f32", "bf16", "dryrun", "scaling", "gap", "dead")
-# The launcher sees a rank begin to exit at once, kills the others and waits
-# up to parallel.runtime.EXIT_WAIT_S (60 s) for them to be gone.
-DEAD_RANK_S = 70
+# A killed rank stops beating at once; the launcher sees it silent after
+# parallel.runtime.HEARTBEAT_TIMEOUT_S, kills the others and waits up to
+# EXIT_WAIT_S for them to be gone.
+PROC_READ_S = (2.0, 20.0)  # when the victim's /proc is read, seconds after the kill
+STOP_S = 3.0  # how long rank 0 is stopped before rank 1 is killed in a collective
+DEAD_RUNS = 2  # runs of each way to kill (the hang of PR 12 came in some runs, not in others)
 RUN_TIMEOUT_S = 180  # a rank group or CLI run of this script's small recipes
 RECIPE_TIMEOUT_S = 900  # a zoo_hard_v2 recipe run
 # tests/test_parallel.py::test_dp_matches_single_device's gate on 2 steps (lr
@@ -518,18 +528,50 @@ def section_gap(checks: Checks, seeds: list[str], budget_s: float, worlds: list[
     return out
 
 
-def section_dead(checks: Checks, corpus: str, device: str, tmp: str) -> dict:
-    """7. A 2-rank cli.train whose rank 1 is killed after rank 0's first epoch ends, leaving no rank."""
-    from torch_ranks import child_pids
+def victim_proc(pid: int) -> dict:
+    """What ``/proc/<pid>`` says of a process: its status lines, wchan, kernel stack and each thread's state."""
 
+    def read(path: str) -> str | None:
+        try:
+            with open(path) as f:
+                return f.read().strip()
+        except OSError as e:
+            return f"unreadable: {e.strerror}"
+
+    status = read(f"/proc/{pid}/status") or ""
+    out = {k: v.strip() for k, _, v in (line.partition(":") for line in status.splitlines())
+           if k in ("State", "Threads", "SigPnd", "ShdPnd", "SigBlk", "SigIgn")}
+    out["wchan"] = read(f"/proc/{pid}/wchan")
+    out["stack"] = read(f"/proc/{pid}/stack")
+    threads = {}
+    try:
+        for tid in sorted(os.listdir(f"/proc/{pid}/task")):
+            stat = read(f"/proc/{pid}/task/{tid}/stat") or ""
+            fields = stat.rsplit(")", 1)[-1].split()
+            threads[tid] = {"name": stat[stat.find("(") + 1:stat.rfind(")")], "state": fields[0] if fields else None,
+                            "wchan": read(f"/proc/{pid}/task/{tid}/wchan")}
+    except OSError as e:
+        threads = {"error": e.strerror}
+    out["threads"] = threads
+    return out
+
+
+def dead_run(checks: Checks, corpus: str, device: str, tmp: str, name: str, in_collective: bool) -> dict:
+    """One 2-rank cli.train whose rank 1 is SIGKILLed once rank 0 has logged its first epoch; with
+    ``in_collective``, while rank 0 is stopped (SIGSTOP for STOP_S, rank 1 then waits for it in a
+    collective), rank 0 continued a second after the kill."""
+    from torch_ranks import child_pids
+    from honk_tpu_torch.parallel.runtime import EXIT_WAIT_S, HEARTBEAT_TIMEOUT_S
+
+    limit_s = HEARTBEAT_TIMEOUT_S + EXIT_WAIT_S
     cmd = [sys.executable, "-m", "honk_tpu_torch.cli.train", "--type", "train", "--model", "res8", "--batch_size",
            str(C.TRAIN_BATCH), "--n_epochs", "20", "--dev_every", "1", "--data_dir", corpus, "--output_dir",
-           os.path.join(tmp, "dead"), "--n_devices", "2", "--device", device]
+           os.path.join(tmp, f"dead_{name}"), "--n_devices", "2", "--device", device]
     proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    watchdog = threading.Timer(RUN_TIMEOUT_S + DEAD_RANK_S, proc.kill)
+    watchdog = threading.Timer(RUN_TIMEOUT_S + limit_s, proc.kill)
     watchdog.start()
-    log, ranks, took, gone = [], {}, None, {}
+    log, ranks, took, gone, victim, reads = [], {}, None, {}, [], {}
     try:
         for line in proc.stdout:
             log.append(line)
@@ -537,25 +579,41 @@ def section_dead(checks: Checks, corpus: str, device: str, tmp: str) -> dict:
                 break
         ranks = child_pids(proc.pid)
         victim = [pid for pid, c in ranks.items() if c.endswith("--process-id 1")]
-        if checks.require(len(ranks) == 2 and len(victim) == 1, f"dead: the launcher's ranks {ranks}"):
+        peer = [pid for pid in ranks if pid not in victim]
+        if checks.require(len(ranks) == 2 and len(victim) == 1, f"dead {name}: the launcher's ranks {ranks}"):
+            if in_collective:
+                os.kill(peer[0], signal.SIGSTOP)
+                time.sleep(STOP_S)
             t0 = time.perf_counter()
-            os.kill(victim[0], signal.SIGKILL)
 
-            def sample():  # when each rank's process left, seconds after the kill
+            def sample():  # when each rank's process left, and the victim's /proc at PROC_READ_S
+                due = list(PROC_READ_S)
                 while proc.poll() is None and len(gone) < len(ranks):
+                    now = time.perf_counter() - t0
                     for pid in ranks:
                         if pid not in gone and not os.path.exists(f"/proc/{pid}"):
-                            gone[pid] = time.perf_counter() - t0
+                            gone[pid] = now
+                    if due and now >= due[0] and victim[0] not in gone:
+                        reads[f"{due.pop(0)}s"] = victim_proc(victim[0])
+                        if device == "cuda":
+                            reads["nvidia_smi_apps"] = subprocess.run(
+                                ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv"],
+                                capture_output=True, text=True, timeout=30).stdout.strip()
                     time.sleep(0.05)
 
             sampler = threading.Thread(target=sample, daemon=True)
+            os.kill(victim[0], signal.SIGKILL)
             sampler.start()
+            if in_collective:
+                time.sleep(1.0)
+                with contextlib.suppress(ProcessLookupError):  # the launcher may have killed it already
+                    os.kill(peer[0], signal.SIGCONT)
             try:
-                log.append(proc.communicate(timeout=DEAD_RANK_S)[0])
+                log.append(proc.communicate(timeout=limit_s)[0])
                 took = time.perf_counter() - t0
             except subprocess.TimeoutExpired:
-                log.append(f"[the launcher had not returned {DEAD_RANK_S} s after the kill]")
-            sampler.join(timeout=5)
+                log.append(f"[the launcher had not returned {limit_s} s after the kill]")
+            sampler.join(timeout=35)
     finally:
         watchdog.cancel()
         if proc.poll() is None:
@@ -565,11 +623,19 @@ def section_dead(checks: Checks, corpus: str, device: str, tmp: str) -> dict:
             proc.communicate()
     left = [pid for pid in ranks if os.path.exists(f"/proc/{pid}")]
     out = {"rc": proc.returncode, "s_to_exit": took, "ranks": list(ranks), "victim": victim,
-           "rank_gone_s": {str(pid): gone.get(pid) for pid in ranks}, "left": left, "limit_s": DEAD_RANK_S}
-    checks.require(proc.returncode != 0 and took is not None and took < DEAD_RANK_S and not left,
-                   f"dead: {out}\n{''.join(log)[-3000:]}")
-    print("[dead] " + json.dumps(out), flush=True)
+           "rank_gone_s": {str(pid): gone.get(pid) for pid in ranks}, "left": left, "limit_s": limit_s,
+           "heartbeat_timeout_s": HEARTBEAT_TIMEOUT_S, "ended_by_heartbeat": "has not beaten" in "".join(log),
+           "victim_proc": reads}
+    checks.require(proc.returncode != 0 and took is not None and took < limit_s and not left,
+                   f"dead {name}: {out}\n{''.join(log)[-3000:]}")
+    print(f"[dead] {name}: " + json.dumps(out), flush=True)
     return out
+
+
+def section_dead(checks: Checks, corpus: str, device: str, tmp: str) -> dict:
+    """7. 2-rank cli.train runs whose rank 1 is killed, each ending non-zero in time and leaving no rank."""
+    return {f"{name}{i}": dead_run(checks, corpus, device, tmp, f"{name}{i}", name == "in_collective")
+            for name in ("after_epoch", "in_collective") for i in range(DEAD_RUNS)}
 
 
 def main() -> int:
