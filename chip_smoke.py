@@ -243,6 +243,46 @@ and the measuring tools (right after phase 35, each printing its JSON line):
     answered, and one MFCC and one float32 res stack per slab dispatch (the
     device-only reference's 53 and the hub's).
 
+and the reference's last repo-level tools (right after phase 39, each leg's
+launches read from 0 around its ``cli.bench.marginal`` call, one a leg):
+
+40. python -m honk_tpu_torch.cli.microbench 256 (scripts/tpu_microbench.py,
+    float32 res8, chains of 20 / 60): its four lines, finite times; no
+    launch per frontend_jnp link (cuBLAS), one MFCC per frontend_pallas
+    link, one float32 res stack per model_only link, one of each per
+    full_fwd link;
+41. python -m honk_tpu_torch.cli.bench_res_kernel (scripts/bench_res_kernel.py,
+    bf16 res8, RK_BATCH=256, one rep): its keys and the model's own line; a
+    link of the model's forward one res stack in its bf16-activation mode, of
+    the xla leg (cuDNN) none, of the fused leg one in its bfloat16 mode; then
+    the fused leg's logits against the xla leg's on the card at the
+    reference's bf16 gate (tests/test_res_kernel.py: atol and rtol 0.05,
+    argmax equal outside 0.05 of a tie);
+42. python -m honk_tpu_torch.cli.hard_probe (scripts/hard_probe.py), one
+    epoch of a bf16 res8 at B=64 on a corpus of 20 clips a word: its lines,
+    one assembly and one MFCC a step, one MFCC and one bf16-activation res
+    stack a dev batch;
+43. python -m honk_tpu_torch.cli.make_corpus --hard (scripts/make_corpus.py)
+    at 2 clips a word: the line is the corpus's CORPUS.json; no launch;
+44. python -m honk_tpu_torch.cli.prof_fwd <leg> (prof_fwd2.py), every leg at
+    B=1024: its lines; a link of xla and mfcc_only no launch, of pmfcc and
+    pmfcc_only one MFCC, of mk one res stack in its bfloat16 mode;
+45. python -m honk_tpu_torch.cli.prof_train <leg> 256 (prof_train.py), every
+    leg: its line; a link of full one assembly and one MFCC, of noaug and
+    frontend one MFCC, of aug one assembly, of fwdbwd none;
+46-48. python -m honk_tpu_torch.cli.prof_res15 / prof_res15_parts /
+    prof_res15_dispatch (scripts/prof_res15*.py) at B=256, chains of 2 / 4,
+    one rep: their keys, finite times; one assembly and one MFCC per train
+    step, no launch in any other probe;
+49. each kernel those tools launched, against its plain version on the
+    tools' own inputs at their shapes: the MFCC at B = 256 (microbench,
+    prof_train) and 1,024 (prof_fwd) at MFCC_TOL; the float32 res stack on
+    microbench's res8 at 256 at RES_TOL; the bfloat16 mode on
+    bench_res_kernel's fused stem at 256 and prof_fwd's mk stem at 1,024,
+    the bfloat16_activations mode on bench_res_kernel's bf16 stem at 256,
+    by phase 29's row limits; the assembly on prof_train's and the res15
+    probes' draws at 256 within ASSEMBLE_ATOL.
+
 It prints a JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
@@ -2487,15 +2527,15 @@ def flow_faults(torch, x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> dict:
     return {"pallas_flow": stack(same, rne), "float32_activations": stack(same, same), "bf16_dense": stack(rne, rne)}
 
 
-def check_rows(what: str, reading: dict, faults: dict, gate) -> None:
-    """The kernel's row reading within ``gate``, and each fault's median past
-    the median limit and BF16_NEARER times the kernel's: the gate tells the
-    kernel from each fault."""
+def check_rows(what: str, reading: dict, faults: dict, gate, refuse_faults: bool = True) -> None:
+    """The kernel's row reading within ``gate``, and (``refuse_faults``) each
+    fault's median past the median limit and BF16_NEARER times the kernel's:
+    the gate tells the kernel from each fault."""
     median, tail, share = gate
     if reading["median"] > median or reading["tail_share"] > share or reading["max"] > BF16_OUTER:
         fail(f"{what}: row gaps {reading} past the gate (median {median}, share {share} past {tail}, "
              f"max {BF16_OUTER})")
-    for fault, r in faults.items():
+    for fault, r in faults.items() if refuse_faults else ():
         if r["median"] <= max(median, BF16_NEARER * reading["median"]):
             fail(f"{what}: the gate cannot tell the kernel (median row gap {reading['median']:.3e}) from its "
                  f"{fault} fault (median {r['median']:.3e})")
@@ -2510,6 +2550,47 @@ def bf16_res8(torch, dev, checkpoint: str = CHECKPOINT):
     return load_honk_checkpoint(checkpoint, model).to(dev).eval()
 
 
+def bf16_modes(torch) -> dict:
+    """Each bf16 mode of the res stack: (operand dtype, activation dtype, gates on the
+    whole stack and on its first BF16_DEPTH layers, the faults its gate must refuse)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return {"bfloat16": (bf16, f32, (BF16_KERNEL_ROWS, BF16_KERNEL_ROWS), bf16_faults),
+            "bfloat16_activations": (bf16, bf16, (BF16_FLOW_ROWS, BF16_FLOW_LAYER_ROWS), flow_faults)}
+
+
+def check_bf16_case(torch, res_kernel, mode: str, label: str, x, p16, tag: str = "bf16_kernel",
+                    refuse_faults: bool = True) -> tuple:
+    """The res stack's bf16 ``mode`` against its plain version on the pooled ``x``
+    and operands ``p16``, by rows beside its faults (check_rows) on its first
+    BF16_DEPTH layers, and on the whole stack from BF16_FULL_ROWS rows; argmax
+    equal outside BF16_OUTER of a tie. Returns (the reading, rows whose argmax
+    differs, near ties, the kernel's logits, the plain version's)."""
+    compute, act, gates, faults_of = bf16_modes(torch)[mode]
+    b = x.shape[0]
+    what = f"res_stack {mode} mode against its plain version, {label}"
+    check = {}
+    for (part, p), gate in zip((("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))), gates):
+        got = res_kernel.res_stack(x, *p, compute_dtype=compute, activation_dtype=act)
+        ref = res_kernel.res_stack_plain(x, *p, compute_dtype=compute, activation_dtype=act)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{what}, {part}: shape {tuple(got.shape)} or non-finite values")
+        reading = row_reading(got, ref, gate)
+        faults = {k: row_reading(v, ref, gate) for k, v in faults_of(torch, x, *p).items()}
+        check[part] = {"rows": reading, "faults": faults}
+        print(f"[{tag}] {mode} {label} {part}: kernel row gaps {reading}; faults' {faults}")
+        if part != "full" or b >= BF16_FULL_ROWS:
+            check_rows(f"{what}, {part}", reading, faults, gate, refuse_faults)
+        elif reading["max"] > BF16_OUTER:
+            fail(f"{what}: max abs err {reading['max']:.3e} past {BF16_OUTER}")
+        if part == "full":
+            full, full_ref = got, ref
+    decisive, near, differ = decisive_argmax_equal(full, full_ref, BF16_OUTER)
+    if not decisive:
+        fail(f"{what}: argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
+    return check, differ, near, full, full_ref
+
+
 def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> dict:
     """29. The res stack's two bf16 modes against their plain versions, each held by
     rows beside its faults (check_rows) on its first BF16_DEPTH layers, and on the
@@ -2522,14 +2603,13 @@ def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> d
     times beside the f32 mode's and the bound."""
     from honk_tpu_torch.models import SpeechResModel, find_config
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     rng = np.random.default_rng(SEED + 29)
     audio = torch.from_numpy((rng.standard_normal((BF16_BATCHES[-1], 16000)) * 0.2).astype(np.float32)).to(dev)
     model = bf16_res8(torch, dev)
     out = {"ptxas": [ln for ln in ptxas_summary(logs.get("res_stack", "")) if "Bf16" in ln or "bf16" in ln],
            "checks": {}, "flow_checks": {}, "times": {}, "flow_times": {}}
-    modes = {"bfloat16": (bf16, f32, (BF16_KERNEL_ROWS, BF16_KERNEL_ROWS), bf16_faults),
-             "bfloat16_activations": (bf16, bf16, (BF16_FLOW_ROWS, BF16_FLOW_LAYER_ROWS), flow_faults)}
+    modes = bf16_modes(torch)
     with torch.inference_mode():
         pooled = model.stem(mfcc_kernel.mfcc(audio), bf16)
         packs = {"bfloat16": res_kernel.pack_res_params(model, bf16), "bfloat16_activations": model.eval_operands()}
@@ -2551,29 +2631,7 @@ def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> d
                       for mode, (_, act, _, _) in modes.items() for b in (1, 3)]
         res8_err = {mode: 0.0 for mode in modes}
         for mode, conf, b, x, p16, p32 in cases:
-            compute, act, gates, faults_of = modes[mode]
-            what = f"res_stack {mode} mode against its plain version, {conf} B={b}"
-            check = {}
-            for (part, p), gate in zip((("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))),
-                                       gates):
-                got = res_kernel.res_stack(x, *p, compute_dtype=compute, activation_dtype=act)
-                ref = res_kernel.res_stack_plain(x, *p, compute_dtype=compute, activation_dtype=act)
-                torch.cuda.synchronize()
-                if got.shape != ref.shape or not torch.isfinite(got).all():
-                    fail(f"{what}, {part}: shape {tuple(got.shape)} or non-finite values")
-                reading = row_reading(got, ref, gate)
-                faults = {k: row_reading(v, ref, gate) for k, v in faults_of(torch, x, *p).items()}
-                check[part] = {"rows": reading, "faults": faults}
-                print(f"[bf16_kernel] {mode} {conf} B={b} {part}: kernel row gaps {reading}; faults' {faults}")
-                if part != "full" or b >= BF16_FULL_ROWS:
-                    check_rows(f"{what}, {part}", reading, faults, gate)
-                elif reading["max"] > BF16_OUTER:
-                    fail(f"{what}: max abs err {reading['max']:.3e} past {BF16_OUTER}")
-                if part == "full":
-                    full, full_ref = got, ref
-            decisive, near, differ = decisive_argmax_equal(full, full_ref, BF16_OUTER)
-            if not decisive:
-                fail(f"{what}: argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
+            check, differ, near, full, _ = check_bf16_case(torch, res_kernel, mode, f"{conf} B={b}", x, p16)
             mode32 = res_kernel.res_stack(x, *p32)
             out["checks" if mode == "bfloat16" else "flow_checks"][f"{conf} B={b}"] = {
                 "max_abs_err": check["full"]["rows"]["max"], **check,
@@ -2903,6 +2961,325 @@ def phase_tools(torch, counters, smi) -> dict:
     return out
 
 
+# Phases 40-49: the reference's repo-level tools, each at short knobs.
+RK_KEYS = ["model", "batch", "xla_ms_per_batch", "fused_ms_per_batch", "xla_audio_s_per_s", "fused_audio_s_per_s",
+           "speedup_fused_over_xla", "compile_s", "device"]
+RES15_KEYS = ["batch", "device", "conv45_fwd_ms_by_dilation", "conv45_fwdbwd_ms_by_dilation",
+              "conv45_fwdbwd_implied_tflops_by_dilation", "conv_fwd_ms_by_maps_d1", "bn_residual_ms", "res15_fwd_ms",
+              "res15_train_step_ms", "conv45_implied_tflops_by_dilation", "res15_train_implied_tflops"]
+PARTS_KEYS = ["batch", "device", "full_grad_train_bn_ms", "full_grad_eval_bn_ms", "convstack13_grad_ms"]
+DISPATCH_KEYS = ["batch", "model", "device", "scan_carry_ms_per_step", "step_dispatch_ms_per_step",
+                 "auto_layout_nondefault_leaves", "auto_layout_total_leaves", "step_dispatch_auto_layout_ms_per_step",
+                 "speedup_step_vs_scan", "speedup_auto_vs_scan", "train_audio_s_per_s_scan",
+                 "train_audio_s_per_s_step", "train_audio_s_per_s_auto"]
+PROBE_KEYS = {"generated": ["variant", "generated_s"],
+              "epoch": ["variant", "model", "epoch", "loss", "train_acc", "dev_acc", "wall_s"],
+              "summary": ["variant", "model", "knobs", "dev_curve", "final_dev", "best_dev"]}
+MICRO_LINE = re.compile(r"^ *(\S+): +(\d+\.\d{3}) ms/batch +[\d,]+ audio-s/s$")
+FWD_LINE = re.compile(r"^(\w+): (\d+\.\d{3}) ms/iter \(\d+ audio-s/s\)$")
+TRAIN_LINE = re.compile(r"^(\w+): B=(\d+) per-step (\d+\.\d{3}) ms -> [\d,]+ audio-s/s$")
+PROFILE_SMOKE = {"micro_batch": 256, "train_batch": 256, "micro_chains": (20, 60), "rk": {"RK_BATCH": "256", "RK_REPS": "1"},
+                 "res15": ["--batch", "256", "--reps", "1", "--short", "2", "--long", "4"],
+                 "probe": ["--epochs", "1", "--batch", "64", "--clips_per_word", "20", "--n_speakers", "10"],
+                 "corpus": ["--hard", "--clips_per_word", "2", "--n_speakers", "2"]}
+
+
+def zero() -> dict:
+    return {"mfcc": 0, "res_stack": 0, "assemble": 0}
+
+
+class LegLaunches:
+    """Each ``cli.bench.marginal`` call's launches (one leg each), read through
+    ``bench.LEG_HOOKS`` as differences while the tool runs after one ``reset``."""
+
+    def __init__(self, counters, bench):
+        self.counters, self.bench, self.legs = counters, bench, []
+
+    def hook(self, phase: str, lens: tuple[int, int], reps: int) -> None:
+        if phase == "begin":
+            self.before = Launches(self.counters)
+            return
+        after = Launches(self.counters)
+        self.legs.append({"links": (1 + reps) * (lens[0] + lens[1]),
+                          "launches": {k: after[k] - self.before[k] for k in after},
+                          "by_mode": {m: after.by_mode[m] - self.before.by_mode[m] for m in after.by_mode}})
+
+    def __enter__(self):
+        reset(self.counters)
+        self.bench.LEG_HOOKS.append(self.hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.bench.LEG_HOOKS.remove(self.hook)
+
+    def check(self, what: str, want: list[tuple[str, dict, dict]]) -> dict:
+        """Each leg's launches against ``want``: (label, launches a link, res-stack launches a link by mode)."""
+        if len(self.legs) != len(want):
+            fail(f"{what}: {len(self.legs)} timed legs, expected {len(want)}")
+        out = {}
+        for (label, per_link, modes), leg in zip(want, self.legs):
+            n = leg["links"]
+            expect = {k: v * n for k, v in {**zero(), **per_link}.items()}
+            expect_modes = {m: modes.get(m, 0) * n for m in leg["by_mode"]}
+            if leg["launches"] != expect or leg["by_mode"] != expect_modes:
+                fail(f"{what} {label}: {leg['launches']} ({leg['by_mode']}) over {n} links, expected {expect} "
+                     f"({expect_modes})")
+            out[label] = leg
+        return out
+
+
+def check_row(what: str, row: dict, times: list) -> None:
+    if not times or not all(t is not None and math.isfinite(t) and t > 0 for t in times):
+        fail(f"{what}: times not finite and positive: {row}")
+
+
+def phase_profile_tools(torch, counters, tmp, smi) -> dict:
+    """40-49. The reference's last repo-level tools, each leg's launches counted from 0,
+    then each kernel they launched against its plain version at their shapes."""
+    from honk_tpu_torch.cli import (bench, bench_res_kernel, hard_probe, make_corpus, microbench, prof_fwd,
+                                    prof_res15, prof_res15_dispatch, prof_res15_parts, prof_train)
+    from honk_tpu_torch.data import load_speech_commands
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    out = {"t0": time.perf_counter(), "paths": {}}
+    res_f32, res_bf16, res_act = {"float32": 1}, {"bfloat16": 1}, {"bfloat16_activations": 1}
+
+    def run(tool, mod, argv, env=None, patches=()):
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env or {}), contextlib.ExitStack() as stack:
+            for target, attr, value in patches:
+                stack.enter_context(mock.patch.object(target, attr, value))
+            legs = stack.enter_context(LegLaunches(counters, bench))
+            rc, text = run_cli(mod.main, argv)
+            total = read(counters, bf16=True)
+        torch.cuda.empty_cache()
+        if rc != 0:
+            fail(f"{tool} {argv} returned {rc}: {text[-2000:]}")
+        out["paths"]["tool_" + tool.removeprefix("cli.").replace(" ", "_")] = total
+        return legs, total, text, time.perf_counter() - t0
+
+    # 40. cli.microbench (scripts/tpu_microbench.py), float32 res8.
+    B = PROFILE_SMOKE["micro_batch"]
+    legs, total, text, wall = run("cli.microbench", microbench, [str(B)],
+                                  patches=[(microbench, "CHAINS", PROFILE_SMOKE["micro_chains"])])
+    lines = [MICRO_LINE.match(line) for line in text.splitlines()]
+    labels = ["frontend_jnp", "frontend_pallas", "res8_model_only", "res8_full_fwd"]
+    if not all(lines) or [m.group(1) for m in lines] != labels:
+        fail(f"cli.microbench printed {text!r}: expected the reference's four lines")
+    ms = {m.group(1): float(m.group(2)) for m in lines}
+    check_row("cli.microbench", ms, list(ms.values()))
+    out["microbench"] = {"batch": B, "ms": ms, "launches": total, "wall_s": wall, "legs": legs.check("cli.microbench", [
+        ("frontend_jnp", {}, {}), ("frontend_pallas", {"mfcc": 1}, {}), ("res8_model_only", {"res_stack": 1}, res_f32),
+        ("res8_full_fwd", {"mfcc": 1, "res_stack": 1}, res_f32)])}
+    print(f"[microbench] {smi}: " + json.dumps(out["microbench"]))
+
+    # 41. cli.bench_res_kernel (scripts/bench_res_kernel.py), bf16 res8; the fused leg against the cuDNN leg.
+    legs, total, text, wall = run("cli.bench_res_kernel", bench_res_kernel, [], env=PROFILE_SMOKE["rk"],
+                                  patches=[(bench_res_kernel, "CHAINS", (8, 32))])
+    text_lines = text.splitlines()
+    if len(text_lines) != 2 or not text_lines[0].startswith("model_eval_ms_per_batch: "):
+        fail(f"cli.bench_res_kernel printed {text!r}")
+    row = tool_row("cli.bench_res_kernel", 0, text_lines[1], RK_KEYS)
+    check_row("cli.bench_res_kernel", row, [row["xla_ms_per_batch"], row["fused_ms_per_batch"]])
+    if row["device"] != name or row["batch"] != int(PROFILE_SMOKE["rk"]["RK_BATCH"]):
+        fail(f"cli.bench_res_kernel: {row}")
+    rk_legs = legs.check("cli.bench_res_kernel", [("model", {"res_stack": 1}, res_act), ("xla", {}, {}),
+                                                  ("fused", {"res_stack": 1}, res_bf16)])
+    model = bench.make_model("res8", torch.bfloat16, dev)
+    forwards = bench_res_kernel.make_forwards(model)
+    feats = bench_res_kernel.make_pool(row["batch"], dev)[:row["batch"]].contiguous()
+    with torch.no_grad():
+        got = {leg: fn(feats) for leg, fn in forwards.items()}
+    torch.cuda.synchronize()
+    err = max_err(got["fused"], got["xla"])
+    decisive, near, differ = decisive_argmax_equal(got["fused"], got["xla"], BF16_OUTER)
+    if not close(got["fused"], got["xla"], BF16_OUTER, BF16_OUTER) or not decisive:
+        fail(f"res_forward_fused against the cuDNN bf16 forward: max abs err {err:.3e} (atol and rtol {BF16_OUTER}), "
+             f"argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
+    out["bench_res_kernel"] = {
+        "row": row, "model_ms": float(text_lines[0].split()[1]), "launches": total, "wall_s": wall, "legs": rk_legs,
+        "fused_vs_xla": {"max_abs_err": err, "rows": row_reading(got["fused"], got["xla"], BF16_FLOW_ROWS),
+                         "near_ties": near, "argmax_differ": differ},
+        "model_vs_xla": {"max_abs_err": max_err(got["model"], got["xla"]),
+                         "rows": row_reading(got["model"], got["xla"], BF16_FLOW_ROWS)}}
+    print(f"[bench_res_kernel] {smi}: " + json.dumps(out["bench_res_kernel"]))
+    del model, forwards, feats, got
+
+    # 42. cli.hard_probe (scripts/hard_probe.py): one epoch of a bf16 res8 on a small hard corpus.
+    root = os.path.join(tmp, "hard_probe")
+    reset(counters)
+    t0 = time.perf_counter()
+    rc, text = run_cli(hard_probe.main, PROFILE_SMOKE["probe"] + ["--root", root])
+    wall = time.perf_counter() - t0
+    total = read(counters, bf16=True)
+    rows = [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+    if rc != 0 or [list(r) for r in rows] != [PROBE_KEYS[k] for k in ("generated", "epoch", "summary")]:
+        fail(f"cli.hard_probe returned {rc}, printed {text[-2000:]!r}")
+    ds = load_speech_commands(root + "_0")
+    steps = -(-(len(ds.train) + int(0.1 * len(ds.train))) // 64)
+    sweeps = -(-len(ds.dev) // 256)
+    want = {"mfcc": steps + sweeps, "res_stack": sweeps, "assemble": steps}
+    if total != want or total.by_mode != bf16_eval_modes(sweeps) or not math.isfinite(rows[1]["loss"]):
+        fail(f"cli.hard_probe launched {total} ({total.by_mode}) over {steps} steps and {sweeps} dev batches: "
+             f"expected {want}, the res stack in its bf16-activation mode; {rows}")
+    out["paths"]["tool_hard_probe"] = total
+    out["hard_probe"] = {"rows": rows, "launches": total, "by_mode": total.by_mode, "steps": steps,
+                         "dev_batches": sweeps, "wall_s": wall}
+    print(f"[hard_probe] {smi}: " + json.dumps(out["hard_probe"]))
+
+    # 43. cli.make_corpus (scripts/make_corpus.py): host work, no launch.
+    root = os.path.join(tmp, "make_corpus")
+    reset(counters)
+    rc, text = run_cli(make_corpus.main, [root] + PROFILE_SMOKE["corpus"])
+    total = read(counters)
+    with open(os.path.join(root, "CORPUS.json")) as f:
+        recipe = json.load(f)
+    if rc != 0 or [json.loads(line) for line in text.splitlines()] != [recipe] or total != zero():
+        fail(f"cli.make_corpus returned {rc}, printed {text!r}, launched {total}")
+    out["paths"]["tool_make_corpus"] = total
+    out["make_corpus"] = {"recipe": recipe, "launches": total}
+    print(f"[make_corpus] {smi}: " + json.dumps(out["make_corpus"]))
+
+    # 44. cli.prof_fwd (prof_fwd2.py), every leg at its defaults (float32 res8, B=1024).
+    out["prof_fwd"] = {}
+    per_leg = {"xla": ({}, {}), "pmfcc": ({"mfcc": 1}, {}), "mk": ({"res_stack": 1}, res_bf16),
+               "mfcc_only": ({}, {}), "pmfcc_only": ({"mfcc": 1}, {})}
+    for leg, (per_link, modes) in per_leg.items():
+        legs, total, text, wall = run(f"cli.prof_fwd {leg}", prof_fwd, [leg])
+        m = FWD_LINE.match(text.splitlines()[-1])
+        if not m or m.group(1) != leg or len(text.splitlines()) != 6:
+            fail(f"cli.prof_fwd {leg} printed {text!r}")
+        check_row(f"cli.prof_fwd {leg}", {}, [float(m.group(2))])
+        out["prof_fwd"][leg] = {"ms": float(m.group(2)), "wall_s": wall,
+                                **legs.check(f"cli.prof_fwd {leg}", [(leg, per_link, modes)])[leg]}
+    print(f"[prof_fwd] {smi}: " + json.dumps(out["prof_fwd"]))
+
+    # 45. cli.prof_train (prof_train.py), every leg at its defaults (bf16 res8, B=256).
+    out["prof_train"] = {}
+    per_leg = {"full": {"assemble": 1, "mfcc": 1}, "noaug": {"mfcc": 1}, "fwdbwd": {}, "aug": {"assemble": 1},
+               "frontend": {"mfcc": 1}}
+    for leg, per_link in per_leg.items():
+        legs, total, text, wall = run(f"cli.prof_train {leg}", prof_train, [leg, str(PROFILE_SMOKE["train_batch"])])
+        m = TRAIN_LINE.match(text.splitlines()[-1])
+        if not m or m.group(1) != leg or m.group(2) != str(PROFILE_SMOKE["train_batch"]):
+            fail(f"cli.prof_train {leg} printed {text!r}")
+        check_row(f"cli.prof_train {leg}", {}, [float(m.group(3))])
+        out["prof_train"][leg] = {"ms": float(m.group(3)), "wall_s": wall,
+                                  **legs.check(f"cli.prof_train {leg}", [(leg, per_link, {})])[leg]}
+    print(f"[prof_train] {smi}: " + json.dumps(out["prof_train"]))
+
+    # 46-48. The res15 probes (scripts/prof_res15{,_parts,_dispatch}.py) at B=256, short chains.
+    step = ("train_step", {"assemble": 1, "mfcc": 1}, {})
+    probes = (
+        ("prof_res15", prof_res15, RES15_KEYS,
+         [(f"conv{k}_d{d}", {}, {}) for k in ("_fwd", "_fwdbwd") for d in (1, 2, 4, 8, 16)]
+         + [(f"conv_fwd_maps{c}", {}, {}) for c in (45, 64, 128)] + [("bn", {}, {}), ("res15_fwd", {}, {}), step]),
+        ("prof_res15_parts", prof_res15_parts, PARTS_KEYS, [("train_bn", {}, {}), ("eval_bn", {}, {}), ("stack", {}, {})]),
+        ("prof_res15_dispatch", prof_res15_dispatch, DISPATCH_KEYS, [("scan", *step[1:]), ("step", *step[1:])]),
+    )
+    for tool, mod, keys, want in probes:
+        legs, total, text, wall = run(f"cli.{tool}", mod, PROFILE_SMOKE["res15"])
+        row = tool_row(f"cli.{tool}", 0, text, keys)
+        times = [v for k, v in row.items() if k.endswith("_ms") or k.endswith("_per_step")]
+        times += [t for k, v in row.items() if k.endswith(("_by_dilation", "_d1")) and "tflops" not in k
+                  for t in v.values()]
+        check_row(f"cli.{tool}", row, [t for t in times if t is not None])
+        if row["device"] != name or row["batch"] != int(PROFILE_SMOKE["res15"][1]):
+            fail(f"cli.{tool}: {row}")
+        out[tool] = {"row": row, "launches": total, "wall_s": wall, "legs": legs.check(f"cli.{tool}", want)}
+        print(f"[{tool}] {smi}: " + json.dumps(out[tool]))
+    # 49. Each kernel the tools launched, against its plain version at the tools' shapes.
+    out["kernels_at_tool_shapes"] = phase_tool_kernels(torch, dev, smi)
+    out["s"] = time.perf_counter() - out.pop("t0")
+    return out
+
+
+def phase_tool_kernels(torch, dev, smi) -> dict:
+    """49. Each kernel that phases 40-48 launch, against its plain version on the
+    tool's own inputs at the tool's shapes. The MFCC on microbench's audio
+    (PROFILE_SMOKE's B=256), prof_train's fixed audio (B=256) and prof_fwd's
+    (B=1,024), at MFCC_TOL. The res stack's float32 mode on microbench's res8 at
+    B=256, behind its model_only features and its full forward's MFCCs, at
+    RES_TOL. Its bfloat16 mode on res_forward_fused's stems, bench_res_kernel's
+    bf16 res8 (B=256) and prof_fwd's mk leg (B=1,024); its bfloat16_activations
+    mode on bench_res_kernel's model(feats) (B=256): each as phase 29 holds it
+    (check_bf16_case), by phase 29's row limits. Their faults' readings are
+    printed but not required past the gate: on the tools' seeded weights the
+    logits are small and a fault's gap may lie inside it; phase 29 shows on
+    zoo/res8.pt that the gate refuses each fault. The assembly on the draws of prof_train's corpus and of
+    the res15 probes' (B=256, their first step's key), within ASSEMBLE_ATOL.
+    hard_probe runs phase 10's shapes (B=64 steps, dev sweeps of 256)."""
+    from honk_tpu_torch.cli import bench, bench_res_kernel, microbench, prof_fwd, prof_res15, prof_train
+    from honk_tpu_torch.data import augment as A
+    from honk_tpu_torch.ops import assemble_kernel, mfcc_kernel, res_kernel
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, rk_b = PROFILE_SMOKE["micro_batch"], int(PROFILE_SMOKE["rk"]["RK_BATCH"])
+    out = {"mfcc": {}, "res_stack": {}, "res_stack[bf16]": {}, "res_stack[bf16_activations]": {}, "assemble": {}}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        micro_audio, micro_feats = microbench.make_inputs(B, dev)
+        train = prof_train.make_setup("res8", bf16, PROFILE_SMOKE["train_batch"], dev)
+        fwd_audio = prof_fwd.make_audio(prof_fwd.BATCH, dev)
+        for label, a in ((f"microbench B={B}", micro_audio), (f"prof_train B={PROFILE_SMOKE['train_batch']}",
+                                                             train["fixed_audio"]),
+                         (f"prof_fwd B={prof_fwd.BATCH}", fwd_audio)):
+            got, ref = mfcc_kernel.mfcc(a), mfcc_kernel.mfcc_plain(a)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            if got.shape != (a.shape[0], 101, 40) or not torch.isfinite(got).all() or not close(got, ref, **MFCC_TOL):
+                fail(f"mfcc kernel on {label}'s audio: shape {tuple(got.shape)}, max abs err {err:.3e}")
+            out["mfcc"][label] = err
+
+        model = bench.make_model("res8", f32, dev).eval()
+        packed = model.eval_operands()
+        for label, f in ((f"microbench model_only B={B}", micro_feats),
+                         (f"microbench full_fwd B={B}", mfcc_kernel.mfcc(micro_audio))):
+            x = model.stem(f)
+            got, ref = res_kernel.res_stack(x, *packed), res_kernel.res_stack_plain(x, *packed)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            if not torch.isfinite(got).all() or not close(got, ref, **RES_TOL):
+                fail(f"res_stack kernel on {label}: max abs err {err:.3e}")
+            out["res_stack"][label] = err
+
+        rk = bench.make_model("res8", bf16, dev).eval()
+        rk_feats = bench_res_kernel.make_pool(rk_b, dev)[:rk_b].contiguous()
+        cases = [("bfloat16", f"bench_res_kernel fused B={rk_b}", rk.stem(rk_feats), res_kernel.pack_res_params(rk, bf16)),
+                 ("bfloat16", f"prof_fwd mk B={prof_fwd.BATCH}", model.stem(mfcc_kernel.mfcc_plain(fwd_audio)),
+                  res_kernel.pack_res_params(model, bf16)),
+                 ("bfloat16_activations", f"bench_res_kernel model B={rk_b}", rk.stem(rk_feats, bf16),
+                  rk.eval_operands())]
+        for mode, label, x, p in cases:
+            check, differ, near, _, _ = check_bf16_case(torch, res_kernel, mode, label, x, p, tag="tool_kernels",
+                                                         refuse_faults=False)
+            key = "res_stack[bf16]" if mode == "bfloat16" else "res_stack[bf16_activations]"
+            out[key][label] = {"max_abs_err": check["full"]["rows"]["max"], **check, "argmax_differs_plain": differ,
+                               "near_ties": near}
+
+        b15 = int(PROFILE_SMOKE["res15"][1])
+        aug15, arrays15 = prof_res15.train_inputs(np.random.default_rng(0), b15, dev)
+        for label, arrays, aug, key, b in (
+                (f"prof_train B={train['batch']}", train["arrays"], train["aug"], prof_train.KEY, train["batch"]),
+                (f"prof_res15 train_step B={b15}", arrays15, aug15, prof_res15.KEY, b15)):
+            draws = A.draw_batch(A.step_generator(key, 0, dev), arrays, b, aug)
+            *ops, _ = A.kernel_operands(draws, arrays, aug)
+            got = assemble_kernel.assemble(arrays.pool, arrays.noise, *ops)
+            ref = assemble_kernel.assemble_plain(arrays.pool, arrays.noise, *ops)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            if got.shape != (b, 16000) or not torch.isfinite(got).all() or err > ASSEMBLE_ATOL:
+                fail(f"assemble kernel on {label}'s draws: shape {tuple(got.shape)}, max abs err {err:.3e}")
+            out["assemble"][label] = {"max_abs_err": err, "bitwise_equal": bool(torch.equal(got, ref))}
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"[tool_kernels] {smi}: each kernel against its plain version at the tools' shapes (mfcc atol/rtol "
+          f"{MFCC_TOL['atol']}, float32 res stack {RES_TOL}, bf16 modes by rows as phase 29, assemble atol "
+          f"{ASSEMBLE_ATOL}): " + json.dumps(out))
+    return out
+
+
 def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
     """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
     from zoo/res8/best on the card against the .pt service's answers; if not,
@@ -3128,6 +3505,10 @@ def main() -> int:
         t0 = time.perf_counter()
         tools = phase_tools(torch, counters, smi)
         print(f"[tools] phases 36-39 took {time.perf_counter() - t0:.1f} s")
+        # 40-49. The reference's last repo-level tools: microbench, bench_res_kernel, hard_probe,
+        # make_corpus, prof_fwd, prof_train and the three res15 probes.
+        profile_tools = phase_profile_tools(torch, counters, tmp, smi)
+        print(f"[profile_tools] phases 40-49 took {profile_tools['s']:.1f} s")
 
         # 25-27. Data parallel at world size 1 on NCCL, each kernel on a rank's rows, --profile-dir.
         t0 = time.perf_counter()
@@ -3227,6 +3608,7 @@ def main() -> int:
         "stream_hub_push_bin_res8_data_axis_nccl_world1": hub_ranks["launches"],
         "scaling_1": scaling["launches"],
         **{f"tool_{k}": v["launches"] for k, v in tools.items()},
+        **profile_tools["paths"],
     }
     by_path = {p: v for p, v in by_path.items() if v is not None}
     res_modes = {p: v.by_mode for p, v in by_path.items()}  # the res stack's launches by mode, as read on each path
@@ -3284,6 +3666,23 @@ def main() -> int:
         "ms_b1024": train_times["assemble_b1024"], "plain_ms_b1024": train_times["assemble_plain_b1024"],
         "bound_ms_b1024": a1024, "bound_by_b1024": aby1024,
     })
+    # Each kernel beside the library path of the reference tool that times it against one (phases
+    # 40-41, B=BATCH; ms a batch, the tool's marginal on the host clock, the kernel's leg beside it):
+    # the MFCC against microbench's frontend_jnp (cuBLAS DFT GEMMs), the res stack's bf16 modes
+    # against bench_res_kernel's xla leg (cuDNN's bf16 convs in flax's flow). No tool has a library
+    # leg for the float32 res stack or the assembly.
+    micro, rk = profile_tools["microbench"], profile_tools["bench_res_kernel"]
+    library_legs = {
+        "mfcc": ("cli.microbench frontend_jnp", micro["ms"]["frontend_jnp"], micro["ms"]["frontend_pallas"]),
+        "res_stack[bf16]": ("cli.bench_res_kernel xla", rk["row"]["xla_ms_per_batch"], rk["row"]["fused_ms_per_batch"]),
+        "res_stack[bf16_activations]": ("cli.bench_res_kernel xla", rk["row"]["xla_ms_per_batch"], rk["model_ms"]),
+    }
+    # Phase 49: each kernel against its plain version at the shapes the tools gave it.
+    tool_errs = profile_tools["kernels_at_tool_shapes"]
+    for k in kernels:
+        k["library_leg"], k["library_leg_ms"], k["library_leg_kernel_ms"] = library_legs.get(k["name"], (None,) * 3)
+        k["max_abs_err_at_tool_shapes"] = {label: v["max_abs_err"] if isinstance(v, dict) else v
+                                           for label, v in tool_errs.get(k["name"], {}).items()}
     print(json.dumps({"build_s": build_s, "listen_host_ms": [s * 1e3 for s in listen_s],
                       "evaluate_host_ms": [s * 1e3 for s in evaluate_s],
                       "train_steps_cuda_vs_cpu": train_step_errs,
@@ -3296,7 +3695,8 @@ def main() -> int:
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
                       "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
-                      "recipe": recipe, "scaling": scaling, "tools": tools}))
+                      "recipe": recipe, "scaling": scaling, "tools": tools,
+                      "profile_tools": {k: v for k, v in profile_tools.items() if k != "paths"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

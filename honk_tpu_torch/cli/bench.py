@@ -145,8 +145,27 @@ def make_infer_run(link: Callable, device: torch.device) -> Callable:
     return run
 
 
+def recorded(run: Callable, times: list[float]) -> Callable:
+    """``run`` that also appends each chain's seconds to ``times`` in call order:
+    under ``marginal``, the untimed chain of each length, then each rep's two."""
+
+    def timed(length: int, seed: float) -> float:
+        times.append(run(length, seed))
+        return times[-1]
+
+    return timed
+
+
+#: Called as ``hook("begin" | "end", lens, reps)`` around each ``marginal`` call,
+#: one timed leg, untimed chains included: a caller that reads what a leg
+#: launched (chip_smoke.py's launch counts) appends here.
+LEG_HOOKS: list[Callable[[str, tuple[int, int], int], None]] = []
+
+
 def marginal(run: Callable, lens: tuple[int, int], reps: int) -> tuple[float, list[float]]:
     """The median marginal seconds per link between chains of ``lens`` links, and each rep's."""
+    for hook in LEG_HOOKS:
+        hook("begin", lens, reps)
     run(lens[0], 0.0)
     run(lens[1], 0.0)
     ms = []
@@ -157,6 +176,8 @@ def marginal(run: Callable, lens: tuple[int, int], reps: int) -> tuple[float, li
         m = (tl - ts) / (lens[1] - lens[0])
         if m > 0:
             ms.append(m)
+    for hook in LEG_HOOKS:
+        hook("end", lens, reps)
     if not ms:
         raise RuntimeError("every marginal timing was non-positive")
     return float(np.median(ms)), ms
