@@ -283,7 +283,24 @@ launches read from 0 around its ``cli.bench.marginal`` call, one a leg):
     by phase 29's row limits; the assembly on prof_train's and the res15
     probes' draws at 256 within ASSEMBLE_ATOL.
 
-It prints a JSON line of per-kernel results, then, as the last line,
+and the res stack with the stem inside it (right after phase 29):
+
+50. the res stack's entry from the features (res_forward: conv0, ReLU and
+    the pool inside the kernel, one launch from the MFCC features to the
+    logits) against res_forward_plain in all three modes: zoo/res8.pt and
+    random res26 weights at B = 1, 8, 256, 1,024 and 2,996, res8-narrow and
+    res26-narrow at 256 (float32 at RES_TOL; the bf16 modes by phase 29's
+    row limits, their faults refused on res8 at 256); from torch.profiler
+    exactly one device kernel per eval forward of res8 and res26 in float32
+    and bf16 at B = 8 and 256 and of res_forward_fused, each one res_forward
+    launch and no res_stack one; CUDA-event times of each forward beside the
+    two-launch path it replaced (the stem as PyTorch ops, then the pooled
+    entry) and the plain version, and the bound (conv0 at the float32
+    CUDA-core rate plus the stack at the mode's tensor-core rate).
+
+It prints a JSON line of per-kernel results (for the res stack also each
+mode's forward from the features, and its launches by entry on every path),
+then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
 
@@ -1090,29 +1107,41 @@ def mfcc_work(n_frames: int, n_samples: int) -> tuple[float, float]:
     return n_frames * per_frame, nbytes
 
 
-def res_work(b: int, C: int, H: int, W: int, L: int, n_lab: int) -> tuple[float, float]:
-    """(operations, bytes) of the res stack at batch ``b``: the convs' products,
-    the dense layer; the pooled input, the weights and the logits."""
+def weight_bytes(mode: str) -> tuple[int, int]:
+    """Bytes a value of the conv weights and of the Dense weights that the res
+    stack's ``mode`` needs: bf16 conv weights in both bf16 modes and a bf16
+    Dense in the ``bfloat16`` mode, float32 everywhere else."""
+    return (4 if mode == "float32" else 2), (2 if mode == "bfloat16" else 4)
+
+
+def res_work(b: int, C: int, H: int, W: int, L: int, n_lab: int, mode: str = "float32") -> tuple[float, float]:
+    """(operations, bytes) of the res stack at batch ``b`` in ``mode``: the
+    convs' products, the dense layer; the pooled input, the weights (at
+    weight_bytes) and the logits."""
+    conv_b, dense_b = weight_bytes(mode)
     flops = 2 * b * L * H * W * 9 * C * C + 2 * b * C * n_lab
-    nbytes = 4 * (b * C * H * W + L * 9 * C * C + 2 * L * C + C * n_lab + n_lab + b * n_lab)
+    nbytes = 4 * (b * C * H * W + 2 * L * C + n_lab + b * n_lab) + conv_b * L * 9 * C * C + dense_b * C * n_lab
     return flops, nbytes
 
 
 def reset(counters) -> None:
-    """Every launch count to 0, the res stack's per-mode counts too."""
+    """Every launch count to 0, the res stack's per-mode and per-entry counts too."""
     for mod in counters.values():
         mod.launches = 0
-        for mode in getattr(mod, "launches_by_mode", {}):
-            mod.launches_by_mode[mode] = 0
+        for by in (getattr(mod, "launches_by_mode", {}), getattr(mod, "launches_by_entry", {})):
+            for key in by:
+                by[key] = 0
 
 
 class Launches(dict):
     """Each kernel's launches since ``reset``; ``by_mode`` the res stack's by
-    operand mode, read at the same time."""
+    operand mode and ``by_entry`` by entry (``res_forward``: from the features
+    with the stem inside; ``res_stack``: from the pooled map), read at the same time."""
 
     def __init__(self, counters):
         super().__init__({k: mod.launches for k, mod in counters.items()})
         self.by_mode = dict(counters["res_stack"].launches_by_mode)
+        self.by_entry = dict(counters["res_stack"].launches_by_entry)
 
 
 def read(counters, bf16: bool = False) -> Launches:
@@ -2527,16 +2556,49 @@ def flow_faults(torch, x, w_all, bn_scale, bn_offset, dense_w, dense_b) -> dict:
     return {"pallas_flow": stack(same, rne), "float32_activations": stack(same, same), "bf16_dense": stack(rne, rne)}
 
 
+def stem_faults(torch, feats, conv0_w, pool, mode: str) -> dict:
+    """The pooled maps of each fault the stem inside the kernel could have in the
+    bf16 ``mode`` (res_forward), where res_kernel.stem_plain is the mode's
+    stem. ``bfloat16_activations`` (flax's bf16 flow): the float32 stem of the
+    other modes, conv0 on float32 features and weights (its sum still rounded
+    to bf16), and the pool's window summed in float32 and rounded once (not
+    after each add). ``bfloat16`` (the fused forward's float32 stem): flax's
+    bf16 stem."""
+    from honk_tpu_torch.ops import res_kernel
+
+    F = torch.nn.functional
+    bf16, (ph, pw) = torch.bfloat16, pool
+    if mode == "bfloat16":
+        return {"bf16_stem": res_kernel.stem_plain(feats, conv0_w, pool, bf16)}
+
+    def pooled(y, chained: bool):
+        if chained:
+            return res_kernel.chained_avg_pool(y, pool).float().contiguous()
+        b, c, h, w = y.shape
+        v = y.float()[:, :, : h // ph * ph, : w // pw * pw].reshape(b, c, h // ph, ph, w // pw, pw)
+        return (v.sum(dim=(3, 5)).to(bf16) / (ph * pw)).float().contiguous()
+
+    conv_bf16 = F.relu(F.conv2d(feats[:, None].to(bf16), conv0_w.to(bf16), padding=1))
+    conv_f32 = F.relu(F.conv2d(feats[:, None], conv0_w, padding=1).to(bf16))
+    return {"float32_stem": res_kernel.stem_plain(feats, conv0_w, pool, torch.float32),
+            "conv0_float32": pooled(conv_f32, True), "pool_rounded_once": pooled(conv_bf16, False)}
+
+
+def refuses(reading: dict, fault: dict, gate) -> bool:
+    """Whether ``gate`` tells the kernel's row ``reading`` from a ``fault``'s: the
+    fault's median past the gate's median limit and BF16_NEARER times the kernel's."""
+    return fault["median"] > max(gate[0], BF16_NEARER * reading["median"])
+
+
 def check_rows(what: str, reading: dict, faults: dict, gate, refuse_faults: bool = True) -> None:
     """The kernel's row reading within ``gate``, and (``refuse_faults``) each
-    fault's median past the median limit and BF16_NEARER times the kernel's:
-    the gate tells the kernel from each fault."""
+    fault refused (``refuses``): the gate tells the kernel from each fault."""
     median, tail, share = gate
     if reading["median"] > median or reading["tail_share"] > share or reading["max"] > BF16_OUTER:
         fail(f"{what}: row gaps {reading} past the gate (median {median}, share {share} past {tail}, "
              f"max {BF16_OUTER})")
     for fault, r in faults.items() if refuse_faults else ():
-        if r["median"] <= max(median, BF16_NEARER * reading["median"]):
+        if not refuses(reading, r, gate):
             fail(f"{what}: the gate cannot tell the kernel (median row gap {reading['median']:.3e}) from its "
                  f"{fault} fault (median {r['median']:.3e})")
 
@@ -2559,32 +2621,53 @@ def bf16_modes(torch) -> dict:
 
 
 def check_bf16_case(torch, res_kernel, mode: str, label: str, x, p16, tag: str = "bf16_kernel",
-                    refuse_faults: bool = True) -> tuple:
+                    refuse_faults: bool = True, forward: tuple | None = None, run_faults: bool = True,
+                    stem: dict | None = None) -> tuple:
     """The res stack's bf16 ``mode`` against its plain version on the pooled ``x``
     and operands ``p16``, by rows beside its faults (check_rows) on its first
     BF16_DEPTH layers, and on the whole stack from BF16_FULL_ROWS rows; argmax
-    equal outside BF16_OUTER of a tie. Returns (the reading, rows whose argmax
-    differs, near ties, the kernel's logits, the plain version's)."""
+    equal outside BF16_OUTER of a tie. With ``forward`` = (features, conv0
+    weights, pool), the entry from the features (res_forward, the stem inside)
+    against res_forward_plain, ``x`` being the plain stem's output that the
+    faults run on; ``run_faults=False`` runs none (nor refuses them). ``stem``
+    (stem_faults' pooled maps) runs the plain stack of the mode on each, and
+    each must be refused (``refuses``) by the whole stack's gate or by the
+    first layers' one. Returns (the reading, rows whose argmax differs, near
+    ties, the kernel's logits, the plain version's)."""
     compute, act, gates, faults_of = bf16_modes(torch)[mode]
     b = x.shape[0]
-    what = f"res_stack {mode} mode against its plain version, {label}"
+    what = f"res_{'forward' if forward else 'stack'} {mode} mode against its plain version, {label}"
     check = {}
     for (part, p), gate in zip((("full", p16), (f"first_{BF16_DEPTH}_layers", first_layers(p16, BF16_DEPTH))), gates):
-        got = res_kernel.res_stack(x, *p, compute_dtype=compute, activation_dtype=act)
-        ref = res_kernel.res_stack_plain(x, *p, compute_dtype=compute, activation_dtype=act)
+        if forward is None:
+            got = res_kernel.res_stack(x, *p, compute_dtype=compute, activation_dtype=act)
+            ref = res_kernel.res_stack_plain(x, *p, compute_dtype=compute, activation_dtype=act)
+        else:
+            got = res_kernel.res_forward(*forward, *p, compute_dtype=compute, activation_dtype=act)
+            ref = res_kernel.res_forward_plain(*forward, *p, compute_dtype=compute, activation_dtype=act)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got).all():
             fail(f"{what}, {part}: shape {tuple(got.shape)} or non-finite values")
         reading = row_reading(got, ref, gate)
-        faults = {k: row_reading(v, ref, gate) for k, v in faults_of(torch, x, *p).items()}
+        faults = {k: row_reading(v, ref, gate) for k, v in faults_of(torch, x, *p).items()} if run_faults else {}
         check[part] = {"rows": reading, "faults": faults}
-        print(f"[{tag}] {mode} {label} {part}: kernel row gaps {reading}; faults' {faults}")
+        if stem:
+            check[part]["stem_faults"] = {k: row_reading(res_kernel.res_stack_plain(
+                v, *p, compute_dtype=compute, activation_dtype=act), ref, gate) for k, v in stem.items()}
+            for r in check[part]["stem_faults"].values():
+                r["refused"] = refuses(reading, r, gate)
+        print(f"[{tag}] {mode} {label} {part}: kernel row gaps {reading}; faults' {faults}; stem faults' "
+              f"{check[part].get('stem_faults')}")
         if part != "full" or b >= BF16_FULL_ROWS:
-            check_rows(f"{what}, {part}", reading, faults, gate, refuse_faults)
+            check_rows(f"{what}, {part}", reading, faults, gate, refuse_faults and bool(faults))
         elif reading["max"] > BF16_OUTER:
             fail(f"{what}: max abs err {reading['max']:.3e} past {BF16_OUTER}")
         if part == "full":
             full, full_ref = got, ref
+    for k in stem or ():
+        if not any(c["stem_faults"][k]["refused"] for c in check.values()):
+            fail(f"{what}: neither gate tells the kernel from its stem's {k} fault: "
+                 + json.dumps({part: (c["rows"], c["stem_faults"][k]) for part, c in check.items()}))
     decisive, near, differ = decisive_argmax_equal(full, full_ref, BF16_OUTER)
     if not decisive:
         fail(f"{what}: argmax differs on {differ} rows ({near} within {BF16_OUTER} of a tie)")
@@ -2654,7 +2737,7 @@ def phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi) -> d
                      "f32_mode_ms": time_ms(torch, lambda: res_kernel.res_stack(x, *packed32), iters),
                      "plain_ms": time_ms(torch, lambda: res_kernel.res_stack_plain(x, *p, compute_dtype=compute,
                                                                                    activation_dtype=act), iters)}
-                t["bound_ms"], t["bound_by"] = bound(*res_work(b, C, H, W, L, n_lab), name, bf16=True)
+                t["bound_ms"], t["bound_by"] = bound(*res_work(b, C, H, W, L, n_lab, mode), name, bf16=True)
                 t["f32_mode_bound_ms"], _ = bound(*res_work(b, C, H, W, L, n_lab), name, tf32x3=True)
                 out[key][b] = t
     out["res8_max_abs_err"], out["flow_res8_max_abs_err"] = res8_err["bfloat16"], res8_err["bfloat16_activations"]
@@ -3280,6 +3363,174 @@ def phase_tool_kernels(torch, dev, smi) -> dict:
     return out
 
 
+# Phase 50: the res stack with the stem inside (res_forward: the features to the
+# logits in one launch) against its plain version at each batch of RF_BATCHES (a
+# /listen, a hub tick, an eval batch, a bench batch, a 10 min track's windows)
+# for res8 and res26, and the narrow models at RF_NARROW_BATCH: float32 at
+# RES_TOL, the bf16 modes by phase 29's row gates (check_bf16_case), their faults
+# and their stem's (stem_faults) refused on zoo/res8.pt at BF16_FULL_ROWS rows.
+RF_BATCHES = (1, 8, 256, 1024, 2996)
+RF_NARROW_BATCH = 256
+
+
+def forward_work(b: int, C: int, H: int, W: int, L: int, n_lab: int, ph: int, pw: int,
+                 mode: str = "float32") -> tuple[float, float, float]:
+    """(conv0's operations, the stack's operations, bytes) of the forward from the
+    features at batch ``b`` in ``mode``: conv0 over the H*ph x W*pw pixels the
+    pool reads; the convs' products and the Dense layer; the features, conv0's
+    and BN's float32 values, the conv and Dense weights at weight_bytes, the logits."""
+    conv_b, dense_b = weight_bytes(mode)
+    conv0 = 2 * b * H * ph * W * pw * 9 * C
+    stack = 2 * b * L * H * W * 9 * C * C + 2 * b * C * n_lab
+    nbytes = (4 * (b * 101 * 40 + 9 * C + 2 * L * C + n_lab + b * n_lab) + conv_b * L * 9 * C * C
+              + dense_b * C * n_lab)
+    return conv0, stack, nbytes
+
+
+def forward_bound(b: int, C: int, H: int, W: int, L: int, n_lab: int, pool, name: str,
+                  mode: str) -> tuple[float, str]:
+    """Least time in ms of the forward from the features: conv0 at the float32
+    CUDA-core rate plus the stack at the mode's tensor-core rate (3xTF32: three
+    products a product; bf16: one), or the bytes over HBM, the larger."""
+    f32, tf32, bf, hbm = peaks(name)
+    conv0, stack, nbytes = forward_work(b, C, H, W, L, n_lab, *pool, mode)
+    t_ops = (conv0 / f32 + (3 * stack / tf32 if mode == "float32" else stack / bf)) * 1e3
+    t_bytes = nbytes / hbm * 1e3
+    return (t_bytes, "bytes") if t_ops < t_bytes else (t_ops, "operations")
+
+
+def forward_models(torch, dev) -> dict:
+    """Phase 50's float32 models in eval mode on ``dev``: zoo/res8.pt, and random
+    res26, res8-narrow and res26-narrow weights from SEED with randomized BN
+    statistics (as phase 4's)."""
+    from honk_tpu_torch.models import SpeechResModel, find_config, load_honk_checkpoint
+
+    models = {"res8": load_honk_checkpoint(CHECKPOINT, SpeechResModel(find_config("res8")))}
+    for conf in ("res26", "res8-narrow", "res26-narrow"):
+        torch.manual_seed(SEED)
+        m = SpeechResModel(find_config(conf))
+        for i in range(1, m.n_layers + 1):
+            bn = getattr(m, f"bn{i}")
+            bn.running_mean.normal_(0, 0.1)
+            bn.running_var.uniform_(0.5, 1.0)
+        models[conf] = m
+    return {conf: m.to(dev).eval() for conf, m in models.items()}
+
+
+def device_kernels(torch, fn) -> list[str]:
+    """The device kernels of one call of ``fn`` after a warm one, by name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def phase_res_forward(torch, dev, counters, name, smi) -> dict:
+    """50. The res stack with the stem inside (res_kernel.res_forward, one launch
+    from the features) against res_forward_plain on the card in all three modes:
+    res8 (zoo/res8.pt) and res26 at RF_BATCHES, res8-narrow and res26-narrow at
+    RF_NARROW_BATCH (float32 at RES_TOL; the bf16 modes by check_bf16_case, the
+    stack's faults and the stem's (stem_faults) refused on res8 at
+    BF16_FULL_ROWS rows). Then one device kernel per
+    eval forward (torch.profiler): res8 and res26 of each dtype at B=256 and 8,
+    and res_forward_fused of res8 at B=256; one res_forward launch and no
+    res_stack one per eval forward (the counters); CUDA-event times of each
+    forward beside the two-launch path it replaced (the stem as PyTorch ops,
+    then the pooled entry) and the plain version, and forward_bound."""
+    from honk_tpu_torch.models import SpeechResModel, find_config
+    from honk_tpu_torch.ops import mfcc_kernel, res_kernel
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    modes = {"float32": (f32, f32), "bfloat16": (bf16, f32), "bfloat16_activations": (bf16, bf16)}
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 50)
+    out = {"checks": {m: {} for m in modes}, "times": {m: {} for m in modes}, "kernels_per_forward": {}}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.inference_mode():
+        audio = torch.from_numpy((rng.standard_normal((RF_BATCHES[-1], 16000)) * 0.2).astype(np.float32)).to(dev)
+        feats = mfcc_kernel.mfcc(audio)
+        del audio
+        models = forward_models(torch, dev)
+        for conf, model in models.items():
+            batches = RF_BATCHES if conf in ("res8", "res26") else (RF_NARROW_BATCH,)
+            w0, pool, n_lab = model.conv0.weight, model.pool, model.output.out_features
+            C, L, H, W = model.n_maps, model.n_layers, 101 // pool[0], 40 // pool[1]
+            for mode, (compute, act) in modes.items():
+                packed = res_kernel.pack_res_params(model, compute, act)
+                stem_dtype = bf16 if mode == "bfloat16_activations" else f32
+                for b in batches:
+                    f, label = feats[:b].contiguous(), f"{conf} B={b}"
+                    cs = res_kernel.cluster_size(b, C, H, W, n_sm, compute, act)
+                    geo = {"cluster": cs, "smem_bytes": res_kernel.smem_bytes(C, H, W, cs, compute, act)}
+                    if mode == "float32":
+                        got = res_kernel.res_forward(f, w0, pool, *packed)
+                        ref = res_kernel.res_forward_plain(f, w0, pool, *packed)
+                        torch.cuda.synchronize()
+                        err = max_err(got, ref)
+                        if got.shape != (b, n_lab) or not torch.isfinite(got).all() or not close(got, ref, **RES_TOL):
+                            fail(f"res_forward float32 against its plain version, {label}: shape "
+                                 f"{tuple(got.shape)}, max abs err {err:.3e}")
+                        check = {"max_abs_err": err}
+                    else:
+                        refuse = conf == "res8" and b == BF16_FULL_ROWS
+                        reading, differ, near, _, _ = check_bf16_case(
+                            torch, res_kernel, mode, label, model.stem(f, stem_dtype), packed, tag="res_forward",
+                            refuse_faults=refuse, forward=(f, w0, pool), run_faults=refuse,
+                            stem=stem_faults(torch, f, w0, pool, mode) if refuse else None)
+                        check = {"max_abs_err": reading["full"]["rows"]["max"], **reading,
+                                 "argmax_differs_plain": differ, "near_ties": near}
+                    out["checks"][mode][label] = {**check, "geometry": geo}
+                    if conf not in ("res8", "res26"):
+                        continue
+                    iters = 100 if b <= 8 else 20 if b <= BF16_FULL_ROWS else 10 if b <= 1024 else 5
+                    kw = dict(compute_dtype=compute, activation_dtype=act)
+                    t = {"ms": time_ms(torch, lambda: res_kernel.res_forward(f, w0, pool, *packed, **kw), iters),
+                         "two_launch_ms": time_ms(torch, lambda: res_kernel.res_stack(model.stem(f, stem_dtype),
+                                                                                    *packed, **kw), iters),
+                         "plain_ms": time_ms(torch, lambda: res_kernel.res_forward_plain(f, w0, pool, *packed, **kw),
+                                             min(iters, 5))}
+                    t["bound_ms"], t["bound_by"] = forward_bound(b, C, H, W, L, n_lab, pool, name, mode)
+                    t["bytes_ms"] = forward_work(b, C, H, W, L, n_lab, *pool, mode)[2] / peaks(name)[3] * 1e3
+                    out["times"][mode].setdefault(conf, {})[b] = t
+            torch.cuda.empty_cache()
+
+        # One kernel per eval forward, and the main path's entry.
+        f256, f8 = feats[:BF16_FULL_ROWS].contiguous(), feats[:8].contiguous()
+        forwards = {}
+        for conf in ("res8", "res26"):
+            m16 = SpeechResModel(find_config(conf), dtype=bf16)
+            m16.load_state_dict(models[conf].state_dict())
+            for dtype, m in (("float32", models[conf]), ("bfloat16", m16.to(dev).eval())):
+                ops = m.eval_operands()
+                for b, f in ((BF16_FULL_ROWS, f256), (8, f8)):
+                    forwards[f"{conf} {dtype} eval forward B={b}"] = lambda m=m, ops=ops, f=f: m(f, packed=ops)
+        fused_ops = res_kernel.pack_res_params(models["res8"], bf16)
+        forwards[f"res_forward_fused res8 B={BF16_FULL_ROWS}"] = lambda: res_kernel.res_forward_fused(
+            models["res8"], f256, packed=fused_ops)
+        for label, fn in forwards.items():
+            names = device_kernels(torch, fn)
+            out["kernels_per_forward"][label] = names
+            if len(names) != 1 or "res_stack_kernel" not in names[0]:
+                fail(f"{label}: {len(names)} device kernels, not the res stack's one: {names}")
+            reset(counters)
+            fn()
+            launched = read(counters, bf16=True)
+            if launched["res_stack"] != 1 or launched.by_entry != {"res_forward": 1, "res_stack": 0}:
+                fail(f"{label}: res stack launches {launched['res_stack']} by entry {launched.by_entry}, "
+                     "expected one res_forward")
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"[res_forward] {smi}: the res stack from the features (the stem inside) against its plain version "
+          f"(float32 {RES_TOL}, bf16 modes by rows as phase 29), one kernel per eval forward, CUDA-event times "
+          f"beside the two-launch path and the bound: " + json.dumps(out))
+    return out
+
+
 def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
     """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
     from zoo/res8/best on the card against the .pt service's answers; if not,
@@ -3487,6 +3738,8 @@ def main() -> int:
 
     # 29. The res stack's bf16 mode against its plain version, and its times beside the f32 mode's.
     bf16_kernel = phase_bf16_kernel(torch, dev, res_kernel, mfcc_kernel, logs, name, smi)
+    # 50. The res stack with the stem inside: every res8 / res26 eval forward is one launch.
+    res_fwd = phase_res_forward(torch, dev, counters, name, smi)
 
     # 8-11. The training path.
     assemble_err, arrays, aug = phase_assemble(torch, dev, A, assemble_kernel)
@@ -3683,6 +3936,19 @@ def main() -> int:
         k["library_leg"], k["library_leg_ms"], k["library_leg_kernel_ms"] = library_legs.get(k["name"], (None,) * 3)
         k["max_abs_err_at_tool_shapes"] = {label: v["max_abs_err"] if isinstance(v, dict) else v
                                            for label, v in tool_errs.get(k["name"], {}).items()}
+    # Phase 50: each mode's entry from the features (res_forward, the stem inside) at
+    # RF_BATCHES beside the two-launch path it replaced, and the res stack's
+    # launches by entry on every path.
+    for k in kernels:
+        mode = {"res_stack": "float32", "res_stack[bf16]": "bfloat16",
+                "res_stack[bf16_activations]": "bfloat16_activations"}.get(k["name"])
+        if mode:
+            k["forward"] = {"entry": "res_forward", "by_model_batch": res_fwd["times"][mode],
+                            "max_abs_err": {label: c["max_abs_err"] for label, c in res_fwd["checks"][mode].items()},
+                            "library_ms": None}
+        if k["name"] == "res_stack":
+            k["launches_by_entry_by_path"] = {p: v.by_entry for p, v in by_path.items()}
+            k["kernels_per_forward"] = {label: len(v) for label, v in res_fwd["kernels_per_forward"].items()}
     print(json.dumps({"build_s": build_s, "listen_host_ms": [s * 1e3 for s in listen_s],
                       "evaluate_host_ms": [s * 1e3 for s in evaluate_s],
                       "train_steps_cuda_vs_cpu": train_step_errs,
@@ -3696,7 +3962,8 @@ def main() -> int:
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
                       "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
                       "recipe": recipe, "scaling": scaling, "tools": tools,
-                      "profile_tools": {k: v for k, v in profile_tools.items() if k != "paths"}}))
+                      "profile_tools": {k: v for k, v in profile_tools.items() if k != "paths"},
+                      "res_forward": {k: v for k, v in res_fwd.items() if k != "times"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -39,8 +39,8 @@ def use_full_f32() -> None:
 
     cuDNN runs f32 convolutions in TF32 by default on Hopper, which keeps
     about three decimal digits and breaks the 2e-4 logit parity gate against
-    the reference. The serving path's conv0 is a cuDNN convolution, so
-    ``LabelService`` calls this before its first forward.
+    the reference. The serving path of res15 and the CNNs runs cuDNN
+    convolutions, so ``LabelService`` calls this before its first forward.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -11,9 +11,9 @@ from ``default_rng(0)``, on the device) plus ``acc * 1e-12``, a forward,
 and ``acc += logits.sum()``. The legs:
 
 - ``fused`` (the reference's ``res_forward_fused``, the Pallas kernel):
-  ``ops.res_forward_fused``, a float32 stem (cuDNN's conv0 and the pool),
-  then the res-stack kernel's ``bfloat16`` mode (bf16 operands, float32
-  activations, the TPU kernel's); its operands packed once;
+  ``ops.res_forward_fused``, one launch of the res-stack kernel's
+  ``bfloat16`` mode (bf16 operands, float32 activations, the TPU kernel's)
+  with a float32 stem (conv0 and the pool) inside; its operands packed once;
 - ``xla`` (flax's bf16 ``apply`` run by XLA): the library path of the same
   bf16 dtype flow, ``model._folded_stack(feats, bf16, *fold_bn(model))``:
   cuDNN's bf16 convs and PyTorch's elementwise ops, BN folded once. That is
@@ -21,7 +21,7 @@ and ``acc += logits.sum()``. The legs:
   ``model(feats)``, which runs the kernel;
 - printed first, on a line of its own and not in the JSON: the bf16
   model's own eval forward ``model(feats)``, the kernel's
-  ``bfloat16_activations`` mode behind a bf16 stem, what a user runs.
+  ``bfloat16_activations`` mode with its bf16 stem inside, what a user runs.
 
 Each leg's time is ``cli.bench.marginal``: the median over reps of the
 marginal between the two chain lengths, after one untimed chain of each.

@@ -15,8 +15,8 @@ reference's order. Four legs, each a chain of links ``c -> |out[0, 0(, 0)]|
 - ``frontend_pallas`` (the Pallas MFCC): the MFCC kernel
   (``frontend.mfcc.compute_mfccs``);
 - ``{model}_model_only`` (flax's ``apply``): ``model(feats)``, the float32
-  eval forward (res8 / res26: cuDNN's conv0 and pool, then the res-stack
-  kernel's float32 mode; res15 / cnn-*: cuDNN);
+  eval forward (res8 / res26: one launch of the res-stack kernel's float32
+  mode, conv0 and the pool inside; res15 / cnn-*: cuDNN);
 - ``{model}_full_fwd``: ``model(compute_mfccs(audio))``, the port's path.
 
 A leg's time is ``cli.bench.marginal`` between chains of ``CHAINS`` (the

@@ -14,8 +14,9 @@ map to the card so:
 - ``pmfcc`` (the Pallas MFCC, then flax): the MFCC kernel, then
   ``_folded_stack``;
 - ``mk`` (XLA's MFCC, then the Pallas res kernel ``res_forward_fused``):
-  ``mfcc_plain``, then ``ops.res_forward_fused`` (float32 stem, the res
-  stack's ``bfloat16`` mode, the reference's default operand type);
+  ``mfcc_plain``, then ``ops.res_forward_fused`` (one launch of the res
+  stack in its ``bfloat16`` mode, the reference's default operand type,
+  a float32 stem inside);
 - ``mfcc_only``: ``mfcc_plain``; ``pmfcc_only``: the MFCC kernel.
 
 A link is the reference's scan body, ``acc = sum(fn(audio + acc 1e-12)) *

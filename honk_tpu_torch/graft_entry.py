@@ -2,7 +2,8 @@
 
 - ``entry()`` returns ``(fn, example_args)``: the raw-audio -> logits
   forward of res8 at full width in float32 (``train.make_forward``: the MFCC
-  kernel, conv0 and the pool, the res-stack kernel in its float32 mode), on
+  kernel, then the res-stack kernel in its float32 mode, conv0 and the pool
+  inside it), on
   weights drawn from a seeded generator (``init_weights``) and eight seeded
   utterances of noise, ``default_rng(0).standard_normal((8, 16000)) * 0.1``
   in float32 as the reference draws them. On the card, ``fn(*args)``

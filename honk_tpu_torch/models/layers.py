@@ -20,6 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.res_kernel import chained_avg_pool
+
 # Standard deviation of a standard normal truncated to [-2, 2]: flax's
 # truncated_normal(stddev) scales its [-2, 2] samples by stddev / this.
 _TRUNC_STD = 0.87962566103423978
@@ -95,13 +97,7 @@ class _ChainedAvgPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:
         ctx.shape, ctx.window = x.shape, window
-        v = _windows(x, window)
-        acc = v[:, :, :, 0, :, 0]
-        for i in range(window[0]):
-            for j in range(window[1]):
-                if i or j:
-                    acc = acc + v[:, :, :, i, :, j]
-        return acc / (window[0] * window[1])
+        return chained_avg_pool(x, window)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):

@@ -23,13 +23,13 @@ computes: a float32 model (every service, ``--type eval``) is float32
 throughout; a bf16 one (a training run's dev and test sweeps at the
 default ``--compute_dtype bfloat16``, ``make_forward`` of a bf16 model)
 follows flax's dtype flow, as in training (below), with BN from the
-running statistics rounded back to bf16. For res8 and res26 it runs conv0
-(``layers.conv`` in ``dtype``), ReLU and the pool (``layers.avg_pool``) as
-PyTorch ops (``stem``, bf16 in a bf16 model) and the rest through the
-res-stack kernel's wrapper: float32 in a float32 model, its
-``bfloat16_activations`` mode in a bf16 one (bf16 operands, each layer's
-output, the residual sum and BN's output rounded to bf16, the mean in
-float32 and a float32 Dense). The kernel's ``bfloat16`` mode, the TPU
+running statistics rounded back to bf16. For res8 and res26 it is one
+launch of the res-stack kernel from the features (``res_forward``): conv0,
+ReLU and the pool (``stem``'s flow, bf16 in a bf16 model) and the stack,
+float32 in a float32 model, its ``bfloat16_activations`` mode in a bf16
+one (bf16 operands, each layer's output, the residual sum and BN's output
+rounded to bf16, the mean in float32 and a float32 Dense). The kernel's
+``bfloat16`` mode, the TPU
 kernel's float32 activations with a bf16 Dense, is not on this path. The
 kernel takes no dilated convs (nor does the TPU's), so res15 runs every
 conv through cuDNN in ``dtype`` with flax's dtype flow, with BN folded as
@@ -64,7 +64,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_stack
+from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_forward, stem_plain
 from ..parallel.mesh import DataMesh
 from .layers import avg_pool, conv
 
@@ -102,12 +102,11 @@ class SpeechResModel(nn.Module):
 
     def stem(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """conv0 -> ReLU -> pool in ``dtype``'s flow (flax's: in bf16 each returns
-        bf16, the pool ``layers.avg_pool``): (B, 101, 40) -> (B, C, H, W) float32,
-        the res-stack kernel's input (holding bf16 values for a bf16 ``dtype``)."""
-        y = F.relu(conv(self.conv0, x[:, None], dtype))
-        if self.pool is not None:
-            y = avg_pool(y, self.pool)
-        return y.float().contiguous()
+        bf16, the pool ``layers.avg_pool``'s chain): (B, 101, 40) -> (B, C, H, W)
+        float32, the TPU kernel's input (holding bf16 values for a bf16
+        ``dtype``), as PyTorch ops (``res_kernel.stem_plain``). The eval
+        forward runs it inside the kernel."""
+        return stem_plain(x, self.conv0.weight, self.pool, dtype)
 
     def forward(self, x: torch.Tensor, packed: tuple[torch.Tensor, ...] | None = None,
                 dropout: Any = None, mesh: DataMesh | None = None) -> torch.Tensor:
@@ -124,8 +123,8 @@ class SpeechResModel(nn.Module):
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
-            return res_stack(self.stem(x, self.dtype), *packed, compute_dtype=self.dtype,
-                             activation_dtype=self.dtype)
+            return res_forward(x.contiguous(), self.conv0.weight, self.pool, *packed, compute_dtype=self.dtype,
+                               activation_dtype=self.dtype)
         return self._folded_stack(x, self.dtype, *packed)
 
     def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:

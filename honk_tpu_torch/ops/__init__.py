@@ -7,9 +7,11 @@ first use by ``_build``. Importing these modules builds nothing.
 
 from .assemble_kernel import assemble, assemble_plain, pack_noise_subrows, pack_pool_subrows
 from .mfcc_kernel import mfcc, mfcc_plain
-from .res_kernel import pack_res_params, res_forward_fused, res_stack, res_stack_plain
+from .res_kernel import (pack_res_params, res_forward, res_forward_fused, res_forward_plain, res_stack,
+                         res_stack_plain)
 
 __all__ = [
     "assemble", "assemble_plain", "mfcc", "mfcc_plain", "pack_noise_subrows",
-    "pack_pool_subrows", "pack_res_params", "res_forward_fused", "res_stack", "res_stack_plain",
+    "pack_pool_subrows", "pack_res_params", "res_forward", "res_forward_fused", "res_forward_plain", "res_stack",
+    "res_stack_plain",
 ]

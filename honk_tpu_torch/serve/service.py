@@ -6,9 +6,9 @@ Counterparts of ``honk_tpu.serve.service`` (reference
 - ``LabelService.evaluate(audio)`` trims/pads to 1 s, runs MFCC +
   classifier, softmax, argmax, for any of the 16 model configs. On ``cuda``
   (the default) the forward is the MFCC kernel, then the model's eval
-  forward: for res8 / res26 conv0 + pool in PyTorch and the res-stack
-  kernel, for res15 and cnn-* cuDNN convs and cuBLAS dense layers, all in
-  float32 with TF32 off. ``evaluate_long`` runs continuous detection over
+  forward: for res8 / res26 one launch of the res-stack kernel (conv0 and
+  the pool inside), for res15 and cnn-* cuDNN convs and cuBLAS dense
+  layers, all in float32 with TF32 off. ``evaluate_long`` runs continuous detection over
   long audio (``stream.stream_file``: one MFCC launch for the whole
   waveform, one model call for all its windows), and ``make_batch_streamer``
   gives the online slab the stream hub serves from. It takes a honk ``.pt``,

@@ -223,8 +223,10 @@ def test_bf16_geometry_fits_with_the_deeper_channel_stride(conf, H, W):
     band = -(-H // 8)
     stride = kt * 16 + 8  # every K chunk of 16 inside a pixel's channels, == 8 mod 16
     assert stride % 16 == 8 and stride >= kt * 16 >= C
-    act = -(-((band + 2) * (W + 2) * stride) // 4) * 4
-    want = 4 * (2 * act + band * W * stride + res_kernel.STAGES * kt * nt * 64)
+    # Activations held as bf16 values, the carry as float32 at C a pixel, two
+    # stages of a layer's 9 taps of bf16 tiles (csrc/res_stack.cu Layout).
+    act = -(-((band + 2) * (W + 2) * stride * 2) // 16) * 16
+    want = 2 * act + -(-(band * W * C * 4) // 16) * 16 + res_kernel.WBUFS * 9 * kt * nt * 128 * 2
     assert res_kernel.smem_bytes(C, H, W, 8, torch.bfloat16) == want
     # A weight stage is at most half the 3xTF32 mode's (half the bytes a value, one tile, not two;
     # a quarter where K pads no further than N, as res8's 45 maps to 48).
