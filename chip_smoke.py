@@ -141,7 +141,7 @@ hard_v2 corpus, 24 last):
     through it equals the Python reader's, and the load times of both;
 
 then the bf16 eval path and the Orbax loader (29 right after phase 7, 30
-after phase 16, 31 last):
+after phase 16, 31 after phase 34):
 
 29. the res stack's two bf16 modes against their plain versions (bf16
     operands, float32 sums). The bf16 mode (the TPU kernel's float32
@@ -173,9 +173,16 @@ after phase 16, 31 last):
     bf16-mode launch, cuda against the CPU by the same rows. Whether the
     port's bf16 forward computes flax's bf16 apply is held on the CPU
     (tests/test_torch_bf16.py), not here;
-31. the Orbax loader: whether tensorstore imports; if it does, /listen from
-    zoo/res8/best against the zoo/res8.pt service's answers, if not, the
-    refusal LabelService raises for it;
+31. the Orbax loader, the port's own (ckpt.ocdbt, ckpt.zstd on the system's
+    libzstd): the decoder report (whether ctypes finds and opens libzstd,
+    and whether zstandard, numcodecs and tensorstore import); all 14
+    committed best/ directories read on the host, each bit for bit its
+    sibling .pt, with the host ms of each load beside the .pt's; /listen x4
+    from zoo/res8/best against the zoo/res8.pt service's answers, one MFCC
+    and one res_forward launch a request; the serving CLI built on
+    --checkpoint zoo/res8; and cli.train --type eval --input_file
+    zoo_hard_v2/res15/best on phase 14's corpus, equal to the same CLI on
+    res15.pt and to phase 14's res15 accuracy, one MFCC launch a batch;
 32. the stream hub sharded over ranks (StreamHub(data_axis="data"), int16
     wire): at world size 1 on NCCL over HTTP (make_handler with a
     TrainingService at PERSONALIZE_LR), eight sessions on phase 20's
@@ -3531,40 +3538,83 @@ def phase_res_forward(torch, dev, counters, name, smi) -> dict:
     return out
 
 
-def phase_orbax(torch, counters, serve, requests, svc, smi) -> dict:
-    """31. The Orbax loader: whether tensorstore imports here; if it does, /listen
-    from zoo/res8/best on the card against the .pt service's answers; if not,
-    LabelService refuses the directory, naming tensorstore."""
-    from honk_tpu_torch.ckpt.orbax import REFUSAL
+def phase_orbax(torch, counters, serve, requests, svc, hard_v2_root, hard_v2, smi) -> dict:
+    """31. The port's Orbax reader on the card's machine: the decoder report, all 14
+    committed best/ directories against their .pt, /listen from zoo/res8/best,
+    the serving CLI on zoo/res8, and --type eval of zoo_hard_v2/res15/best on
+    phase 14's corpus. A directory that does not load fails the run."""
+    import ctypes.util
+    import glob
+    import importlib
+
+    from honk_tpu_torch.ckpt import read_state_dict, zstd
+    from honk_tpu_torch.cli.serve import make_server
+    from honk_tpu_torch.cli.train import main as cli_main
     from honk_tpu_torch.serve import LabelService
 
-    best = os.path.join(ROOT, "zoo", "res8", "best")
-    try:
-        import tensorstore  # noqa: F401
-        out = {"tensorstore": True}
-    except ImportError:
-        out = {"tensorstore": False}
-    print(f"[orbax] tensorstore imports here: {out['tensorstore']}")
-    if not out["tensorstore"]:
+    report = {"find_library_zstd": ctypes.util.find_library("zstd"), "decoder": zstd.describe()}
+    for module in ("zstandard", "numcodecs", "tensorstore"):
         try:
-            LabelService("res8", best)
-        except RuntimeError as e:
-            if REFUSAL not in str(e):
-                raise
-            out["refused"] = str(e)
-        else:
-            fail("LabelService loaded an Orbax checkpoint without tensorstore")
-        print(f"[orbax] {smi}: tensorstore is not installed on this machine; LabelService refused "
-              f"zoo/res8/best: {out['refused']}")
-        return out
-    orbax = LabelService("res8", best)
+            importlib.import_module(module)
+            report[f"{module}_imports"] = True
+        except ImportError:
+            report[f"{module}_imports"] = False
+    print(f"[orbax] {smi}: decoder report " + json.dumps(report))
+    out = {"report": report, "loads": {}}
+    for best in sorted(os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "zoo*", "*", "best"))):
+        t0 = time.perf_counter()
+        got = read_state_dict(os.path.join(ROOT, best))
+        orbax_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        pt = torch.load(os.path.join(ROOT, best[: -len("/best")] + ".pt"), map_location="cpu", weights_only=True)
+        pt_ms = (time.perf_counter() - t0) * 1e3
+        pt = {k: v for k, v in pt.items() if not k.endswith(".num_batches_tracked")}
+        if got.keys() != pt.keys() or not all(got[k].dtype == v.dtype and torch.equal(got[k], v)
+                                              for k, v in pt.items()):
+            fail(f"{best} does not load bit for bit equal to its .pt")
+        out["loads"][best] = {"orbax_ms": orbax_ms, "pt_ms": pt_ms, "tensors": len(pt)}
+    if len(out["loads"]) != 14:
+        fail(f"found {len(out['loads'])} committed best/ directories, not 14")
+    print(f"[orbax] {smi}: all {len(out['loads'])} best/ directories equal their .pt bit for bit; host ms to "
+          "load each (Orbax, then .pt): " + json.dumps(out["loads"]))
+
+    orbax = LabelService("res8", os.path.join(ROOT, "zoo", "res8", "best"))
     if not all(torch.equal(a, b) for a, b in zip(orbax._packed, svc._packed)):
         fail("zoo/res8/best's kernel operands differ from zoo/res8.pt's")
     _, out["launches"] = listen(orbax, svc, requests, counters, serve)
-    if out["launches"] != {"mfcc": len(requests), "res_stack": len(requests), "assemble": 0}:
-        fail(f"/listen from zoo/res8/best launched {out['launches']}")
-    print(f"[orbax] {smi}: /listen x{len(requests)} from zoo/res8/best answered like the zoo/res8.pt service; "
-          + json.dumps(out))
+    n = len(requests)
+    if out["launches"] != {"mfcc": n, "res_stack": n, "assemble": 0} or \
+            out["launches"].by_entry.get("res_forward") != n:
+        fail(f"/listen from zoo/res8/best launched {out['launches']} ({out['launches'].by_entry})")
+    print(f"[orbax] {smi}: /listen x{n} from zoo/res8/best answered like the zoo/res8.pt service; launches "
+          f"{dict(out['launches'])}, res stack by entry {out['launches'].by_entry}")
+
+    httpd = make_server(["--checkpoint", os.path.join(ROOT, "zoo", "res8"), "--port", "0"])
+    httpd.server_close()
+    print(f"[orbax] cli.serve --checkpoint zoo/res8 built its server on port {httpd.server_address[1]}")
+
+    argv = ["--type", "eval", "--model", "res15", "--data_dir", hard_v2_root, "--dev_pct", "10", "--test_pct", "80",
+            "--eval_batch_size", str(BATCH), "--input_file"]
+    n_test = hard_v2_manifest()["split_sizes"]["test"]  # phase 14 holds the corpus to it
+    n_batches = math.ceil(n_test / BATCH)
+    acc = {}
+    for source in ("best", "pt"):
+        path = os.path.join(HARD_V2, "res15", "best") if source == "best" else os.path.join(HARD_V2, "res15.pt")
+        reset(counters)
+        rc, text = run_cli(cli_main, [*argv, path])
+        launches = read(counters)
+        if rc != 0 or launches != {"assemble": 0, "mfcc": n_batches, "res_stack": 0}:
+            fail(f"cli.train --type eval --input_file {os.path.relpath(path, ROOT)} returned {rc}, launched {launches}")
+        acc[source] = final_accuracy(text)
+        if source == "best":
+            out["eval_launches"] = launches
+    phase14 = hard_v2["models"]["res15"]["acc"]
+    out["eval"] = {"orbax": acc["best"], "pt": acc["pt"], "phase14": phase14,
+                   "clips_from_phase14": round(abs(acc["best"] - phase14) * n_test)}
+    if acc["best"] != acc["pt"] or abs(acc["best"] - phase14) > HARD_V2_ACC_ATOL:
+        fail(f"--type eval of zoo_hard_v2/res15/best: {out['eval']}")
+    print(f"[orbax] {smi}: cli.train --type eval --input_file zoo_hard_v2/res15/best on the hard_v2 corpus: "
+          f"{json.dumps(out['eval'])}, launches {dict(out['eval_launches'])}")
     return out
 
 
@@ -3801,6 +3851,8 @@ def main() -> int:
                                     {"res8": train_modes, **{c: v[3] for c, v in family_train.items()}}, smi)
         # 34. The recipe's accuracy: cli.zoo build res8 and res15 on hard_v2, compare against zoo_hard_v2.
         recipe = phase_recipe(torch, counters, os.path.join(tmp, "hard_v2"), tmp, smi)
+        # 31. The port's Orbax reader: all 14 best/ directories, /listen, cli.serve and --type eval from them.
+        orbax = phase_orbax(torch, counters, serve, requests[:4], svc, os.path.join(tmp, "hard_v2"), hard_v2, smi)
 
     # 17-21. Streaming: the MFCC kernel's causal framing, offline, online, the hub over HTTP, res15 and cnn.
     streaming = phase_streaming(torch, dev, svc, cpu, counters, serve, family_services, mfcc_kernel, name)
@@ -3816,9 +3868,6 @@ def main() -> int:
     worker = phase_worker_thread(torch, {"res8": svc, "res15": family_services["res15"][0],
                                          "cnn-trad-pool2": family_services["cnn-trad-pool2"][0]},
                                  serve, streaming["hub"], smi)
-
-    # 31. The Orbax loader (tensorstore where the machine has it, else its refusal).
-    orbax = phase_orbax(torch, counters, serve, requests[:4], svc, smi)
 
     # 32. The stream hub sharded over ranks: world size 1 on NCCL, then two gloo ranks on the card.
     hub_ranks = phase_hub_ranks(torch, counters, smi)
@@ -3854,7 +3903,8 @@ def main() -> int:
         "train_res8_nccl_world1": data_parallel["launches"], "dryrun_1": data_parallel["dryrun_launches"],
         "stream_offline_res8_data_axis": data_parallel["stream_file_launches"],
         "stream_batch8_res8_data_axis": data_parallel["batch_streamer_launches"],
-        "make_forward_res8_bf16": bf16_eval["launches"], "listen_res8_orbax": orbax.get("launches"),
+        "make_forward_res8_bf16": bf16_eval["launches"], "listen_res8_orbax": orbax["launches"],
+        "eval_res15_orbax": orbax["eval_launches"],
         "res_forward_fused_res8": bf16_eval["fused"]["launches"],
         **{f"recipe_build_{c}": m["launches"] for c, m in recipe["models"].items()},
         "recipe_compare": recipe["compare_launches"],

@@ -16,8 +16,8 @@ the latest. Files in a checkpoint directory:
 Everything is saved from CPU copies and loaded with ``weights_only=True``
 (tensors, numbers, strings and dicts; no pickled code). The port writes
 only ``.pt`` files. ``read_state_dict`` also reads a JAX run's Orbax
-weights (``best/``, through ``ckpt.orbax``, which needs ``tensorstore``);
-a directory of Orbax *step* checkpoints (a JAX run's resume payload) is
+weights (``best/``, through ``ckpt.orbax``, which reads them itself); a
+directory of Orbax *step* checkpoints (a JAX run's resume payload) is
 refused as a resume source.
 """
 

@@ -14,8 +14,8 @@ Counterpart of ``python -m honk_tpu.cli.serve``:
 --config accepts a reference-style config.json with keys
 {"model_path": ..., "commands": "cmd1,cmd2,..."}. The checkpoint is a honk
 ``.pt`` file or, as for the JAX server, an Orbax checkpoint directory
-(``zoo/res8/best`` or ``zoo/res8``; it needs ``tensorstore``, and is refused
-before the server starts where that is missing). ``--device`` defaults to
+(``zoo/res8/best`` or ``zoo/res8``, read by the port itself; a path that
+is neither is refused before the server starts). ``--device`` defaults to
 cuda and fails where no CUDA device
 is present; the stream hub (``/stream/*``) and ``/train`` run on the same
 device. ``--no-train`` turns personalization off: ``/train`` answers 503.
@@ -76,7 +76,7 @@ def make_server(argv: list[str] | None = None):
     if checkpoint and is_orbax_path(checkpoint):
         try:
             check(checkpoint)
-        except (FileNotFoundError, RuntimeError) as e:
+        except FileNotFoundError as e:
             p.error(f"checkpoint: {e}")
     service = LabelService(args.model, checkpoint, labels=labels, device=args.device)
     httpd = serve(

@@ -28,8 +28,8 @@ and writes the checkpoints. ``--profile-dir`` writes ``torch.profiler``
 traces of the first dispatch and the first dev eval (``metrics.trace_to``).
 ``--input_file`` is a honk ``.pt`` or, as for the JAX CLI, an Orbax
 checkpoint directory (a run's ``best/`` or the run directory holding it),
-read with ``tensorstore``; where that is not installed, an Orbax
-``--input_file`` is refused before any work.
+which the port reads itself (``ckpt.orbax``). A path that is neither is
+refused before any work.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def _refuse(p: argparse.ArgumentParser, args: argparse.Namespace) -> None:
     if args.input_file and is_orbax_path(args.input_file):
         try:
             check(args.input_file)
-        except (FileNotFoundError, RuntimeError) as e:
+        except FileNotFoundError as e:
             p.error(f"--input_file: {e}")
     if args.type == "eval" and not args.input_file:
         p.error("--type eval needs --input_file (a honk .pt or an Orbax checkpoint directory)")

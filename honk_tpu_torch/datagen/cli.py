@@ -11,8 +11,8 @@
 The JAX CLI's flags, plus ``--device`` (default cuda; with
 ``--eval_checkpoint`` it fails where no CUDA device is present, before any
 clip is written). ``--eval_checkpoint`` takes a honk ``.pt`` or, as the
-JAX CLI's, an Orbax checkpoint directory (it needs ``tensorstore``: where
-that is missing, it is refused before any clip is written).
+JAX CLI's, an Orbax checkpoint directory (a path that is neither is
+refused before any clip is written).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
         if is_orbax_path(args.eval_checkpoint):
             try:
                 check(args.eval_checkpoint)
-            except (FileNotFoundError, RuntimeError) as e:
+            except FileNotFoundError as e:
                 p.error(f"--eval_checkpoint: {e}")
         resolve_device(args.device)
     if args.source == "local":

@@ -13,9 +13,8 @@ Counterparts of ``honk_tpu.serve.service`` (reference
   waveform, one model call for all its windows), and ``make_batch_streamer``
   gives the online slab the stream hub serves from. It takes a honk ``.pt``,
   an Orbax checkpoint directory of the JAX package (``ckpt.read_state_dict``:
-  ``zoo/res8/best`` or the run directory ``zoo/res8``; it needs
-  ``tensorstore``, and raises saying so where that is missing) or a state
-  dict in the port's names; ``set_variables`` swaps in new weights.
+  ``zoo/res8/best`` or the run directory ``zoo/res8``, read by the port
+  itself) or a state dict in the port's names; ``set_variables`` swaps in new weights.
 - ``TrainingService.fine_tune`` personalizes: the JAX method step for step
   (positives, their contrastive scrambles as ``__unknown__``, SGD with
   momentum on the mean cross-entropy, BN frozen), on a copy of the

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """res8 data-parallel training on NCCL ranks, rank r on card r, on the cards of one host.
 
-    python scripts/chip_train_nccl.py [--worlds 2 4] [--sections steps f32 bf16 dryrun scaling gap dead]
-                                      [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240] [--device cpu]
+    python scripts/chip_train_nccl.py [--worlds 2 4]
+        [--sections steps f32 bf16 dryrun scaling gap dead bf16steps repeat]
+        [--recipe_seeds 0] [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240] [--device cpu]
 
 Needs as many cards as the largest world, and exits 1 with fewer
 (``--device cpu`` rehearses the script on gloo ranks, where no kernel
@@ -37,10 +38,11 @@ cards' name and power limit, then one JSON line of the readings, and exits
    - One epoch on the first world resumed on it is bitwise its 2-epoch run.
 3. ``bf16``, zoo_hard_v2's recipe: hard_v2 regenerated as
    ``scripts/chip_recipe.py`` does, res8 and res15 trained through ``python
-   -m honk_tpu_torch.cli.train --n_devices <largest world>``, then scored by
-   ``cli.zoo``'s ``compare_zoo`` against zoo_hard_v2. The gate is
-   chip_smoke.py phase 34's: each float32 recheck inside the JAX package's
-   seeds 0-2 widened by 2 SE, and res15 over res8 at McNemar z > 0.
+   -m honk_tpu_torch.cli.train --n_devices <largest world>`` from each of
+   ``--recipe_seeds``, then scored by ``cli.zoo``'s ``compare_zoo`` against
+   zoo_hard_v2. The gate is chip_smoke.py phase 34's: each float32 recheck
+   inside the JAX package's seeds 0-2 widened by 2 SE, and res15 over res8
+   at McNemar z > 0.
 4. ``dryrun``: ``honk_tpu_torch.parallel.dryrun`` through its join flags on
    each world. Rank 0 reports the six paths ok, and every rank launches
    what ``dryrun_multichip(1)`` launches in this process.
@@ -68,6 +70,26 @@ cards' name and power limit, then one JSON line of the readings, and exits
    pending signals, ``wchan``, ``stack``, each thread's state) and
    ``nvidia-smi``'s compute processes.
 
+8. ``bf16steps``, ROADMAP §3.2 step by step on the cards:
+   ``tests/test_torch_bf16_ranks.py``'s comparison (res8-narrow, B=16, lr
+   0.01, STEPS_N steps from seed-0 weights on cli.scaling's clips) with the
+   port's own draws, in bf16 and float32, on 1 rank twice and on 2 NCCL
+   ranks, with cuDNN's default algorithms and with its deterministic ones,
+   and the same on 1 and 2 gloo ranks on the host's CPU. After each step:
+   the 1-vs-2-rank distance over the parameters and over BN's running
+   statistics (Frobenius), each as a share of the 2-rank bf16-to-float32
+   distance (the test's unit), the largest absolute difference (the gap
+   section's measure), and the 1-vs-1 distance of two processes (the
+   card's run-to-run noise). Read, not gated, but for the ranks of a world
+   being bitwise equal.
+9. ``repeat``, ROADMAP §3.5: two float32 ``cli.train`` runs of res8 and of
+   res15 from seed 0 at zoo_hard_v2's recipe (its corpus, 26 epochs, B=64,
+   the lr ladder, the float32 dtype), each in a process of its own, with
+   ``torch.backends.cudnn.deterministic`` set and without, at once on four
+   cards. Reads whether each pair's weights are bitwise equal, their test
+   accuracies, and the mean training rate of each run (the metrics'
+   ``audio_s_per_s`` over the epochs after the first). Read, not gated.
+
 Imports nothing of JAX. Its default worlds need four cards of one host.
 """
 
@@ -92,7 +114,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import chip_smoke as C  # noqa: E402
 
-SECTIONS = ("steps", "f32", "bf16", "dryrun", "scaling", "gap", "dead")
+SECTIONS = ("steps", "f32", "bf16", "dryrun", "scaling", "gap", "dead", "bf16steps", "repeat")
 # A killed rank stops beating at once; the launcher sees it silent after
 # parallel.runtime.HEARTBEAT_TIMEOUT_S, kills the others and waits up to
 # EXIT_WAIT_S for them to be gone.
@@ -112,6 +134,9 @@ JAX_STEP_COLLECTIVES = {"all_reduces": 13, "bytes": 441_244 + 12 * 360}
 # Every tensor the port's train step reduces across ranks is float32 (the
 # gradients, BN's sums, the metrics): 4 bytes per element a collective records.
 REDUCED_BYTES = 4
+# The bf16steps section: tests/test_torch_bf16_ranks.py's config, batch and steps.
+STEPS_CONF, STEPS_BATCH, STEPS_N = "res8-narrow", 16, 3
+REPEAT_MODELS = ("res8", "res15")
 
 
 def launches(counters) -> dict:
@@ -169,6 +194,38 @@ def dp_steps(world: int, device: str) -> dict:
     return {"losses": losses, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
 
 
+def dtype_steps(world: int, device: str) -> dict:
+    """STEPS_N train steps of STEPS_CONF at B=STEPS_BATCH (lr 0.01) from seed-0 weights on cli.scaling's
+    clips, in bf16 and in float32, in a world of ``world``: this rank's state on the CPU after each step."""
+    import torch
+    from honk_tpu_torch import use_full_f32
+    from honk_tpu_torch.cli.scaling import inputs
+    from honk_tpu_torch.data import AugmentConfig, prepare_train_arrays
+    from honk_tpu_torch.models import find_config, find_model, init_weights
+    from honk_tpu_torch.parallel import make_data_mesh, rank_device
+    from honk_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    dev = rank_device(device)
+    use_full_f32()
+    mesh = make_data_mesh(world, "data")
+    aug = AugmentConfig(n_silence=4)
+    arrays = prepare_train_arrays(*inputs(), aug, device=dev)
+    out = {}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", None)):
+        model = init_weights(find_model(STEPS_CONF)(find_config(STEPS_CONF), dtype=dtype),
+                             torch.Generator().manual_seed(0))
+        mesh.replicate(model.to(dev))
+        tx = make_optimizer(lrs=(0.01,), boundaries=())
+        state = create_train_state(model, tx)
+        step = make_train_step(tx, STEPS_BATCH, aug, mesh)
+        out[name] = []
+        for _ in range(STEPS_N):
+            state, _ = step(state, 7, arrays)
+            out[name].append({k: v.detach().to("cpu", torch.float32, copy=True) for k, v in model.state_dict().items()
+                              if v.is_floating_point()})
+    return out
+
+
 def rank_main(rank: int, spec_path: str) -> int:
     """One rank: the spec's entry point with its join flags (``steps``: dp_steps in a group it joins);
     writes its launches and card."""
@@ -182,10 +239,11 @@ def rank_main(rank: int, spec_path: str) -> int:
 
     join = ["--device", spec["device"], "--coordinator", spec["coordinator"], "--num-processes", str(spec["world"]),
             "--process-id", str(rank)]
-    if spec["module"] == "steps":
+    if spec["module"] in ("steps", "bf16steps"):
+        run = dp_steps if spec["module"] == "steps" else dtype_steps
         initialize_distributed(spec["coordinator"], spec["world"], rank, spec["device"])
         try:
-            torch.save(dp_steps(spec["world"], spec["device"]), os.path.join(spec["out"], f"rank{rank}.pt"))
+            torch.save(run(spec["world"], spec["device"]), os.path.join(spec["out"], f"rank{rank}.pt"))
         finally:
             shutdown()
         rc = 0
@@ -381,28 +439,37 @@ def section_f32(checks: Checks, corpus: str, worlds: list[int], n_cards: int, de
     return out
 
 
-def section_bf16(checks: Checks, world: int, device: str, tmp: str) -> dict:
-    """3. res8 and res15 at zoo_hard_v2's recipe on ``world`` ranks through --n_devices, scored as cli.zoo."""
+def section_bf16(checks: Checks, world: int, device: str, tmp: str, seeds: list[int]) -> dict:
+    """3. res8 and res15 at zoo_hard_v2's recipe on ``world`` ranks through --n_devices from each of
+    ``seeds``, scored as cli.zoo."""
+    root = os.path.join(tmp, "hard_v2")
+    corpus_s = C.hard_v2_corpus(root) if not os.path.isdir(root) else 0.0
+    return {seed: recipe_on_ranks(checks, world, device, tmp, root, seed, corpus_s) for seed in seeds}
+
+
+def recipe_on_ranks(checks: Checks, world: int, device: str, tmp: str, root: str, seed: int,
+                    corpus_s: float) -> dict:
+    """res8 and res15 at zoo_hard_v2's recipe from ``seed`` on ``world`` ranks, scored as cli.zoo."""
     from honk_tpu_torch.cli.zoo import compare_zoo
 
-    root = os.path.join(tmp, "hard_v2")
-    out = {"corpus_s": C.hard_v2_corpus(root), "world": world, "models": {}}
+    out = {"corpus_s": corpus_s, "world": world, "seed": seed, "models": {}}
     recipe = C.hard_v2_manifest()["models"]["res8"]["recipe"]
     split = ["--dev_pct", str(recipe["dev_pct"]), "--test_pct", str(recipe["test_pct"])]
-    flags = ["--n_epochs", str(recipe["n_epochs"]), "--batch_size", str(recipe["batch_size"]), "--seed", "0",
+    flags = ["--n_epochs", str(recipe["n_epochs"]), "--batch_size", str(recipe["batch_size"]), "--seed", str(seed),
              "--compute_dtype", recipe["compute_dtype"], "--lr", *map(str, recipe["lr"]), "--schedule",
              *map(str, recipe["schedule"]), "--data_dir", root, *split]
-    zoo = os.path.join(tmp, "zoo-bf16")
+    zoo = os.path.join(tmp, f"zoo-bf16-seed{seed}")
     os.makedirs(zoo)
     for name in C.RECIPE_MODELS:
-        run_dir = os.path.join(tmp, f"bf16-{name}")
-        metrics = os.path.join(tmp, f"bf16-{name}.jsonl")
+        run_dir = os.path.join(tmp, f"bf16-{name}-seed{seed}")
+        metrics = os.path.join(tmp, f"bf16-{name}-seed{seed}.jsonl")
         res = run_cmd([sys.executable, "-m", "honk_tpu_torch.cli.train", "--type", "train", "--model", name,
                        "--n_devices", str(world), "--device", device, "--output_dir", run_dir,
                        "--metrics_jsonl", metrics, *flags], dict(os.environ, PYTHONPATH=ROOT), None,
                       RECIPE_TIMEOUT_S)
         if not checks.require(res["rc"] == 0 and os.path.isfile(os.path.join(run_dir, "best.pt")),
-                              f"bf16 {name} on {world} ranks exited {res['rc']}:\n{res['log'][-3000:]}"):
+                              f"bf16 {name} seed {seed} on {world} ranks exited {res['rc']}:\n"
+                              f"{res['log'][-3000:]}"):
             return out
         with open(metrics) as f:
             epochs = [json.loads(line) for line in f if '"train_epoch"' in line]
@@ -417,12 +484,13 @@ def section_bf16(checks: Checks, world: int, device: str, tmp: str) -> dict:
         e = manifest["models"][name]
         m.update(test_acc_recheck=e["test_acc_recheck"], jax_range=ranges[name],
                  against=manifest["against_stats"]["pairwise"][name])
-        checks.require(ranges[name][0] <= e["test_acc_recheck"] <= ranges[name][1],
-                       f"bf16 {name} on {world} ranks: recheck {e['test_acc_recheck']} outside {ranges[name]}")
+        m["in_range"] = ranges[name][0] <= e["test_acc_recheck"] <= ranges[name][1]
+        checks.require(m["in_range"], f"bf16 {name} seed {seed} on {world} ranks: recheck "
+                                      f"{e['test_acc_recheck']} outside {ranges[name]}")
     z = -manifest["ladder_stats"]["pairwise"]["_vs_".join(C.RECIPE_MODELS)]["mcnemar_z"]
     out["z_res15_over_res8"] = z
-    checks.require(z > 0, f"bf16 on {world} ranks: res15 over res8 McNemar z {z}, not > 0")
-    print(f"[bf16] zoo_hard_v2's recipe on {world} ranks: " + json.dumps(out), flush=True)
+    checks.require(z > 0, f"bf16 seed {seed} on {world} ranks: res15 over res8 McNemar z {z}, not > 0")
+    print(f"[bf16] zoo_hard_v2's recipe from seed {seed} on {world} ranks: " + json.dumps(out), flush=True)
     return out
 
 
@@ -525,6 +593,114 @@ def section_gap(checks: Checks, seeds: list[str], budget_s: float, worlds: list[
         row["bfloat16"]["jax_1_vs_2"] = R.JAX_BF16_GAP.get(seed)
         out["seeds"][seed] = row
         print(f"[gap] hash seed {seed}: " + json.dumps(row), flush=True)
+    return out
+
+
+def _distance(a: dict, b: dict, running: bool) -> float:
+    """Frobenius distance of two states over the parameters (``running``: over BN's running statistics)."""
+    keys = [k for k in a if ("running" in k) == running]
+    return math.sqrt(sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys))
+
+
+def _largest(a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def section_bf16steps(checks: Checks, n_cards: int, device: str, tmp: str) -> dict:
+    """8. ROADMAP §3.2 step by step: 1 rank (twice) and 2 ranks, bf16 and float32, on the cards with
+    cuDNN's default and deterministic algorithms, and on gloo ranks of the host's CPU."""
+    import torch
+
+    runs = {"default": False, "deterministic": True}
+    tags = (("one", 1), ("one_again", 1), ("two", 2))
+    res = in_waves([(f"{name}-{tag}", world,
+                     lambda cards, world=world, det=det, n=f"{name}-{tag}":
+                     run_ranks("bf16steps", [], world, device, tmp, f"bf16steps-{n}", det, cards))
+                    for name, det in runs.items() for tag, world in tags], n_cards, device)
+    if device == "cuda":  # and on the host's CPU, one group at a time
+        runs["cpu"] = False
+        for tag, world in tags:
+            res[f"cpu-{tag}"] = run_ranks("bf16steps", [], world, "cpu", tmp, f"bf16steps-cpu-{tag}")
+    out = {"conf": STEPS_CONF, "batch": STEPS_BATCH, "s": {n: r["s"] for n, r in res.items()}}
+    failed = {n: r for n, r in res.items() if r["rcs"] != [0] * len(r["rcs"])}
+    if not checks.require(not failed, "bf16steps: ranks exited " + "\n".join(
+            f"{n}: {r['rcs']}\n" + "\n".join(log[-2000:] for log in r["logs"]) for n, r in failed.items())):
+        return out
+    for name, det in runs.items():
+        got = {tag: [torch.load(os.path.join(tmp, f"ranks-bf16steps-{name}-{tag}", f"rank{r}.pt"))
+                     for r in range(world)] for tag, world in tags}
+        a, b = got["two"]
+        checks.require(all(torch.equal(a[d][s][k], b[d][s][k]) for d in a for s in range(STEPS_N) for k in a[d][s]),
+                       f"bf16steps {name}: the two ranks' states differ")
+        one, again, two = got["one"][0], got["one_again"][0], a
+        rows = []
+        for s in range(STEPS_N):
+            row = {"step": s + 1}
+            for running, part in ((False, "params"), (True, "running")):
+                unit = _distance(two["bfloat16"][s], two["float32"][s], running)
+                gap = _distance(one["bfloat16"][s], two["bfloat16"][s], running)
+                row[part] = {"bf16_1_vs_2": gap, "bf16_1_vs_2_share": gap / unit,
+                             "f32_1_vs_2": _distance(one["float32"][s], two["float32"][s], running),
+                             "bf16_1_vs_1": _distance(one["bfloat16"][s], again["bfloat16"][s], running),
+                             "f32_1_vs_1": _distance(one["float32"][s], again["float32"][s], running),
+                             "bf16_vs_f32": unit}
+            row["largest_abs"] = {"bf16_1_vs_2": _largest(one["bfloat16"][s], two["bfloat16"][s]),
+                                  "bf16_1_vs_1": _largest(one["bfloat16"][s], again["bfloat16"][s]),
+                                  "f32_1_vs_2": _largest(one["float32"][s], two["float32"][s])}
+            rows.append(row)
+        out[name] = rows
+        print(f"[bf16steps] {name} (cudnn.deterministic {det}): " + json.dumps(rows), flush=True)
+    return out
+
+
+def section_repeat(checks: Checks, n_cards: int, device: str, tmp: str) -> dict:
+    """9. ROADMAP §3.5: two float32 cli.train runs of each REPEAT_MODELS from seed 0 at zoo_hard_v2's
+    recipe, with cuDNN's deterministic algorithms and without, each run in a process of its own."""
+    import torch
+
+    root = os.path.join(tmp, "hard_v2")
+    if not os.path.isdir(root):
+        C.hard_v2_corpus(root)
+    recipe = C.hard_v2_manifest()["models"]["res8"]["recipe"]
+    flags = ["--n_epochs", str(recipe["n_epochs"]), "--batch_size", str(recipe["batch_size"]), "--seed", "0",
+             "--compute_dtype", "float32", "--lr", *map(str, recipe["lr"]), "--schedule",
+             *map(str, recipe["schedule"]), "--data_dir", root, "--dev_pct", str(recipe["dev_pct"]),
+             "--test_pct", str(recipe["test_pct"]), "--device", device]
+    out = {}
+    for name in REPEAT_MODELS:
+        jobs = []
+        for det, run in ((True, "a"), (False, "a"), (False, "b"), (True, "b")):  # in turns where they run in waves
+            tag = f"{name}-{'det' if det else 'default'}-{run}"
+            code = ("import sys, torch\n"
+                    f"torch.backends.cudnn.deterministic = {det}\n"
+                    "from honk_tpu_torch.cli.train import main\n"
+                    "sys.exit(main(sys.argv[1:]))\n")
+            cmd = [sys.executable, "-c", code, "--type", "train", "--model", name, *flags,
+                   "--output_dir", os.path.join(tmp, f"repeat-{tag}"),
+                   "--metrics_jsonl", os.path.join(tmp, f"repeat-{tag}.jsonl")]
+            jobs.append((tag, 1, lambda cards, cmd=cmd: run_cmd(cmd, dict(os.environ, PYTHONPATH=ROOT), cards,
+                                                               RECIPE_TIMEOUT_S)))
+        res = in_waves(jobs, n_cards, device)
+        failed = {t: r for t, r in res.items() if r["rc"] != 0}
+        if not checks.require(not failed, "repeat: runs failed " + "\n".join(
+                f"{t}: {r['rc']}\n{r['log'][-2000:]}" for t, r in failed.items())):
+            return out
+        for det in ("det", "default"):
+            tags = [f"{name}-{det}-{run}" for run in ("a", "b")]
+            weights = [torch.load(os.path.join(tmp, f"repeat-{t}", "best.pt"), weights_only=True) for t in tags]
+            rates = []
+            for t in tags:
+                with open(os.path.join(tmp, f"repeat-{t}.jsonl")) as f:
+                    epochs = [json.loads(line) for line in f if '"train_epoch"' in line]
+                rates.append(sum(e["audio_s_per_s"] for e in epochs[1:]) / max(len(epochs) - 1, 1))
+            out[f"{name}_{det}"] = {
+                "bitwise": all(torch.equal(weights[0][k], weights[1][k]) for k in weights[0]),
+                "largest_abs": max(float((weights[0][k].double() - weights[1][k].double()).abs().max())
+                                   for k in weights[0] if weights[0][k].is_floating_point()),
+                "test_acc": [C.final_accuracy(res[t]["log"]) for t in tags],
+                "audio_s_per_s": rates, "wall_s": [res[t]["s"] for t in tags]}
+        print(f"[repeat] {name} float32 at zoo_hard_v2's recipe, seed 0: "
+              + json.dumps({k: v for k, v in out.items() if k.startswith(name + "_")}), flush=True)
     return out
 
 
@@ -642,6 +818,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--worlds", type=int, nargs="+", default=[2, 4])
     p.add_argument("--sections", nargs="+", choices=SECTIONS, default=list(SECTIONS))
+    p.add_argument("--recipe_seeds", type=int, nargs="+", default=[0], help="training seeds of the bf16 section")
     p.add_argument("--gap_seeds", nargs="+", default=["0", "1", "2", "3", "4"])
     p.add_argument("--gap_budget_s", type=float, default=240.0)
     p.add_argument("--device", default="cuda", help="cuda, or cpu to rehearse the script on gloo ranks")
@@ -682,11 +859,13 @@ def main() -> int:
         d, worlds = args.device, args.worlds
         runs = {"steps": lambda: section_steps(checks, worlds, slots, d, tmp),
                 "f32": lambda: section_f32(checks, corpus, worlds, slots, d, tmp),
-                "bf16": lambda: section_bf16(checks, max(worlds), d, tmp),
+                "bf16": lambda: section_bf16(checks, max(worlds), d, tmp, args.recipe_seeds),
                 "dryrun": lambda: section_dryrun(checks, counters, worlds, d, tmp),
                 "scaling": lambda: section_scaling(checks, worlds, d),
                 "gap": lambda: section_gap(checks, args.gap_seeds, args.gap_budget_s, worlds, slots, d, tmp),
-                "dead": lambda: section_dead(checks, corpus, d, tmp)}
+                "dead": lambda: section_dead(checks, corpus, d, tmp),
+                "bf16steps": lambda: section_bf16steps(checks, slots, d, tmp),
+                "repeat": lambda: section_repeat(checks, slots, d, tmp)}
         for name in args.sections:
             t1 = time.perf_counter()
             try:

@@ -300,11 +300,11 @@ def test_datagen_cli_refuses_orbax_and_missing_cuda(tmp_path, capsys, monkeypatc
     os.makedirs(src)
     _make_video(src)
     argv = ["--keywords", "yes", "--input_dir", src, "--out_dir", str(tmp_path / "out")]
-    with monkeypatch.context() as m:  # an Orbax checkpoint where tensorstore cannot be imported
+    with monkeypatch.context() as m:  # a directory that holds no Orbax checkpoint (tensorstore is not needed)
         m.setitem(sys.modules, "tensorstore", None)
         with pytest.raises(SystemExit) as e:
-            datagen_main(argv + ["--eval_checkpoint", str(ROOT / "zoo" / "res8"), "--device", "cpu"])
-    assert e.value.code == 2 and "needs the tensorstore package" in capsys.readouterr().err
+            datagen_main(argv + ["--eval_checkpoint", str(ROOT / "zoo"), "--device", "cpu"])
+    assert e.value.code == 2 and "is neither a .pt file nor an Orbax checkpoint" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             datagen_main(argv + ["--eval_checkpoint", ZOO_RES8])

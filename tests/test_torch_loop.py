@@ -198,12 +198,13 @@ _COORD = ["--coordinator", "localhost:1234"]
     (["--num-processes", "2"], "need --coordinator"),
     (["--n_devices", "4", *_COORD, "--num-processes", "2", "--process-id", "0"], "--n_devices 4"),
     ([*_COORD, "--num-processes", "2", "--process-id", "2"], "not a rank"),
-    (["--input_file", "ckpts/run"], "needs the tensorstore package"),
+    (["--input_file", "ckpts/run"], "is neither a .pt file nor an Orbax checkpoint directory"),
 ])
 def test_cli_refuses_what_the_port_cannot_honour(flags, item, capsys, monkeypatch):
     """Data parallel and --profile-dir are ported; a malformed multi-process
-    command line, and an Orbax checkpoint where tensorstore cannot be
-    imported, are refused before any work."""
+    command line, and an --input_file that is neither a .pt nor an Orbax
+    checkpoint, are refused before any work (with tensorstore hidden: the
+    port reads Orbax without it)."""
     monkeypatch.setitem(sys.modules, "tensorstore", None)  # import tensorstore raises ImportError
     with pytest.raises(SystemExit) as e:
         main(["--type", "train", "--device", "cpu", *flags])
