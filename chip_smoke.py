@@ -378,6 +378,19 @@ TRAIN_BATCH = 64
 # up to 0.65 a tensor at res8 B=64 (scripts/probe_bf16_step_spread.py).
 BF16_TRAIN_RATIO = 0.5
 BF16_TRAIN_TENSOR_RATIO = 1.0
+# Phase 51: res8's bf16 data-parallel step on 2 and 4 ranks (BF16_RANKS),
+# emulated on one card. Each rank's weight gradient leaves its layer in
+# float32 and their sum is rounded to bf16 once; the whole batch's gradient
+# is one rounding of a float32 sum of the same bf16 products too. Two such
+# roundings part only where a float32 sum's own error crosses a rounding
+# midpoint, by one ulp unless the sum cancels: on gloo ranks 0.03-0.6% of a
+# tensor's elements differ, at most 0.03% by more than one ulp
+# (tests/test_torch_bf16_ranks.py). So at most BF16_RANKS_DIFFER of a
+# tensor's elements may differ from the whole batch's, and at most
+# BF16_RANKS_PAST_ULP by more than one ulp. The path before the repair (each
+# part rounded to bf16, then added) parts 87-94% and 48-71% of them there.
+BF16_RANKS = (2, 4)
+BF16_RANKS_DIFFER, BF16_RANKS_PAST_ULP = 0.02, 0.002
 # Streaming (phases 17-21): the ground-truth track of tests/test_stream.py,
 # keywords planted at known positions in 60 s of noise, and its detection
 # config; smoothed posteriors cuda against cpu within 1e-4 (probabilities
@@ -652,7 +665,7 @@ def layer_dtypes(model):
         return y
 
     hook = model.output.register_forward_hook(lambda m, i, o: rec("output", o))
-    res.conv = lambda layer, x, dtype: rec(names[id(layer)], conv(layer, x, dtype))
+    res.conv = lambda layer, x, dtype, *sharded: rec(names[id(layer)], conv(layer, x, dtype, *sharded))
     res.avg_pool = lambda x, window: rec("pool", pool(x, window))
     res.batch_norm_train = lambda x, module, mesh=None: rec(names[id(module)], bn(x, module, mesh))
     try:
@@ -760,6 +773,139 @@ def phase_bf16_train(torch, dev, A, step_times, smi) -> dict:
           f"as a share of bf16-float32 after steps 1-3 [all, worst tensor, its share]: {json.dumps(by_step)} "
           f"(limits {BF16_TRAIN_RATIO} all, {BF16_TRAIN_TENSOR_RATIO} a tensor); step (phase 11) "
           f"float32 {json.dumps(clocks['float32'])} bf16 {json.dumps(clocks['bfloat16'])}; {smi}; "
+          f"{out['s']:.1f} s")
+    return out
+
+
+def ulps(got, ref, bits: int = 8):
+    """|got - ref| in units in the last place at ``ref``'s magnitude of a float of ``bits`` significant
+    bits (bf16 8, float32 24), in float64 on the CPU."""
+    import torch
+
+    r = ref.double().cpu()
+    _, e = torch.frexp(r.abs().clamp_min(2.0 ** -126))
+    return (got.double().cpu() - r).abs() / torch.ldexp(torch.ones_like(r), e - bits)
+
+
+def rounding_reading(got, truth) -> dict:
+    """A weight gradient against its float64 truth, in bf16 ulps of the truth: the share of elements more
+    than half an ulp away (one rounding of the exact sum never is), the largest distance, and the share
+    that is not the truth's nearest bf16 (one rounding of a float32 sum misses it only where the float32
+    sum's own error crosses a rounding midpoint)."""
+    d = ulps(got, truth)
+    return {"share_past_half": float((d > 0.5).double().mean()), "max_ulps": float(d.max()),
+            "share_not_nearest": float((got.double().cpu() != truth.bfloat16().double().cpu()).double().mean())}
+
+
+def conv_wgrad(layer, x, dy, dtype, device=None):
+    """The weight gradient of conv ``layer`` from the operands ``x`` and ``dy`` (bf16 values), in
+    ``dtype``'s arithmetic on ``device`` (``dy``'s when None)."""
+    import torch
+
+    device = dy.device if device is None else device
+    with torch.no_grad():
+        return torch.ops.aten.convolution_backward(
+            dy.to(device, dtype), x.to(device, dtype), layer.weight.to(device, dtype), None, layer.stride,
+            layer.padding, layer.dilation, False, [0, 0], 1, [False, True, False])[1]
+
+
+def phase_bf16_ranks(torch, dev, A, smi) -> dict:
+    """51. res8's bf16 train step at B=64 on BF16_RANKS ranks, emulated on one card: phase 33's first
+    batch, each conv's operands taken from the one-rank step; each part's weight gradient as a rank's
+    step takes it (``layers.conv`` sharded), added in rank order as ``all_reduce_grads`` adds them,
+    then rounded once (``round_cast_grads``). Held to the whole batch's gradient within
+    BF16_RANKS_DIFFER / BF16_RANKS_PAST_ULP; the path before the repair (each part rounded to bf16
+    before the sum) must miss them. Prints reading (c) of each conv: cuDNN's bf16 weight gradient of
+    16 and 64 rows, and the layers' float32 sum of the same operands rounded once (``_conv_weight_grad``),
+    against the float64 truth."""
+    import torch.nn.functional as F
+
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.models import find_config, find_model, init_weights, res
+    from honk_tpu_torch.models.layers import _conv_weight_grad, conv, round_cast_grads
+
+    t0 = time.perf_counter()
+    raw, labels, noise, cfg = train_step_inputs(A)
+    model = init_weights(find_model("res8")(find_config("res8"), dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED)).to(dev).train()
+    arrays = A.prepare_train_arrays(raw, labels, noise, cfg, device=dev)
+    draws = A.draw_batch(A.step_generator(SEED + 1, 0, "cpu"), A.prepare_train_arrays(raw, labels, noise, cfg),
+                         TRAIN_BATCH, cfg)
+    audio, lab = A.assemble_batch(A.Draws(*(t.to(dev) for t in draws)), arrays, cfg)
+    names = {id(m): n for n, m in model.named_modules()}
+    operands = {}
+
+    def tapped(layer, x, dtype, *sharded):
+        name = names[id(layer)]
+        y = conv(layer, x, dtype, *sharded)
+        operands[name] = [x.detach().to(dtype)]
+        y.register_hook(lambda g: operands[name].append(g.detach()))
+        return y
+
+    res.conv = tapped
+    try:
+        F.cross_entropy(model(compute_mfccs(audio)), lab).backward()
+    finally:
+        res.conv = conv
+    whole = {n: getattr(model, n).weight.grad.clone() for n in operands}  # the one-rank step's
+
+    def apart(got, ref) -> dict:
+        d = ulps(got, ref)
+        return {"share_differ": float((d > 0).double().mean()), "share_past_ulp": float((d > 1).double().mean()),
+                "max_ulps": float(d.max())}
+
+    readings, bad = {}, []
+    for name, (x16, dy) in operands.items():
+        layer = getattr(model, name)
+        cpu = torch.device("cpu")
+        truth = {r: conv_wgrad(layer, x16[:r], dy[:r], torch.float64, cpu) for r in (16, TRAIN_BATCH)}
+        geometry = (layer.stride, layer.padding, layer.dilation)
+        row = {"c": {r: {"cudnn_bf16": rounding_reading(conv_wgrad(layer, x16[:r], dy[:r], torch.bfloat16), t),
+                         "f32_rounded_once": rounding_reading(_conv_weight_grad(
+                             dy[:r].float(), x16[:r], layer.weight.shape, geometry).bfloat16(), t)}
+                     for r, t in truth.items()}}
+        for n in BF16_RANKS:
+            rows = TRAIN_BATCH // n
+            parts = []
+            for r in range(n):
+                model.zero_grad(set_to_none=True)
+                conv(layer, x16[r * rows:(r + 1) * rows], torch.bfloat16, True).backward(dy[r * rows:(r + 1) * rows])
+                parts.append(layer.weight.grad.clone())
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            model.zero_grad(set_to_none=True)
+            layer.weight.grad = total
+            round_cast_grads(model)
+            planted = parts[0].bfloat16().float()
+            for p in parts[1:]:
+                planted = planted + p.bfloat16().float()
+            got = {"repaired": apart(layer.weight.grad, whole[name]), "planted": apart(planted, whole[name]),
+                   "part_dtype": str(parts[0].dtype).replace("torch.", ""),
+                   "repaired_vs_truth": rounding_reading(layer.weight.grad, truth[TRAIN_BATCH])}
+            row[n] = got
+            if not (got["part_dtype"] == "float32" and got["repaired"]["share_differ"] <= BF16_RANKS_DIFFER
+                    and got["repaired"]["share_past_ulp"] <= BF16_RANKS_PAST_ULP):
+                bad.append(f"{name} on {n} ranks: {got['repaired']} (parts {got['part_dtype']})")
+            if (got["planted"]["share_differ"] <= BF16_RANKS_DIFFER
+                    and got["planted"]["share_past_ulp"] <= BF16_RANKS_PAST_ULP):
+                bad.append(f"{name} on {n} ranks: the planted fault {got['planted']} passes the limits")
+        readings[name] = row
+    if bad:
+        fail(f"bf16 ranks emulated (limits: {BF16_RANKS_DIFFER} of the elements differing, "
+             f"{BF16_RANKS_PAST_ULP} past one ulp): " + "; ".join(bad))
+    out = {"readings": readings, "limits": [BF16_RANKS_DIFFER, BF16_RANKS_PAST_ULP], "card": smi,
+           "s": time.perf_counter() - t0}
+    brief = {name: {**{f"c{r}": [c["cudnn_bf16"]["share_past_half"], c["f32_rounded_once"]["share_past_half"],
+                                 c["cudnn_bf16"]["max_ulps"]] for r, c in row["c"].items()},
+                    **{f"ranks{n}": [row[n]["repaired"]["share_differ"], row[n]["repaired"]["share_past_ulp"],
+                                     row[n]["planted"]["share_differ"], row[n]["planted"]["share_past_ulp"]]
+                       for n in BF16_RANKS}} for name, row in readings.items()}
+    print(f"[bf16_ranks] res8 B={TRAIN_BATCH} bf16 step on {list(BF16_RANKS)} ranks emulated on one card: each "
+          f"conv's summed float32 parts rounded once against the whole batch's gradient, [share differing, "
+          f"past one ulp] repaired then planted (limits {BF16_RANKS_DIFFER}, {BF16_RANKS_PAST_ULP}; the planted "
+          f"pre-repair path refused); reading (c) at 16 and {TRAIN_BATCH} rows, [cuDNN's bf16 share past half "
+          f"an ulp, the float32 sum rounded once's, cuDNN's largest ulps]: {json.dumps(brief)}; {smi}; "
           f"{out['s']:.1f} s")
     return out
 
@@ -3802,6 +3948,8 @@ def main() -> int:
                                                                  arrays, aug)
         # 33. The bf16 train step: flax's dtype flow on cuda and on the CPU, the bf16 pool bitwise.
         bf16_train = phase_bf16_train(torch, dev, A, step_times, smi)
+        # 51. The bf16 data-parallel step's weight gradients on 2 and 4 ranks, emulated on this card.
+        bf16_ranks = phase_bf16_ranks(torch, dev, A, smi)
         # 35. The scaling harness at one card, beside phase 11's step.
         scaling = phase_scaling(torch, counters, step_times, smi)
         # 36-39. The measuring tools: entry(), cli.bench, cli.bench_stream, cli.bench_serve.
@@ -4011,6 +4159,7 @@ def main() -> int:
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,
                       "native": native, "bf16_kernel": {k: v for k, v in bf16_kernel.items() if not k.endswith("times")},
                       "bf16_eval": bf16_eval, "orbax": orbax, "hub_ranks": hub_ranks, "bf16_train": bf16_train,
+                      "bf16_ranks": bf16_ranks,
                       "recipe": recipe, "scaling": scaling, "tools": tools,
                       "profile_tools": {k: v for k, v in profile_tools.items() if k != "paths"},
                       "res_forward": {k: v for k, v in res_fwd.items() if k != "times"}}))

@@ -4,7 +4,14 @@
   generator (``honk_tpu/models/res.py``, ``honk_tpu/models/cnn.py``).
 - ``conv`` / ``dense``: a layer in the compute dtype, as flax's ``nn.Conv`` /
   ``nn.Dense`` with ``dtype``: bf16 operands, a bf16 product, then the
-  bias added in bf16 (two roundings), the result left in bf16.
+  bias added in bf16 (two roundings), the result left in bf16. Its weight
+  and bias gradients are flax's too: the float32 sum of the bf16 products,
+  rounded to bf16 once (after the all-reduce of a data-parallel step,
+  ``round_cast_grads``). On the CPU autograd's bf16 gradient is that
+  rounding; cuDNN's rounds more than once, and a rank holds only some of
+  the batch's rows, so on the card and on every rank of a sharded step the
+  layer sums them in float32 itself (``_Float32GradConv``), and on a rank
+  leaves them unrounded.
 - ``avg_pool``: flax's ``nn.avg_pool``; in bf16 its window sum is a chain of
   bf16 adds, then a bf16 division by the window's size.
 - ``draw_keep_masks`` / ``apply_dropout``: flax's ``nn.Dropout`` with the
@@ -13,6 +20,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -57,20 +65,146 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, sharded: bool = False) -> torch.Tensor:
     """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``,
-    then the bias added in ``dtype`` (not fused into the product)."""
+    then the bias added in ``dtype`` (not fused into the product). ``sharded``:
+    ``x`` is a rank's rows of a data-parallel step's batch."""
     if dtype == torch.float32:
         return layer(x)
+    if _float32_grads(x, sharded):
+        return _Float32GradConv.apply(x, layer.weight, layer.bias, dtype,
+                                      (layer.stride, layer.padding, layer.dilation), not sharded)
     y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding, layer.dilation)
     return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``, then the bias added in ``dtype``."""
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, sharded: bool = False) -> torch.Tensor:
+    """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``, then the bias added in
+    ``dtype``. ``sharded`` as ``conv``'s."""
     if dtype == torch.float32:
         return layer(x)
+    if _float32_grads(x, sharded):
+        return _Float32GradDense.apply(x, layer.weight, layer.bias, dtype, not sharded)
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def _float32_grads(x: torch.Tensor, sharded: bool) -> bool:
+    """Whether a layer in a low dtype sums its weight and bias gradients in float32 itself: on a rank of
+    a sharded step (its rows' sum is a part of the batch's), and on the card, where cuDNN's bf16 weight
+    gradient rounds more than once (``scripts/chip_train_nccl.py --sections bf16parts``, PERF.md §6).
+    The CPU's bf16 gradient rounds a float32 sum once, as flax's does."""
+    return torch.is_grad_enabled() and (sharded or x.is_cuda)
+
+
+def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
+    """The parameters ``conv`` / ``dense`` cast to the model's dtype: those of
+    every Conv2d and Linear but ``model.output``, the float32 Dense of both
+    families."""
+    return [p for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear)) and m is not model.output
+            for p in m.parameters()]
+
+
+@torch.no_grad()
+def round_cast_grads(model: nn.Module) -> None:
+    """After the all-reduce of a sharded step: round the summed float32
+    gradient of every parameter ``conv`` / ``dense`` cast to the model's
+    dtype to that dtype, once, and widen it back for the float32 update:
+    flax's one rounding of the whole batch's sum."""
+    if model.dtype == torch.float32:
+        return
+    for p in cast_parameters(model):
+        if p.grad is not None:
+            p.grad.copy_(p.grad.to(model.dtype))
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuBLAS's float32 products outside TF32 inside, whatever the process
+    set, restored after."""
+    flag, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _conv_weight_grad(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
+    """A conv's float32 weight gradient from its bf16 operands: im2col, then a
+    batched float32 GEMM (every product exact, TF32 off) summed over the
+    rows. Not cuDNN's float32 weight gradient, whose algorithm is chosen by
+    shape and includes inexact transforms (on the card: 0.6-0.7% of a
+    45-map conv's elements more than half a bf16 ulp from the truth at 16
+    and 32 rows, and no exact zero for a dead input channel)."""
+    stride, padding, dilation = geometry
+    cols = F.unfold(x16.float(), shape[2:], dilation, padding, stride)  # (B, C_in * kh * kw, L)
+    with _full_f32():
+        return torch.bmm(gy32.flatten(2), cols.transpose(1, 2)).sum(dim=0).view(shape)
+
+
+def _rounded(g: torch.Tensor | None, dtype: torch.dtype, rounded: bool) -> torch.Tensor | None:
+    return g.to(dtype).float() if rounded and g is not None else g
+
+
+class _Float32GradConv(torch.autograd.Function):
+    """``conv`` in a low dtype whose weight and bias gradients are summed in float32.
+
+    Forward and input gradient are the autograd path's ops on the same
+    operands (a bf16 product, the bias added in bf16; the input gradient in
+    bf16, cast to the input's dtype). The weight gradient is the float32
+    correlation of the bf16 operands (``_conv_weight_grad``: every product
+    exact, summed in float32), the bias gradient the float32 sum of the
+    output's cotangent; ``rounded``: rounded to ``dtype`` once there,
+    flax's gradient; otherwise left unrounded, a rank's part of a sum.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dtype, geometry, rounded):
+        x16, w16 = x.to(dtype), weight.to(dtype)
+        ctx.save_for_backward(x16, w16)
+        ctx.geometry, ctx.shape, ctx.x_dtype, ctx.has_bias, ctx.rounded = (geometry, weight.shape, x.dtype,
+                                                                         bias is not None, rounded)
+        y = F.conv2d(x16, w16, None, *geometry)
+        return y if bias is None else y + bias.to(dtype)[:, None, None]
+
+    @staticmethod
+    def backward(ctx, gy):
+        x16, w16 = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.ops.aten.convolution_backward(gy, x16, w16, None, *ctx.geometry, False, [0, 0], 1,
+                                                     [True, False, False])[0].to(ctx.x_dtype)
+        gy32 = gy.float()
+        if ctx.needs_input_grad[1]:
+            gw = _conv_weight_grad(gy32, x16, ctx.shape, ctx.geometry)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = gy32.sum(dim=(0, 2, 3))
+        return gx, _rounded(gw, gy.dtype, ctx.rounded), _rounded(gb, gy.dtype, ctx.rounded), None, None, None
+
+
+class _Float32GradDense(torch.autograd.Function):
+    """``dense`` in a low dtype whose weight and bias gradients are summed in float32 (as
+    ``_Float32GradConv``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dtype, rounded):
+        x16, w16 = x.to(dtype), weight.to(dtype)
+        ctx.save_for_backward(x16, w16)
+        ctx.x_dtype, ctx.rounded = x.dtype, rounded
+        return F.linear(x16, w16) + bias.to(dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x16, w16 = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = gy.mm(w16).to(ctx.x_dtype)
+        gy32 = gy.float()
+        if ctx.needs_input_grad[1]:
+            with _full_f32():
+                gw = gy32.t().mm(x16.float())
+        if ctx.needs_input_grad[2]:
+            gb = gy32.sum(dim=0)
+        return gx, _rounded(gw, gy.dtype, ctx.rounded), _rounded(gb, gy.dtype, ctx.rounded), None, None
 
 
 def avg_pool(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:

@@ -46,7 +46,9 @@ the convolutions go through cuDNN (the JAX package has no Pallas kernel for
 them either), in ``dtype`` or float32. In bf16 it computes what flax's
 ``apply(train=True)`` of a bf16 model computes: every conv returns bf16,
 ReLU, the pool (``layers.avg_pool``: bf16 adds in window order) and the
-residual add stay bf16, BN takes its statistics over the float32 values,
+residual add stay bf16, BN takes its statistics over the float32 values
+(summed in float64, so every topology of a data-parallel step gets the
+same statistics: ``batch_stats``),
 normalises in float32 and returns bf16, and the global mean is taken over
 the float32 values. BN uses batch statistics with flax's semantics
 (``honk_tpu/models/res.py``): the biased batch variance as
@@ -119,7 +121,8 @@ class SpeechResModel(nn.Module):
         accepted and unused, so every model trains through one call.
         """
         if self.training:
-            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh))
+            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh),
+                               sharded=mesh is not None and mesh.size > 1)
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
@@ -140,13 +143,14 @@ class SpeechResModel(nn.Module):
         scale, offset = scale[:, :, None, None], offset[:, :, None, None]
         return self._stack(x, dtype, lambda i, y: (y * scale[i - 1] + offset[i - 1]).to(y.dtype))
 
-    def _stack(self, x: torch.Tensor, dtype: torch.dtype,
-               norm: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
-        """The whole model as PyTorch ops in ``dtype``'s flow, BN of layer i as ``norm(i, x)``."""
-        y = F.relu(conv(self.conv0, x[:, None], dtype))
+    def _stack(self, x: torch.Tensor, dtype: torch.dtype, norm: Callable[[int, torch.Tensor], torch.Tensor],
+               sharded: bool = False) -> torch.Tensor:
+        """The whole model as PyTorch ops in ``dtype``'s flow, BN of layer i as ``norm(i, x)``; ``sharded``:
+        a rank's rows of a data-parallel step (``layers.conv``)."""
+        y = F.relu(conv(self.conv0, x[:, None], dtype, sharded))
         x = old = y if self.pool is None else avg_pool(y, self.pool)
         for i in range(1, self.n_layers + 1):
-            y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype))
+            y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype, sharded))
             if i % 2 == 0:
                 x = old = y + old
             else:
@@ -166,17 +170,31 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None 
     A bf16 ``x`` is normalised as flax normalises it: statistics over its
     float32 values, ``x - mean`` in float32, the result rounded to bf16.
     """
-    xf = x.float()  # its own cast, as flax's: the cotangents of the two casts are added in bf16
-    if mesh is None or mesh.size == 1:
-        mean = xf.mean(dim=(0, 2, 3))
-        meansq = (xf * xf).mean(dim=(0, 2, 3))
-    else:
-        c = x.shape[1]
-        count = xf.new_full((1,), x.numel() // c)
-        stats = mesh.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), count]))
-        mean, meansq = stats[:c] / stats[-1], stats[c:2 * c] / stats[-1]
-    var = (meansq - mean * mean).clamp_min(0.0)
+    mean, var = batch_stats(x.float(), mesh)  # its own cast, as flax's: the cotangents of the two casts add in bf16
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     return ((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]).to(x.dtype)
+
+
+def batch_stats(xf: torch.Tensor, mesh: DataMesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """BN's per-channel batch mean and biased variance (``E[x^2] - E[x]^2``
+    clipped at 0) of float32 (B, C, H, W) ``xf``; under a ``mesh`` of more
+    than one rank, the global batch's: the sums and the count all-reduced
+    (with autograd).
+
+    The sums of ``xf`` and ``xf * xf`` are float64 (of bf16 values: exact,
+    their squares exact in float32), divided by the count in float64 and
+    rounded to float32 once, so one rank and N ranks, whose float32 sums
+    would group the rows otherwise, normalise by the same statistics: the
+    float32 sums of 2 or 4 parts of res8's batch differ from the whole
+    batch's in 8-36 of its 45 channels, on the card and on the CPU
+    (``scripts/chip_train_nccl.py --sections bf16parts``, PERF.md §6)."""
+    c = xf.shape[1]
+    count = xf.new_full((1,), xf.numel() // c, dtype=torch.float64)
+    stats = torch.cat([xf.sum(dim=(0, 2, 3), dtype=torch.float64), (xf * xf).sum(dim=(0, 2, 3), dtype=torch.float64),
+                       count])
+    if mesh is not None and mesh.size > 1:
+        stats = mesh.all_reduce_sum(stats)
+    mean, meansq = (stats[:c] / stats[-1]).float(), (stats[c:2 * c] / stats[-1]).float()
+    return mean, (meansq - mean * mean).clamp_min(0.0)

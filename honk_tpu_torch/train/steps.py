@@ -26,7 +26,10 @@ from the step's generator, then assembles, featurizes and runs forward and
 backward on its own rows; BN's statistics are the global batch's; the loss
 is the rank's cross-entropy *sum* over the global batch size, so the one
 all-reduce of the flattened gradients gives the global mean's gradient on
-every rank before the same update; loss and accuracy are reduced too. An
+every rank before the same update; loss and accuracy are reduced too. A
+bf16 layer's weight gradient leaves its rank as a float32 part of the sum,
+and is rounded to bf16 once after the all-reduce (``round_cast_grads``), as
+one rank rounds the whole batch's. An
 eval sweep scores each rank's rows of every batch and all-reduces the two
 counts once at the end. At one rank nothing is communicated and the step
 is the single-device step.
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 from ..data.augment import AugmentConfig, TrainArrays, eval_batch, sample_train_batch, step_generator
 from ..frontend.mfcc import compute_mfccs
 from ..metrics import annotate
+from ..models.layers import round_cast_grads
 from ..parallel import DataMesh
 from .state import SGD, TrainState
 
@@ -82,6 +86,7 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
         with annotate("update"):
             if sharded:
                 mesh.all_reduce_grads(model)
+                round_cast_grads(model)
             tx.apply(state)
         hits = logits.detach().argmax(dim=-1) == labels
         if not sharded:

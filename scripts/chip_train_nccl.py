@@ -2,8 +2,8 @@
 """res8 data-parallel training on NCCL ranks, rank r on card r, on the cards of one host.
 
     python scripts/chip_train_nccl.py [--worlds 2 4]
-        [--sections steps f32 bf16 dryrun scaling gap dead bf16steps repeat]
-        [--recipe_seeds 0] [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240] [--device cpu]
+        [--sections steps f32 bf16 dryrun scaling gap dead bf16steps repeat bf16parts]
+        [--recipe_seeds 0] [--recipe_controls] [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240] [--device cpu]
 
 Needs as many cards as the largest world, and exits 1 with fewer
 (``--device cpu`` rehearses the script on gloo ranks, where no kernel
@@ -42,7 +42,10 @@ cards' name and power limit, then one JSON line of the readings, and exits
    ``--recipe_seeds``, then scored by ``cli.zoo``'s ``compare_zoo`` against
    zoo_hard_v2. The gate is chip_smoke.py phase 34's: each float32 recheck
    inside the JAX package's seeds 0-2 widened by 2 SE, and res15 over res8
-   at McNemar z > 0.
+   at McNemar z > 0. With ``--recipe_controls``, each seed also trains on
+   one rank (the runs of the seeds at once, a card each), the paired
+   control, held to the same gate. Each run's rate is its audio-s/s a card
+   over the epochs after the first.
 4. ``dryrun``: ``honk_tpu_torch.parallel.dryrun`` through its join flags on
    each world. Rank 0 reports the six paths ok, and every rank launches
    what ``dryrun_multichip(1)`` launches in this process.
@@ -90,6 +93,44 @@ cards' name and power limit, then one JSON line of the readings, and exits
    accuracies, and the mean training rate of each run (the metrics'
    ``audio_s_per_s`` over the epochs after the first). Read, not gated.
 
+10. ``bf16parts``, ROADMAP §3.2 layer by layer: one bf16 train step of
+   res8 at full width at the recipe's batch (B=64, lr 0.01) from seed-0
+   weights and the same draws, on 1, 2 and 4 ranks (``PARTS_WORLDS``, the
+   section's own worlds), with cuDNN's default and its deterministic
+   algorithms, and on gloo ranks of the host's CPU; and the float32 step
+   beside it. Every conv and BN is tapped (``taps``): each conv's input
+   and output, the cotangents of both, BN's batch mean and variance, each
+   weight gradient as it enters ``all_reduce_grads`` and after the step.
+   Readings, per layer, of each world against one rank (one JSON line per
+   world and algorithm choice):
+   (a) ``fwd``: the conv outputs row by row: rows not bitwise equal, the
+       largest difference;
+   (b) ``bn``: BN's batch mean and variance in float32 ulps (of one rank's
+       value), the channels that differ;
+   (c) ``wgrad``: each weight gradient against the float64 truth of the
+       same bf16 operands (on the CPU), in bf16 ulps of the truth
+       (``chip_smoke.rounding_reading``): the share more than half an ulp
+       away (one rounding of the exact sum never is), the largest
+       distance, and the share that is not the truth's nearest bf16; for
+       each rank's part (the worst rank) and for the all-reduced sum;
+   (d) ``dgrad``: the conv input gradients row by row, as (a);
+   (e) ``share``: the all-reduced gradient's distance from one rank's as a
+       share of one rank's bf16-to-float32 gradient distance (Frobenius,
+       the unit of ``bf16steps``), over all parameters and the largest
+       tensor's; and float32's 1-vs-N distance in the same unit.
+   The one-rank line adds the readings on one card (``alone``) of each
+   conv at 16, 32 and 64 rows (``PARTS_ROWS``) on the one-rank run's
+   operands: forward and input gradient row by row against the whole
+   batch's (cuDNN's per-shape algorithms alone); the bf16 weight gradient
+   of the first 16, 32 and 64 rows against its truth, the float32 sum of
+   the bf16 parts of 16 and 32 rows against the 64 rows' truth (the
+   rounding before the all-reduce, alone), the float32 weight gradient of
+   the bf16 operands, TF32 off and on, and its one rounding to bf16 (the
+   control: one rounding of a float32 sum); and
+   BN's statistics: ``mean`` against ``sum / count``, the sums regrouped in
+   2 and 4 parts, and float64 sums regrouped. Read, not gated, but for the
+   ranks of a world being bitwise equal.
+
 Imports nothing of JAX. Its default worlds need four cards of one host.
 """
 
@@ -114,7 +155,7 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 import chip_smoke as C  # noqa: E402
 
-SECTIONS = ("steps", "f32", "bf16", "dryrun", "scaling", "gap", "dead", "bf16steps", "repeat")
+SECTIONS = ("steps", "f32", "bf16", "dryrun", "scaling", "gap", "dead", "bf16steps", "repeat", "bf16parts")
 # A killed rank stops beating at once; the launcher sees it silent after
 # parallel.runtime.HEARTBEAT_TIMEOUT_S, kills the others and waits up to
 # EXIT_WAIT_S for them to be gone.
@@ -131,12 +172,20 @@ DRYRUN_PATHS = ("exact train step ok", "subrow train step ok", "sharded eval ok,
 # The JAX package's data-parallel res8 step (SCALING.md §1, from its HLO): one
 # fused gradient all-reduce of 441,244 B and 12 BN-statistic all-reduces of 360 B.
 JAX_STEP_COLLECTIVES = {"all_reduces": 13, "bytes": 441_244 + 12 * 360}
-# Every tensor the port's train step reduces across ranks is float32 (the
-# gradients, BN's sums, the metrics): 4 bytes per element a collective records.
-REDUCED_BYTES = 4
+# The port's train step reduces its flat gradient and its two metrics in
+# float32 (4 bytes an element) and each BN's sums and count in float64 (8,
+# res.batch_stats): a collective's element count tells which.
+METRIC_ELEMENTS = 2
 # The bf16steps section: tests/test_torch_bf16_ranks.py's config, batch and steps.
 STEPS_CONF, STEPS_BATCH, STEPS_N = "res8-narrow", 16, 3
 REPEAT_MODELS = ("res8", "res15")
+# The bf16parts section: res8 at full width at the recipe's batch, one step on each world.
+PARTS_CONF, PARTS_BATCH, PARTS_WORLDS, PARTS_ROWS = "res8", 64, (1, 2, 4), (16, 32, 64)
+
+
+def reduced_bytes(coll: list, n_params: int) -> list[int]:
+    """The bytes of each collective a step records as ``(op, elements)``."""
+    return [n * (4 if n in (n_params, METRIC_ELEMENTS) else 8) for _, n in coll]
 
 
 def launches(counters) -> dict:
@@ -226,6 +275,151 @@ def dtype_steps(world: int, device: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def taps(model, mesh):
+    """Records, in the forward and backward of a res model inside, each conv's
+    input (``x``, as the conv casts it), output (``y``) and their cotangents
+    (``dx``, ``dy``) by layer name, BN's input (``bn_x``), batch mean and
+    variance by layer order, and each parameter's gradient as it enters
+    ``mesh.all_reduce_grads`` (``partial``), all on the CPU."""
+    import torch
+    from honk_tpu_torch.models import res
+
+    names = {id(m): n for n, m in model.named_modules()}
+    rec = {k: {} for k in ("x", "y", "dx", "dy", "partial")} | {"bn_x": [], "mean": [], "var": []}
+    conv, stats, reduce = res.conv, res.batch_stats, mesh.all_reduce_grads
+
+    def keep(key, name):
+        return lambda g: rec[key].__setitem__(name, g.detach().cpu())
+
+    def tapped_conv(layer, x, dtype, *args, **kwargs):
+        name = names[id(layer)]
+        if x.requires_grad:
+            x = x.view_as(x)  # a node of its own: its cotangent is the conv's input gradient alone
+            x.register_hook(keep("dx", name))
+        rec["x"][name] = x.detach().to("cpu", dtype)
+        y = conv(layer, x, dtype, *args, **kwargs)
+        y.register_hook(keep("dy", name))
+        rec["y"][name] = y.detach().cpu()
+        return y
+
+    def tapped_stats(xf, mesh=None):
+        mean, var = stats(xf, mesh)
+        for key, t in (("bn_x", xf), ("mean", mean), ("var", var)):
+            rec[key].append(t.detach().cpu())
+        return mean, var
+
+    def tapped_reduce(module):
+        rec["partial"] = {n: p.grad.detach().cpu().clone() for n, p in module.named_parameters()}
+        return reduce(module)
+
+    res.conv, res.batch_stats, mesh.all_reduce_grads = tapped_conv, tapped_stats, tapped_reduce
+    try:
+        yield rec
+    finally:
+        res.conv, res.batch_stats = conv, stats
+        del mesh.all_reduce_grads
+
+
+def alone(model, rec: dict, dev) -> dict:
+    """The one-card readings of each conv and BN of a one-rank bf16 run, on its own operands (``taps``):
+    forward, input and weight gradients at PARTS_ROWS rows, BN's statistics by formula and grouping."""
+    import torch
+    import torch.nn.functional as F
+
+    @contextlib.contextmanager
+    def tf32(on: bool):
+        flag, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, on
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = flag
+
+    def chunks(fn, t, rows, *more):
+        return torch.cat([fn(t[i:i + rows], *(m[i:i + rows] for m in more)) for i in range(0, len(t), rows)])
+
+    out = {"fwd": {}, "dgrad": {}, "wgrad": {}, "bn": []}
+    for name, x in rec["x"].items():
+        layer = getattr(model, name)
+        x, dy = x.to(dev), rec["dy"][name].to(dev)
+        w16 = layer.weight.detach().to(torch.bfloat16)
+        geo = (layer.stride, layer.padding, layer.dilation)
+
+        def fwd(xs):
+            return F.conv2d(xs, w16, None, *geo)
+
+        def dgrad(dys, xs):
+            return torch.ops.aten.convolution_backward(dys, xs, w16, None, *geo, False, [0, 0], 1,
+                                                       [True, False, False])[0]
+
+        out["fwd"][name] = {r: rows_apart(chunks(fwd, x, r), fwd(x)) for r in PARTS_ROWS[:-1]}
+        out["dgrad"][name] = {r: rows_apart(chunks(dgrad, dy, r, x), dgrad(dy, x)) for r in PARTS_ROWS[:-1]}
+        parts = {}
+        for r in PARTS_ROWS:
+            parts[r] = {"bf16": [C.conv_wgrad(layer, x[i:i + r], dy[i:i + r], torch.bfloat16).cpu()
+                                 for i in range(0, len(x), r)]}
+            with tf32(False):
+                parts[r]["f32"] = C.conv_wgrad(layer, x[:r], dy[:r], torch.float32).cpu()
+            with tf32(True):
+                parts[r]["tf32"] = C.conv_wgrad(layer, x[:r], dy[:r], torch.float32).cpu()
+        out["wgrad"][name] = parts
+    for xf in rec["bn_x"]:
+        xf = xf.to(dev)
+        dims, count = (0, 2, 3), xf.numel() // xf.shape[1]
+        row = {}
+        for key, t in (("mean", xf), ("meansq", xf * xf)):
+            row[key] = {"torch_mean": t.mean(dim=dims).cpu(), "sum_div": (t.sum(dim=dims) / count).cpu(),
+                        "f64": (t.double().sum(dim=dims) / count).float().cpu()}
+            for n in (2, 4):
+                rows = len(t) // n
+                row[key][f"sum_div_{n}"] = (sum(t[i:i + rows].sum(dim=dims) for i in range(0, len(t), rows))
+                                            / count).cpu()
+                row[key][f"f64_{n}"] = (sum(t[i:i + rows].double().sum(dim=dims) for i in range(0, len(t), rows))
+                                        / count).float().cpu()
+        out["bn"].append(row)
+    return out
+
+
+def parts_step(world: int, device: str) -> dict:
+    """One train step of PARTS_CONF at B=PARTS_BATCH (lr 0.01) from seed-0 weights on cli.scaling's clips in a
+    world of ``world``, in bf16 and in float32, tapped (``taps``); each parameter's gradient after the
+    step; on one rank also ``alone``'s readings. All on the CPU."""
+    import torch
+    from honk_tpu_torch import use_full_f32
+    from honk_tpu_torch.cli.scaling import inputs
+    from honk_tpu_torch.data import AugmentConfig, prepare_train_arrays
+    from honk_tpu_torch.models import find_config, find_model, init_weights
+    from honk_tpu_torch.parallel import make_data_mesh, rank_device
+    from honk_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+
+    dev = rank_device(device)
+    use_full_f32()
+    mesh = make_data_mesh(world, "data")
+    aug = AugmentConfig(n_silence=8)
+    arrays = prepare_train_arrays(*inputs(), aug, device=dev)
+    out = {"rows": mesh.shard_rows(PARTS_BATCH)}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", None)):
+        model = init_weights(find_model(PARTS_CONF)(find_config(PARTS_CONF), dtype=dtype),
+                             torch.Generator().manual_seed(0))
+        mesh.replicate(model.to(dev))
+        tx = make_optimizer(lrs=(0.01,), boundaries=())
+        state = create_train_state(model, tx)
+        step = make_train_step(tx, PARTS_BATCH, aug, mesh)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        with taps(model, mesh) as rec:
+            step(state, 7, arrays)
+        rec["grad"] = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        if world == 1:
+            rec["partial"] = rec["grad"]
+            if dtype is not None:
+                with torch.no_grad():  # the operands' weights: the step's start
+                    for n, p in model.named_parameters():
+                        p.copy_(start[n])
+                rec["alone"] = alone(model, rec, dev)
+        out[name] = rec if dtype is not None else {k: rec[k] for k in ("partial", "grad")}
+    return out
+
+
 def rank_main(rank: int, spec_path: str) -> int:
     """One rank: the spec's entry point with its join flags (``steps``: dp_steps in a group it joins);
     writes its launches and card."""
@@ -239,8 +433,8 @@ def rank_main(rank: int, spec_path: str) -> int:
 
     join = ["--device", spec["device"], "--coordinator", spec["coordinator"], "--num-processes", str(spec["world"]),
             "--process-id", str(rank)]
-    if spec["module"] in ("steps", "bf16steps"):
-        run = dp_steps if spec["module"] == "steps" else dtype_steps
+    if spec["module"] in ("steps", "bf16steps", "bf16parts"):
+        run = {"steps": dp_steps, "bf16steps": dtype_steps, "bf16parts": parts_step}[spec["module"]]
         initialize_distributed(spec["coordinator"], spec["world"], rank, spec["device"])
         try:
             torch.save(run(spec["world"], spec["device"]), os.path.join(spec["out"], f"rank{rank}.pt"))
@@ -439,43 +633,66 @@ def section_f32(checks: Checks, corpus: str, worlds: list[int], n_cards: int, de
     return out
 
 
-def section_bf16(checks: Checks, world: int, device: str, tmp: str, seeds: list[int]) -> dict:
+def section_bf16(checks: Checks, world: int, device: str, tmp: str, seeds: list[int], n_cards: int,
+                 controls: bool) -> dict:
     """3. res8 and res15 at zoo_hard_v2's recipe on ``world`` ranks through --n_devices from each of
-    ``seeds``, scored as cli.zoo."""
+    ``seeds``, scored as cli.zoo; with ``controls``, also on one rank from each seed, the one-rank runs
+    at once on cards of their own after the ``world``-rank runs."""
     root = os.path.join(tmp, "hard_v2")
     corpus_s = C.hard_v2_corpus(root) if not os.path.isdir(root) else 0.0
-    return {seed: recipe_on_ranks(checks, world, device, tmp, root, seed, corpus_s) for seed in seeds}
+    trained = {(world, seed): train_recipe(checks, world, device, tmp, root, seed, None) for seed in seeds}
+    if controls:
+        trained.update(in_waves([((1, seed), 1, lambda cards, seed=seed: train_recipe(checks, 1, device, tmp, root,
+                                                                                   seed, cards))
+                                 for seed in seeds], n_cards, device))
+    out = {}
+    for (w, seed), (runs, zoo) in trained.items():
+        runs["corpus_s"] = corpus_s
+        out[f"{w}_ranks_seed{seed}"] = score_recipe(checks, runs, zoo, root, device)
+    return out
 
 
-def recipe_on_ranks(checks: Checks, world: int, device: str, tmp: str, root: str, seed: int,
-                    corpus_s: float) -> dict:
-    """res8 and res15 at zoo_hard_v2's recipe from ``seed`` on ``world`` ranks, scored as cli.zoo."""
-    from honk_tpu_torch.cli.zoo import compare_zoo
-
-    out = {"corpus_s": corpus_s, "world": world, "seed": seed, "models": {}}
+def train_recipe(checks: Checks, world: int, device: str, tmp: str, root: str, seed: int,
+                 cards: list[int] | None) -> tuple[dict, str]:
+    """res8 and res15 trained at zoo_hard_v2's recipe from ``seed`` on ``world`` ranks on ``cards``: each
+    run's wall seconds, test accuracy and rate (audio-s/s a card, each epoch and their mean after the
+    first), and the zoo directory of their best weights."""
+    out = {"world": world, "seed": seed, "cards": cards, "models": {}}
     recipe = C.hard_v2_manifest()["models"]["res8"]["recipe"]
     split = ["--dev_pct", str(recipe["dev_pct"]), "--test_pct", str(recipe["test_pct"])]
     flags = ["--n_epochs", str(recipe["n_epochs"]), "--batch_size", str(recipe["batch_size"]), "--seed", str(seed),
              "--compute_dtype", recipe["compute_dtype"], "--lr", *map(str, recipe["lr"]), "--schedule",
              *map(str, recipe["schedule"]), "--data_dir", root, *split]
-    zoo = os.path.join(tmp, f"zoo-bf16-seed{seed}")
+    zoo = os.path.join(tmp, f"zoo-bf16-{world}-seed{seed}")
     os.makedirs(zoo)
     for name in C.RECIPE_MODELS:
-        run_dir = os.path.join(tmp, f"bf16-{name}-seed{seed}")
-        metrics = os.path.join(tmp, f"bf16-{name}-seed{seed}.jsonl")
+        run_dir = os.path.join(tmp, f"bf16-{name}-{world}-seed{seed}")
+        metrics = os.path.join(tmp, f"bf16-{name}-{world}-seed{seed}.jsonl")
         res = run_cmd([sys.executable, "-m", "honk_tpu_torch.cli.train", "--type", "train", "--model", name,
                        "--n_devices", str(world), "--device", device, "--output_dir", run_dir,
-                       "--metrics_jsonl", metrics, *flags], dict(os.environ, PYTHONPATH=ROOT), None,
+                       "--metrics_jsonl", metrics, *flags], dict(os.environ, PYTHONPATH=ROOT), cards,
                       RECIPE_TIMEOUT_S)
         if not checks.require(res["rc"] == 0 and os.path.isfile(os.path.join(run_dir, "best.pt")),
                               f"bf16 {name} seed {seed} on {world} ranks exited {res['rc']}:\n"
                               f"{res['log'][-3000:]}"):
-            return out
+            return out, zoo
         with open(metrics) as f:
-            epochs = [json.loads(line) for line in f if '"train_epoch"' in line]
+            rates = [json.loads(line)["audio_s_per_s"] for line in f if '"train_epoch"' in line]
         out["models"][name] = {"wall_s": res["s"], "test_acc": C.final_accuracy(res["log"]),
-                               "audio_s_per_s_per_card": [e["audio_s_per_s"] for e in epochs]}
+                               "audio_s_per_s_per_card": rates,
+                               "mean_audio_s_per_s_per_card": sum(rates[1:]) / max(len(rates) - 1, 1)}
         shutil.copy(os.path.join(run_dir, "best.pt"), os.path.join(zoo, f"{name}.pt"))
+    return out, zoo
+
+
+def score_recipe(checks: Checks, out: dict, zoo: str, root: str, device: str) -> dict:
+    """``train_recipe``'s models scored as cli.zoo against zoo_hard_v2, held to phase 34's gate."""
+    from honk_tpu_torch.cli.zoo import compare_zoo
+
+    world, seed = out["world"], out["seed"]
+    if set(out["models"]) != set(C.RECIPE_MODELS):
+        return out
+    recipe = C.hard_v2_manifest()["models"]["res8"]["recipe"]
     with open(os.path.join(zoo, "MANIFEST.json"), "w") as f:
         json.dump({"models": {n: {"pt": f"{n}.pt"} for n in C.RECIPE_MODELS}}, f)
     manifest = compare_zoo(zoo, root, recipe["dev_pct"], recipe["test_pct"], 256, C.HARD_V2, device)
@@ -524,7 +741,10 @@ def section_scaling(checks: Checks, worlds: list[int], device: str) -> dict:
     import torch
     from honk_tpu_torch.cli import scaling
 
+    from honk_tpu_torch.models import find_config, find_model
+
     dev = torch.device(device)
+    n_params = sum(p.numel() for p in find_model("res8")(find_config("res8")).parameters())
     out = {"host_cores": os.cpu_count(), "knobs": scaling.settings(dev), "jax_step": JAX_STEP_COLLECTIVES,
            "rows": [], "worlds": {}}
     for row, records in scaling.run([1, *worlds], dev):
@@ -533,8 +753,8 @@ def section_scaling(checks: Checks, worlds: list[int], device: str) -> dict:
             continue
         coll = records[0]["collectives"]
         out["worlds"][row["n_devices"]] = {
-            "collectives_per_step": len(coll), "bytes_per_step": REDUCED_BYTES * sum(n for _, n in coll),
-            "largest_bytes": REDUCED_BYTES * max((n for _, n in coll), default=0),
+            "collectives_per_step": len(coll), "bytes_per_step": sum(reduced_bytes(coll, n_params)),
+            "largest_bytes": max(reduced_bytes(coll, n_params), default=0),
             "rank_step_ms": [r["step_s"] * 1e3 for r in records], "rank_marginal_s": [r["marginal_s"] for r in records],
             "cards": [r["card"] for r in records]}
         for r, rec in enumerate(records):
@@ -650,6 +870,120 @@ def section_bf16steps(checks: Checks, n_cards: int, device: str, tmp: str) -> di
             rows.append(row)
         out[name] = rows
         print(f"[bf16steps] {name} (cudnn.deterministic {det}): " + json.dumps(rows), flush=True)
+    return out
+
+
+def rows_apart(got, ref) -> dict:
+    """Row by row: the rows of ``got`` not bitwise ``ref``'s, of how many, and the largest difference."""
+    differ = (got != ref).flatten(1).any(dim=1)
+    return {"rows": int(differ.sum()), "of": len(ref), "max_abs": float((got.double() - ref.double()).abs().max())}
+
+
+def stat_apart(got, ref) -> dict:
+    """float32 statistics against ``ref``: the largest distance in ulps of ``ref``, the channels that differ."""
+    return {"max_ulps": float(C.ulps(got, ref, 24).max()), "channels": int((got != ref).sum())}
+
+
+def grad_distance(a: dict, b: dict, keys) -> float:
+    return math.sqrt(sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys))
+
+
+def alone_readings(one: dict, model) -> dict:
+    """The one-card readings of a one-rank run (``alone``), the weight gradients against their truths."""
+    import torch
+
+    rec, al = one["bfloat16"], one["bfloat16"]["alone"]
+    out = {"fwd": al["fwd"], "dgrad": al["dgrad"], "wgrad": {}, "bn": []}
+    for n, parts in al["wgrad"].items():
+        truths = {r: C.conv_wgrad(getattr(model, n), rec["x"][n][:r], rec["dy"][n][:r], torch.float64)
+                  for r in PARTS_ROWS}
+        row = {}
+        for r, t in truths.items():
+            row[r] = {"bf16": C.rounding_reading(parts[r]["bf16"][0], t),
+                      **{f"{k}_max_ulps": float(C.ulps(parts[r][k], t).max()) for k in ("f32", "tf32")},
+                      **{f"{k}_rounded": C.rounding_reading(parts[r][k].bfloat16(), t) for k in ("f32", "tf32")}}
+            if r < PARTS_BATCH:  # the bf16 parts of r rows added in float32, as all_reduce_grads adds them
+                row[r]["parts_summed"] = C.rounding_reading(sum(g.float() for g in parts[r]["bf16"]),
+                                                            truths[PARTS_BATCH])
+        out["wgrad"][n] = row
+    for bn in al["bn"]:
+        out["bn"].append({key: {"mean_vs_sum_div": stat_apart(v["torch_mean"], v["sum_div"]),
+                                **{f"sum_div_{k}_parts": stat_apart(v[f"sum_div_{k}"], v["sum_div"]) for k in (2, 4)},
+                                **{f"f64_{k}_parts": stat_apart(v[f"f64_{k}"], v["f64"]) for k in (2, 4)},
+                                "f64_vs_sum_div": stat_apart(v["sum_div"], v["f64"])}
+                          for key, v in bn.items()})
+    return out
+
+
+def world_readings(one: dict, ranks: list[dict], model) -> dict:
+    """Readings (a)-(e) of a world's ranks against one rank (the section's docstring)."""
+    import torch
+
+    b, f = "bfloat16", "float32"
+    mine = ranks[0]
+
+    def cat(key, name):
+        return torch.cat([rk[b][key][name] for rk in ranks])
+
+    out = {"fwd": {}, "dgrad": {}, "wgrad": {}, "bn": [], "share": {}}
+    for n in one[b]["x"]:
+        layer, key = getattr(model, n), f"{n}.weight"
+        out["fwd"][n] = rows_apart(cat("y", n), one[b]["y"][n])
+        if n in one[b]["dx"]:
+            out["dgrad"][n] = rows_apart(cat("dx", n), one[b]["dx"][n])
+        parts = [C.rounding_reading(rk[b]["partial"][key],
+                                    C.conv_wgrad(layer, rk[b]["x"][n], rk[b]["dy"][n], torch.float64)) for rk in ranks]
+        truth = C.conv_wgrad(layer, cat("x", n), cat("dy", n), torch.float64)
+        out["wgrad"][n] = {"part": max(parts, key=lambda p: p["share_past_half"]),
+                           "sum": C.rounding_reading(mine[b]["grad"][key], truth),
+                           "part_dtype": str(mine[b]["partial"][key].dtype).replace("torch.", "")}
+    for i in range(len(one[b]["mean"])):
+        out["bn"].append({k: stat_apart(mine[b][k][i], one[b][k][i]) for k in ("mean", "var")})
+    keys = list(one[b]["grad"])
+    unit = grad_distance(one[b]["grad"], one[f]["grad"], keys)
+    per = {k: grad_distance(mine[b]["grad"], one[b]["grad"], [k]) / grad_distance(one[b]["grad"], one[f]["grad"], [k])
+           for k in keys}
+    worst = max(per, key=per.get)
+    out["share"] = {"bf16_1_vs_n": grad_distance(mine[b]["grad"], one[b]["grad"], keys) / unit,
+                    "largest_tensor": [worst, per[worst]],
+                    "f32_1_vs_n": grad_distance(mine[f]["grad"], one[f]["grad"], keys) / unit,
+                    "bf16_vs_f32": unit}
+    return out
+
+
+def section_bf16parts(checks: Checks, n_cards: int, device: str, tmp: str) -> dict:
+    """10. ROADMAP §3.2 layer by layer: one bf16 step of res8 at B=64 on PARTS_WORLDS, readings (a)-(e)
+    per layer against one rank, with cuDNN's default and deterministic algorithms, and on gloo ranks."""
+    import torch
+    from honk_tpu_torch.models import find_config, find_model
+
+    runs = {"default": False, "deterministic": True}
+    res = in_waves([(f"{name}-{w}", w, lambda cards, w=w, det=det, n=f"{name}-{w}":
+                     run_ranks("bf16parts", [], w, device, tmp, f"bf16parts-{n}", det, cards))
+                    for name, det in runs.items() for w in PARTS_WORLDS], n_cards, device)
+    if device == "cuda":  # and on the host's CPU, one group at a time
+        runs["cpu"] = False
+        for w in PARTS_WORLDS:
+            res[f"cpu-{w}"] = run_ranks("bf16parts", [], w, "cpu", tmp, f"bf16parts-cpu-{w}")
+    out = {"conf": PARTS_CONF, "batch": PARTS_BATCH, "s": {n: r["s"] for n, r in res.items()}}
+    failed = {n: r for n, r in res.items() if r["rcs"] != [0] * len(r["rcs"])}
+    if not checks.require(not failed, "bf16parts: ranks exited " + "\n".join(
+            f"{n}: {r['rcs']}\n" + "\n".join(log[-2000:] for log in r["logs"]) for n, r in failed.items())):
+        return out
+    model = find_model(PARTS_CONF)(find_config(PARTS_CONF))
+    for name, det in runs.items():
+        got = {w: [torch.load(os.path.join(tmp, f"ranks-bf16parts-{name}-{w}", f"rank{r}.pt")) for r in range(w)]
+               for w in PARTS_WORLDS}
+        one = got[1][0]
+        out[name] = {1: {"alone": alone_readings(one, model), **world_readings(one, got[1], model)}}
+        print(f"[bf16parts] {name} (cudnn.deterministic {det}) world 1: " + json.dumps(out[name][1]), flush=True)
+        for w in PARTS_WORLDS[1:]:
+            ranks = got[w]
+            checks.require(all(torch.equal(ranks[0][d]["grad"][k], rk[d]["grad"][k]) for rk in ranks
+                               for d in ("bfloat16", "float32") for k in ranks[0][d]["grad"]),
+                           f"bf16parts {name}: the {w} ranks' gradients differ")
+            out[name][w] = world_readings(one, ranks, model)
+            print(f"[bf16parts] {name} (cudnn.deterministic {det}) world {w}: " + json.dumps(out[name][w]), flush=True)
     return out
 
 
@@ -819,6 +1153,8 @@ def main() -> int:
     p.add_argument("--worlds", type=int, nargs="+", default=[2, 4])
     p.add_argument("--sections", nargs="+", choices=SECTIONS, default=list(SECTIONS))
     p.add_argument("--recipe_seeds", type=int, nargs="+", default=[0], help="training seeds of the bf16 section")
+    p.add_argument("--recipe_controls", action="store_true",
+                   help="the bf16 section also trains each seed on one rank, the paired control")
     p.add_argument("--gap_seeds", nargs="+", default=["0", "1", "2", "3", "4"])
     p.add_argument("--gap_budget_s", type=float, default=240.0)
     p.add_argument("--device", default="cuda", help="cuda, or cpu to rehearse the script on gloo ranks")
@@ -859,13 +1195,15 @@ def main() -> int:
         d, worlds = args.device, args.worlds
         runs = {"steps": lambda: section_steps(checks, worlds, slots, d, tmp),
                 "f32": lambda: section_f32(checks, corpus, worlds, slots, d, tmp),
-                "bf16": lambda: section_bf16(checks, max(worlds), d, tmp, args.recipe_seeds),
+                "bf16": lambda: section_bf16(checks, max(worlds), d, tmp, args.recipe_seeds, slots,
+                                             args.recipe_controls),
                 "dryrun": lambda: section_dryrun(checks, counters, worlds, d, tmp),
                 "scaling": lambda: section_scaling(checks, worlds, d),
                 "gap": lambda: section_gap(checks, args.gap_seeds, args.gap_budget_s, worlds, slots, d, tmp),
                 "dead": lambda: section_dead(checks, corpus, d, tmp),
                 "bf16steps": lambda: section_bf16steps(checks, slots, d, tmp),
-                "repeat": lambda: section_repeat(checks, slots, d, tmp)}
+                "repeat": lambda: section_repeat(checks, slots, d, tmp),
+                "bf16parts": lambda: section_bf16parts(checks, slots, d, tmp)}
         for name in args.sections:
             t1 = time.perf_counter()
             try:

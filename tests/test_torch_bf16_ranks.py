@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from honk_tpu.data import augment as JA
 from honk_tpu.parallel import make_data_mesh as jmake_data_mesh
@@ -49,8 +50,10 @@ from honk_tpu.train import state as JS
 from honk_tpu.train import steps as JT
 from honk_tpu_torch.data import augment as A
 from honk_tpu_torch.models import from_flax_variables
+from honk_tpu_torch.models.layers import cast_parameters, round_cast_grads
 from test_torch_bf16_train import RATIO, _jmodel, _np
 from test_torch_parallel import _jax_draws
+from torch_bf16_rank_worker import model_of
 from torch_ranks import REPO, free_port, run_ranks
 
 CONF, N_CLIPS, BATCH, STEPS = "res8-narrow", 48, 16, 3
@@ -111,11 +114,13 @@ def runs(tmp_path_factory):
     outs = [str(tmp / f"rank{r}.pt") for r in range(2)] + [str(tmp / "one.pt")]
     run_ranks([[sys.executable, worker, str(r), "2", str(port), spec, outs[r]] for r in range(2)]
               + [[sys.executable, worker, "0", "1", "0", spec, outs[2]]])
-    rank0, rank1, one = (torch.load(o, weights_only=False)["bfloat16"] for o in outs)
+    (rank0, grads2), (rank1, _), (one, grads1) = ((r["bfloat16"], r["grads"]) for r in
+                                                  (torch.load(o, weights_only=False) for o in outs))
     for a, b in zip(rank0, rank1):
         assert all(torch.equal(a[k], b[k]) for k in a), "the two ranks' states differ"
     out["port2"] = [{k: v.numpy() for k, v in s.items()} for s in rank0]
     out["port1"] = [{k: v.numpy() for k, v in s.items()} for s in one]
+    out["grads1"], out["grads2"] = grads1, grads2
     return out
 
 
@@ -138,3 +143,144 @@ def test_two_gloo_ranks_part_no_further_than_jaxs_two_devices(runs, step):
     port_gap = _norm(runs["port1"][s], runs["port2"][s], params)
     jax_gap = _norm(runs["jax1"][s], runs["jax2"][s], params)
     assert 0 < port_gap <= jax_gap, f"after step {step}: the port's 1 and 2 ranks {port_gap:.4g} apart, JAX's {jax_gap:.4g}"
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps of the larger magnitude."""
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).double().clamp_min(2.0 ** -126))
+    return (a.double() - b.double()).abs() / torch.ldexp(torch.ones_like(e, dtype=torch.float64), e - 8)
+
+
+def test_two_gloo_ranks_round_each_bf16_weight_gradient_once_as_one_rank_does(runs):
+    """After step 1, the gradient of every parameter a bf16 layer casts
+    (``layers.cast_parameters``: the convs' weights) as the update takes it
+    on two gloo ranks lies within float32 regrouping of one rank's: both
+    are bf16 values, at most 2% of a tensor's elements differ, and at most
+    0.2% by more than one bf16 ulp.
+
+    Each rank's weight gradient now leaves its layer in float32 and the
+    sum over the ranks is rounded to bf16 once (``layers._Float32GradConv``,
+    ``round_cast_grads``), as one rank rounds the whole batch's sum
+    once; BN's sums are float64 on every topology (``res.batch_stats``).
+    Measured here: 0.03-0.6% of each tensor's elements differ, at most
+    0.03% (one element) by more than one ulp, the largest by 3 ulps. When
+    each rank's bf16 gradient was added in float32 after its own rounding,
+    87-94% of each tensor's elements differed, 48-71% by more than one
+    ulp, the largest by 384 ulps.
+    """
+    model = model_of(CONF, dtype=torch.bfloat16)
+    names = {id(p): n for n, p in model.named_parameters()}
+    readings = {}
+    for p in cast_parameters(model):
+        k = names[id(p)]
+        g1, g2 = runs["grads1"][k], runs["grads2"][k]
+        d = _bf16_ulps(g1, g2)
+        readings[k] = (float((d > 0).double().mean()), float((d > 1).double().mean()), float(d.max()))
+        assert torch.equal(g2, g2.bfloat16().float()) and torch.equal(g1, g1.bfloat16().float()), k
+    bad = {k: r for k, r in readings.items() if r[0] > 0.02 or r[1] > 0.002}
+    assert not bad, f"(share differing, share past one ulp, largest ulps) past 0.02 / 0.002: {bad}"
+
+
+def _old_conv(layer, x, dtype, *sharded):
+    """``layers.conv`` in bf16 through autograd alone (no float32-gradient layer)."""
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding, layer.dilation)
+    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
+
+
+def _old_dense(layer, x, dtype, *sharded):
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+@pytest.mark.parametrize("conf", ["res8-narrow", "cnn-trad-pool2"])
+def test_at_one_rank_a_bf16_models_backward_is_the_autograd_path_bit_for_bit(conf, monkeypatch):
+    """On the CPU a one-rank mesh keeps autograd's bf16 gradients (oneDNN's rounds a float32 sum once):
+    a bf16 model's training logits and every gradient are bit for bit those of the autograd path that
+    the float32-gradient layers replace on the card and on every rank of a sharded step, and the step's
+    one rounding (``round_cast_grads``) leaves them as they are."""
+    from honk_tpu_torch.models import cnn, res
+    from honk_tpu_torch.parallel import DataMesh
+
+    feats = torch.from_numpy(np.random.default_rng(3).standard_normal((6, 101, 40)).astype(np.float32))
+    labels = torch.arange(6) % 12
+
+    def grads(mesh):
+        model = model_of(conf, dtype=torch.bfloat16).train()
+        masks = model.keep_masks(6, torch.Generator().manual_seed(1)) if hasattr(model, "keep_masks") else None
+        logits = model(feats, dropout=masks, mesh=mesh)
+        F.cross_entropy(logits, labels).backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        round_cast_grads(model)
+        assert all(torch.equal(p.grad, grads[n]) for n, p in model.named_parameters())
+        return logits, grads
+
+    got = grads(DataMesh("data", 0, 1))
+    for mod in (res, cnn):
+        monkeypatch.setattr(mod, "conv", _old_conv)
+    monkeypatch.setattr(cnn, "dense", _old_dense)
+    want = grads(None)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1]), [k for k in want[1]
+                                                                      if not torch.equal(got[1][k], want[1][k])]
+
+
+@pytest.mark.parametrize("layer", ["conv", "dilated_conv", "dense"])
+def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_gradient(layer):
+    """``conv`` / ``dense`` on a rank of a sharded step: the output and the input gradient bit for bit the
+    autograd path's; the weight gradient the float32 sum of the bf16 operands' exact products, unrounded,
+    within float32's summation bound of the float64 truth (so exactly 0 for a dead input channel), and the
+    bias gradient the float32 sum of the output's cotangent; rounded once, within one bf16 ulp of the
+    autograd path's bf16 gradients; and where no all-reduce follows, those rounded once by the layer."""
+    from honk_tpu_torch.models import layers
+
+    rng = np.random.default_rng(5)
+    if layer == "dense":
+        mod = torch.nn.Linear(12, 8)
+        x = torch.from_numpy(rng.standard_normal((5, 12)).astype(np.float32))
+        fn, old = layers.dense, _old_dense
+    else:
+        d = 2 if layer == "dilated_conv" else 1
+        mod = torch.nn.Conv2d(4, 6, 3, padding=d, dilation=d)
+        x = torch.from_numpy(rng.standard_normal((5, 4, 9, 7)).astype(np.float32))
+        fn, old = layers.conv, _old_conv
+    x[:, 0] = 0.0  # a dead input channel: its weight gradient is exactly 0
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
+
+    def run(f, **kw):
+        mod.zero_grad()
+        xi = x.clone().requires_grad_(True)
+        y = f(mod, xi, torch.bfloat16, **kw)
+        ct = torch.from_numpy(np.random.default_rng(6).standard_normal(y.shape).astype(np.float32))
+        y.backward(ct.bfloat16())
+        return y, xi.grad, mod.weight.grad.clone(), mod.bias.grad.clone(), ct.bfloat16()
+
+    y, gx, gw, gb, ct = run(fn, sharded=True)
+    y0, gx0, gw0, gb0, _ = run(old)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y0) and torch.equal(gx, gx0)
+    x16 = x.bfloat16().double()
+    if layer == "dense":
+        truth, scale, n_terms = ct.double().t().mm(x16), ct.double().abs().t().mm(x16.abs()), x.shape[0]
+        want_b = ct.float().sum(dim=0)
+        geometry = ()
+    else:
+        geometry = (mod.stride, mod.padding, mod.dilation)
+
+        def wgrad(dy, xs):
+            return torch.ops.aten.convolution_backward(dy, xs, mod.weight.double(), None, *geometry, False,
+                                                       [0, 0], 1, [False, True, False])[1]
+
+        truth, scale, n_terms = wgrad(ct.double(), x16), wgrad(ct.double().abs(), x16.abs()), ct[:, 0].numel()
+        want_b = ct.float().sum(dim=(0, 2, 3))
+    assert gw.dtype == gb.dtype == torch.float32 and torch.equal(gb, want_b)
+    assert bool(((gw.double() - truth).abs() <= n_terms * 2.0 ** -24 * scale).all())
+    assert bool((gw[:, :1] == 0).all()) and not torch.equal(gw, gw.bfloat16().float())
+    for got, ref in ((gw, gw0), (gb, gb0)):
+        assert float(_bf16_ulps(got.bfloat16().float(), ref).max()) <= 1
+    # Where no all-reduce follows (one rank on the card), the layer rounds them once itself.
+    fn_rounded = layers._Float32GradDense if layer == "dense" else layers._Float32GradConv
+    mod.zero_grad()
+    xi = x.clone().requires_grad_(True)
+    fn_rounded.apply(xi, mod.weight, mod.bias, torch.bfloat16, *((geometry,) if geometry else ()), True).backward(ct)
+    assert torch.equal(xi.grad, gx)
+    assert torch.equal(mod.weight.grad, gw.bfloat16().float()) and torch.equal(mod.bias.grad, gb.bfloat16().float())

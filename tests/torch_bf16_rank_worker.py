@@ -7,7 +7,8 @@ train steps of ``tests/torch_parallel_worker.py`` on models built in bf16,
 for each config in ``spec['confs']``, or, where ``spec`` holds
 ``batches``, res8-narrow's steps on those global batches (the JAX step's
 draws, injected) from ``spec['variables']``, this rank's rows of each, the
-state after every step recorded; writes what it computed to ``out.pt``.
+state after every step recorded, and the first step's gradients; writes
+what it computed to ``out.pt``.
 With world 1 it joins no group: the one-rank reference, which also runs
 the float32 steps. Imports nothing of JAX.
 """
@@ -25,17 +26,19 @@ from honk_tpu_torch.parallel import initialize_distributed, make_data_mesh, shut
 from honk_tpu_torch.train import create_train_state, make_optimizer, make_train_step  # noqa: E402
 
 
-def batch_steps(spec: dict, mesh, dtype=None) -> list[dict]:
-    """res8-narrow's steps on ``spec['batches']`` (this rank's rows) from ``spec['variables']``: the state after each."""
+def batch_steps(spec: dict, mesh, dtype=None) -> tuple[list[dict], dict]:
+    """res8-narrow's steps on ``spec['batches']`` (this rank's rows) from ``spec['variables']``: the state
+    after each, and each parameter's gradient of the first step as the update took it."""
     tx = make_optimizer(lrs=(0.01,), boundaries=())
     state = create_train_state(model_of("res8-narrow", spec["variables"], dtype), tx)
-    states = []
+    states, grads = [], {}
     for audio, labels in spec["batches"]:
         start, stop = mesh.shard_rows(audio.shape[0])
         step = make_train_step(tx, audio.shape[0], AugmentConfig(), mesh)
         state, _ = step.apply_batch(state, audio[start:stop], labels[start:stop])
         states.append({k: v.clone() for k, v in state.model.state_dict().items()})
-    return states
+        grads = grads or {k: p.grad.clone() for k, p in state.model.named_parameters()}
+    return states, grads
 
 
 def main() -> int:
@@ -47,7 +50,8 @@ def main() -> int:
         spec = torch.load(spec_path, weights_only=False)
         mesh = make_data_mesh(world if world > 1 else 0, "data")
         if "batches" in spec:
-            out = {"bfloat16": batch_steps(spec, mesh, torch.bfloat16)}
+            states, grads = batch_steps(spec, mesh, torch.bfloat16)
+            out = {"bfloat16": states, "grads": grads}
         else:
             out = {conf: train_steps(spec, conf, mesh, torch.bfloat16) for conf in spec["confs"]}
             if world == 1:  # and the float32 steps, to show the bf16 ones are another computation
