@@ -114,10 +114,8 @@ class SpeechModel(nn.Module):
                 dropout: torch.Generator | Sequence[torch.Tensor] | None = None, mesh: Any = None) -> torch.Tensor:
         """Logits. Training mode needs ``dropout``: the generator to draw the
         keep masks from (``keep_masks``), or the masks themselves. ``packed``
-        is ``eval_operands()``'s None, taken and unused. Under a ``mesh`` of
-        more than one rank, ``x`` is this rank's rows and the layers in
-        ``dtype`` leave their weight gradients unrounded (``layers.conv``);
-        the family has no BN to make global."""
+        is ``eval_operands()``'s None, and ``mesh`` the res family's data mesh
+        for its BN: the family has no BN, so both are taken and unused."""
         if not self.training:
             return self._layers(x, self.dtype, [])
         shapes = self.dropout_shapes(x.shape[0])
@@ -129,7 +127,7 @@ class SpeechModel(nn.Module):
         if len(masks) != len(shapes):
             raise ValueError(f"the training forward applies {len(shapes)} dropout layers: "
                              f"pass a generator or as many keep masks, not {dropout!r}")
-        return self._layers(x, self.dtype, masks, sharded=mesh is not None and mesh.size > 1)
+        return self._layers(x, self.dtype, masks)
 
     def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The eval forward's logits (float32, no dropout) under autograd, in
@@ -137,8 +135,7 @@ class SpeechModel(nn.Module):
         The family has no BN, so nothing is frozen but the dropout."""
         return self._layers(x, torch.float32, [])
 
-    def _layers(self, x: torch.Tensor, dtype: torch.dtype, masks: list[torch.Tensor],
-                sharded: bool = False) -> torch.Tensor:
+    def _layers(self, x: torch.Tensor, dtype: torch.dtype, masks: list[torch.Tensor]) -> torch.Tensor:
         keep = iter(masks)
 
         def drop(y: torch.Tensor) -> torch.Tensor:
@@ -146,15 +143,15 @@ class SpeechModel(nn.Module):
 
         x = x[:, None]
         for layer, pool in zip(self._convs(), self.pools):
-            x = drop(F.relu(conv(layer, x, dtype, sharded)))
+            x = drop(F.relu(conv(layer, x, dtype)))
             if pool != (1, 1):
                 x = F.max_pool2d(x, pool)
         x = x.flatten(1)
         if hasattr(self, "lin"):
-            x = dense(self.lin, x, dtype, sharded)
+            x = dense(self.lin, x, dtype)
         if hasattr(self, "dnn1"):
-            x = dense(self.dnn1, x, dtype, sharded)
+            x = dense(self.dnn1, x, dtype)
             x = drop(x if self.tf_variant else F.relu(x))
         if hasattr(self, "dnn2"):
-            x = drop(dense(self.dnn2, x, dtype, sharded))
+            x = drop(dense(self.dnn2, x, dtype))
         return self.output(x.float())

@@ -6,12 +6,11 @@
   ``nn.Dense`` with ``dtype``: bf16 operands, a bf16 product, then the
   bias added in bf16 (two roundings), the result left in bf16. Its weight
   and bias gradients are flax's too: the float32 sum of the bf16 products,
-  rounded to bf16 once (after the all-reduce of a data-parallel step,
-  ``round_cast_grads``). On the CPU autograd's bf16 gradient is that
-  rounding; cuDNN's rounds more than once, and a rank holds only some of
-  the batch's rows, so on the card and on every rank of a sharded step the
-  layer sums them in float32 itself (``_Float32GradConv``), and on a rank
-  leaves them unrounded.
+  rounded to bf16 once. The layer sums them in float32 itself
+  (``_LowConv``: cuDNN's bf16 weight gradient rounds more than once) and
+  leaves them unrounded; the train step rounds them once, after the
+  all-reduce of a data-parallel step (``round_cast_grads``), so one rank
+  and N ranks round the same sum.
 - ``avg_pool``: flax's ``nn.avg_pool``; in bf16 its window sum is a chain of
   bf16 adds, then a bf16 division by the window's size.
 - ``draw_keep_masks`` / ``apply_dropout``: flax's ``nn.Dropout`` with the
@@ -65,35 +64,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype, sharded: bool = False) -> torch.Tensor:
+def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``,
-    then the bias added in ``dtype`` (not fused into the product). ``sharded``:
-    ``x`` is a rank's rows of a data-parallel step's batch."""
+    then the bias added in ``dtype`` (not fused into the product). Its weight
+    and bias gradients are float32 sums, not yet rounded (``_LowConv``)."""
     if dtype == torch.float32:
         return layer(x)
-    if _float32_grads(x, sharded):
-        return _Float32GradConv.apply(x, layer.weight, layer.bias, dtype,
-                                      (layer.stride, layer.padding, layer.dilation), not sharded)
-    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding, layer.dilation)
-    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
+    return _LowConv.apply(x, layer.weight, layer.bias, dtype, (layer.stride, layer.padding, layer.dilation))
 
 
-def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, sharded: bool = False) -> torch.Tensor:
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``, then the bias added in
-    ``dtype``. ``sharded`` as ``conv``'s."""
+    ``dtype``. Its weight and bias gradients are float32 sums, not yet rounded (``_LowDense``)."""
     if dtype == torch.float32:
         return layer(x)
-    if _float32_grads(x, sharded):
-        return _Float32GradDense.apply(x, layer.weight, layer.bias, dtype, not sharded)
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
-
-
-def _float32_grads(x: torch.Tensor, sharded: bool) -> bool:
-    """Whether a layer in a low dtype sums its weight and bias gradients in float32 itself: on a rank of
-    a sharded step (its rows' sum is a part of the batch's), and on the card, where cuDNN's bf16 weight
-    gradient rounds more than once (``scripts/chip_train_nccl.py --sections bf16parts``, PERF.md §6).
-    The CPU's bf16 gradient rounds a float32 sum once, as flax's does."""
-    return torch.is_grad_enabled() and (sharded or x.is_cuda)
+    return _LowDense.apply(x, layer.weight, layer.bias, dtype)
 
 
 def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
@@ -106,10 +91,11 @@ def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
 
 @torch.no_grad()
 def round_cast_grads(model: nn.Module) -> None:
-    """After the all-reduce of a sharded step: round the summed float32
-    gradient of every parameter ``conv`` / ``dense`` cast to the model's
-    dtype to that dtype, once, and widen it back for the float32 update:
-    flax's one rounding of the whole batch's sum."""
+    """After the backward of a step in a low dtype (and the all-reduce of a
+    sharded one): round the float32 sum that is the gradient of every
+    parameter ``conv`` / ``dense`` cast to the model's dtype to that dtype,
+    once, and widen it back for the float32 update: flax's one rounding of
+    the whole batch's sum."""
     if model.dtype == torch.float32:
         return
     for p in cast_parameters(model):
@@ -128,41 +114,51 @@ def _full_f32():
         torch.backends.cuda.matmul.allow_tf32 = flag
 
 
+def _columns(x: torch.Tensor, shape: torch.Size, out_hw: tuple[int, int], geometry) -> torch.Tensor:
+    """im2col of (B, C, H, W) ``x`` for a conv of weight ``shape`` and output size ``out_hw``:
+    (B, C * kh * kw, Ho * Wo), ``F.unfold``'s layout, as one strided copy of the padded input
+    (``F.unfold`` on the card launches a kernel for each row)."""
+    stride, padding, dilation = geometry
+    xp = F.pad(x, (padding[1], padding[1], padding[0], padding[0]))
+    b, c, (kh, kw), (ho, wo) = x.shape[0], x.shape[1], shape[2:], out_hw
+    sb, sc, sh, sw = xp.stride()
+    view = xp.as_strided((b, c, kh, kw, ho, wo), (sb, sc, dilation[0] * sh, dilation[1] * sw,
+                                                  stride[0] * sh, stride[1] * sw))
+    return view.reshape(b, c * kh * kw, ho * wo)
+
+
 def _conv_weight_grad(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
     """A conv's float32 weight gradient from its bf16 operands: im2col, then a
     batched float32 GEMM (every product exact, TF32 off) summed over the
-    rows. Not cuDNN's float32 weight gradient, whose algorithm is chosen by
-    shape and includes inexact transforms (on the card: 0.6-0.7% of a
-    45-map conv's elements more than half a bf16 ulp from the truth at 16
-    and 32 rows, and no exact zero for a dead input channel)."""
-    stride, padding, dilation = geometry
-    cols = F.unfold(x16.float(), shape[2:], dilation, padding, stride)  # (B, C_in * kh * kw, L)
+    rows. Not cuDNN's bf16 weight gradient, which rounds more than once on
+    the card (conv0 of res8: 4.94% of the elements more than half a bf16 ulp
+    from the truth), nor its float32 one, whose algorithm is chosen by shape
+    and includes inexact transforms (0.6-0.7% of a 45-map conv's elements
+    past half an ulp at 16 and 32 rows, and no exact zero for a dead input
+    channel; PERF.md §6)."""
+    cols = _columns(x16, shape, gy32.shape[2:], geometry).float()
     with _full_f32():
         return torch.bmm(gy32.flatten(2), cols.transpose(1, 2)).sum(dim=0).view(shape)
 
 
-def _rounded(g: torch.Tensor | None, dtype: torch.dtype, rounded: bool) -> torch.Tensor | None:
-    return g.to(dtype).float() if rounded and g is not None else g
-
-
-class _Float32GradConv(torch.autograd.Function):
+class _LowConv(torch.autograd.Function):
     """``conv`` in a low dtype whose weight and bias gradients are summed in float32.
 
-    Forward and input gradient are the autograd path's ops on the same
-    operands (a bf16 product, the bias added in bf16; the input gradient in
-    bf16, cast to the input's dtype). The weight gradient is the float32
-    correlation of the bf16 operands (``_conv_weight_grad``: every product
-    exact, summed in float32), the bias gradient the float32 sum of the
-    output's cotangent; ``rounded``: rounded to ``dtype`` once there,
-    flax's gradient; otherwise left unrounded, a rank's part of a sum.
+    Forward and input gradient are autograd's ops on the same operands (a
+    bf16 product, the bias added in bf16; the input gradient in bf16, cast
+    to the input's dtype). The weight gradient is the float32 correlation of
+    the bf16 operands (``_conv_weight_grad``: every product exact, summed in
+    float32), the bias gradient the float32 sum of the output's cotangent.
+    Both leave the layer unrounded: on a rank of a data-parallel step they
+    are a part of the batch's sum, and the step rounds the sum once
+    (``round_cast_grads``), on every topology.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, dtype, geometry, rounded):
+    def forward(ctx, x, weight, bias, dtype, geometry):
         x16, w16 = x.to(dtype), weight.to(dtype)
         ctx.save_for_backward(x16, w16)
-        ctx.geometry, ctx.shape, ctx.x_dtype, ctx.has_bias, ctx.rounded = (geometry, weight.shape, x.dtype,
-                                                                         bias is not None, rounded)
+        ctx.geometry, ctx.shape, ctx.x_dtype, ctx.has_bias = geometry, weight.shape, x.dtype, bias is not None
         y = F.conv2d(x16, w16, None, *geometry)
         return y if bias is None else y + bias.to(dtype)[:, None, None]
 
@@ -178,18 +174,18 @@ class _Float32GradConv(torch.autograd.Function):
             gw = _conv_weight_grad(gy32, x16, ctx.shape, ctx.geometry)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             gb = gy32.sum(dim=(0, 2, 3))
-        return gx, _rounded(gw, gy.dtype, ctx.rounded), _rounded(gb, gy.dtype, ctx.rounded), None, None, None
+        return gx, gw, gb, None, None
 
 
-class _Float32GradDense(torch.autograd.Function):
-    """``dense`` in a low dtype whose weight and bias gradients are summed in float32 (as
-    ``_Float32GradConv``)."""
+class _LowDense(torch.autograd.Function):
+    """``dense`` in a low dtype whose weight and bias gradients are summed in float32, unrounded (as
+    ``_LowConv``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, dtype, rounded):
+    def forward(ctx, x, weight, bias, dtype):
         x16, w16 = x.to(dtype), weight.to(dtype)
         ctx.save_for_backward(x16, w16)
-        ctx.x_dtype, ctx.rounded = x.dtype, rounded
+        ctx.x_dtype = x.dtype
         return F.linear(x16, w16) + bias.to(dtype)
 
     @staticmethod
@@ -204,7 +200,7 @@ class _Float32GradDense(torch.autograd.Function):
                 gw = gy32.t().mm(x16.float())
         if ctx.needs_input_grad[2]:
             gb = gy32.sum(dim=0)
-        return gx, _rounded(gw, gy.dtype, ctx.rounded), _rounded(gb, gy.dtype, ctx.rounded), None, None
+        return gx, gw, gb, None
 
 
 def avg_pool(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:

@@ -121,8 +121,7 @@ class SpeechResModel(nn.Module):
         accepted and unused, so every model trains through one call.
         """
         if self.training:
-            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh),
-                               sharded=mesh is not None and mesh.size > 1)
+            return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh))
         if packed is None:
             packed = self.eval_operands()
         if not self.dilated:
@@ -143,14 +142,13 @@ class SpeechResModel(nn.Module):
         scale, offset = scale[:, :, None, None], offset[:, :, None, None]
         return self._stack(x, dtype, lambda i, y: (y * scale[i - 1] + offset[i - 1]).to(y.dtype))
 
-    def _stack(self, x: torch.Tensor, dtype: torch.dtype, norm: Callable[[int, torch.Tensor], torch.Tensor],
-               sharded: bool = False) -> torch.Tensor:
-        """The whole model as PyTorch ops in ``dtype``'s flow, BN of layer i as ``norm(i, x)``; ``sharded``:
-        a rank's rows of a data-parallel step (``layers.conv``)."""
-        y = F.relu(conv(self.conv0, x[:, None], dtype, sharded))
+    def _stack(self, x: torch.Tensor, dtype: torch.dtype,
+               norm: Callable[[int, torch.Tensor], torch.Tensor]) -> torch.Tensor:
+        """The whole model as PyTorch ops in ``dtype``'s flow, BN of layer i as ``norm(i, x)``."""
+        y = F.relu(conv(self.conv0, x[:, None], dtype))
         x = old = y if self.pool is None else avg_pool(y, self.pool)
         for i in range(1, self.n_layers + 1):
-            y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype, sharded))
+            y = F.relu(conv(getattr(self, f"conv{i}"), x, dtype))
             if i % 2 == 0:
                 x = old = y + old
             else:

@@ -20,8 +20,9 @@ out with one process per device:
 
 At size 1 every collective is the identity and nothing is communicated,
 so a one-rank run computes exactly what the single-device code computes.
-``collectives``, when a list, records ``(op, numel)`` of each collective
-launched (the count tests hold against the JAX step's all-reduces).
+``collectives``, when a list, records ``(op, numel, element_size)`` of
+each collective launched (the count tests hold against the JAX step's
+all-reduces; numel times element_size is its bytes).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class DataMesh:
 
     def _record(self, op: str, t: torch.Tensor) -> None:
         if self.collectives is not None:
-            self.collectives.append((op, t.numel()))
+            self.collectives.append((op, t.numel(), t.element_size()))
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the ranks of ``t``; differentiable (the backward all-reduces the gradient)."""

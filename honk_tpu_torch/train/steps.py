@@ -29,7 +29,7 @@ all-reduce of the flattened gradients gives the global mean's gradient on
 every rank before the same update; loss and accuracy are reduced too. A
 bf16 layer's weight gradient leaves its rank as a float32 part of the sum,
 and is rounded to bf16 once after the all-reduce (``round_cast_grads``), as
-one rank rounds the whole batch's. An
+one rank rounds its whole batch's sum once. An
 eval sweep scores each rank's rows of every batch and all-reduces the two
 counts once at the end. At one rank nothing is communicated and the step
 is the single-device step.
@@ -86,7 +86,7 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
         with annotate("update"):
             if sharded:
                 mesh.all_reduce_grads(model)
-                round_cast_grads(model)
+            round_cast_grads(model)
             tx.apply(state)
         hits = logits.detach().argmax(dim=-1) == labels
         if not sharded:

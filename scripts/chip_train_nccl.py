@@ -132,6 +132,8 @@ cards' name and power limit, then one JSON line of the readings, and exits
    ranks of a world being bitwise equal.
 
 Imports nothing of JAX. Its default worlds need four cards of one host.
+On one card, ``--worlds 1 --sections bf16steps`` runs section 8 with its
+two ranks sharing the card over gloo.
 """
 
 from __future__ import annotations
@@ -172,10 +174,6 @@ DRYRUN_PATHS = ("exact train step ok", "subrow train step ok", "sharded eval ok,
 # The JAX package's data-parallel res8 step (SCALING.md §1, from its HLO): one
 # fused gradient all-reduce of 441,244 B and 12 BN-statistic all-reduces of 360 B.
 JAX_STEP_COLLECTIVES = {"all_reduces": 13, "bytes": 441_244 + 12 * 360}
-# The port's train step reduces its flat gradient and its two metrics in
-# float32 (4 bytes an element) and each BN's sums and count in float64 (8,
-# res.batch_stats): a collective's element count tells which.
-METRIC_ELEMENTS = 2
 # The bf16steps section: tests/test_torch_bf16_ranks.py's config, batch and steps.
 STEPS_CONF, STEPS_BATCH, STEPS_N = "res8-narrow", 16, 3
 REPEAT_MODELS = ("res8", "res15")
@@ -183,9 +181,9 @@ REPEAT_MODELS = ("res8", "res15")
 PARTS_CONF, PARTS_BATCH, PARTS_WORLDS, PARTS_ROWS = "res8", 64, (1, 2, 4), (16, 32, 64)
 
 
-def reduced_bytes(coll: list, n_params: int) -> list[int]:
-    """The bytes of each collective a step records as ``(op, elements)``."""
-    return [n * (4 if n in (n_params, METRIC_ELEMENTS) else 8) for _, n in coll]
+def reduced_bytes(coll: list) -> list[int]:
+    """The bytes of each collective a step records as ``(op, elements, element_size)``."""
+    return [n * size for _, n, size in coll]
 
 
 def launches(counters) -> dict:
@@ -435,7 +433,14 @@ def rank_main(rank: int, spec_path: str) -> int:
             "--process-id", str(rank)]
     if spec["module"] in ("steps", "bf16steps", "bf16parts"):
         run = {"steps": dp_steps, "bf16steps": dtype_steps, "bf16parts": parts_step}[spec["module"]]
-        initialize_distributed(spec["coordinator"], spec["world"], rank, spec["device"])
+        if spec["shared_card"]:  # every rank on the one card: NCCL refuses that, gloo stages through the host
+            import torch.distributed as dist
+
+            torch.cuda.set_device(0)
+            dist.init_process_group("gloo", init_method=f"tcp://{spec['coordinator']}", world_size=spec["world"],
+                                    rank=rank)
+        else:
+            initialize_distributed(spec["coordinator"], spec["world"], rank, spec["device"])
         try:
             torch.save(run(spec["world"], spec["device"]), os.path.join(spec["out"], f"rank{rank}.pt"))
         finally:
@@ -460,13 +465,15 @@ def run_ranks(module: str, argv: list[str], world: int, device: str, tmp: str, n
               deterministic: bool = False, cards: list[int] | None = None) -> dict:
     """``world`` rank processes of ``module`` (``steps``, ``train`` or ``dryrun``) on ``cards``; kills
     them all when one fails or at RUN_TIMEOUT_S. Each rank's record (None if it left none) and log,
-    the exit codes and the seconds."""
+    the exit codes and the seconds. Ranks of ``steps``, ``bf16steps`` or ``bf16parts`` given fewer
+    cards than ranks share card 0 in a gloo group."""
     out = os.path.join(tmp, f"ranks-{name}")
     os.makedirs(out)
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w") as f:
         json.dump({"module": module, "argv": argv, "world": world, "coordinator": f"127.0.0.1:{C.free_port()}",
-                   "out": out, "device": device, "deterministic": deterministic}, f)
+                   "out": out, "device": device, "deterministic": deterministic,
+                   "shared_card": device == "cuda" and cards is not None and len(cards) < world}, f)
     env = cards_env(dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2"), cards)
     logs = [os.path.join(out, f"rank{r}.log") for r in range(world)]
     t0 = time.perf_counter()
@@ -741,10 +748,7 @@ def section_scaling(checks: Checks, worlds: list[int], device: str) -> dict:
     import torch
     from honk_tpu_torch.cli import scaling
 
-    from honk_tpu_torch.models import find_config, find_model
-
     dev = torch.device(device)
-    n_params = sum(p.numel() for p in find_model("res8")(find_config("res8")).parameters())
     out = {"host_cores": os.cpu_count(), "knobs": scaling.settings(dev), "jax_step": JAX_STEP_COLLECTIVES,
            "rows": [], "worlds": {}}
     for row, records in scaling.run([1, *worlds], dev):
@@ -753,8 +757,8 @@ def section_scaling(checks: Checks, worlds: list[int], device: str) -> dict:
             continue
         coll = records[0]["collectives"]
         out["worlds"][row["n_devices"]] = {
-            "collectives_per_step": len(coll), "bytes_per_step": sum(reduced_bytes(coll, n_params)),
-            "largest_bytes": max(reduced_bytes(coll, n_params), default=0),
+            "collectives_per_step": len(coll), "bytes_per_step": sum(reduced_bytes(coll)),
+            "largest_bytes": max(reduced_bytes(coll), default=0),
             "rank_step_ms": [r["step_s"] * 1e3 for r in records], "rank_marginal_s": [r["marginal_s"] for r in records],
             "cards": [r["card"] for r in records]}
         for r, rec in enumerate(records):
@@ -828,12 +832,14 @@ def _largest(a: dict, b: dict) -> float:
 
 def section_bf16steps(checks: Checks, n_cards: int, device: str, tmp: str) -> dict:
     """8. ROADMAP §3.2 step by step: 1 rank (twice) and 2 ranks, bf16 and float32, on the cards with
-    cuDNN's default and deterministic algorithms, and on gloo ranks of the host's CPU."""
+    cuDNN's default and deterministic algorithms, and on gloo ranks of the host's CPU. On one card
+    its two ranks share it over gloo (``run_ranks``): two ranks' float32 and float64 sums are the
+    same in any order, so only the ranks' own arithmetic, on the card, is read."""
     import torch
 
     runs = {"default": False, "deterministic": True}
     tags = (("one", 1), ("one_again", 1), ("two", 2))
-    res = in_waves([(f"{name}-{tag}", world,
+    res = in_waves([(f"{name}-{tag}", min(world, max(n_cards, 1)),
                      lambda cards, world=world, det=det, n=f"{name}-{tag}":
                      run_ranks("bf16steps", [], world, device, tmp, f"bf16steps-{n}", det, cards))
                     for name, det in runs.items() for tag, world in tags], n_cards, device)

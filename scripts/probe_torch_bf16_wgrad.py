@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The bf16 layers' float32 weight gradient on the card (``layers._Float32GradConv``).
+"""The bf16 layers' float32 weight gradient on the card (``layers._LowConv``).
 
     python scripts/probe_torch_bf16_wgrad.py      # one card
 
@@ -10,22 +10,41 @@
    holds it, the float32 parts of 2 and 4 ranks added and rounded once
    against the whole's: [share of elements differing, share past one bf16
    ulp, largest ulps].
-2. A bf16 forward and backward of res8 at B=256 and of res15 at B=64 on
-   seeded features, ms a step by CUDA events (10 steps after 3), with
-   autograd's bf16 weight gradients and with the float32 ones, in turns;
-   and whether every gradient is finite.
+2. The weight gradient alone, conv0 and conv1 of res8 at B=256, ms by CUDA
+   events (20 calls after 3): cuDNN's bf16 one (autograd's), the layers'
+   (``_conv_weight_grad``: one strided im2col copy, a batched float32
+   GEMM), the same on ``F.unfold``'s im2col, the layers' columns in bf16
+   through a bf16 GEMM with a float32 output, and the layers' with TF32 on,
+   each with its reading against the float64 truth.
+3. A bf16 forward and backward of res8 at B=256 and of res15 at B=64 on
+   seeded features, ms a step by CUDA events (10 steps after 3), with the
+   layers' float32 weight gradients and with autograd's bf16 ones (the
+   convs as plain bf16 ops), in turns; and whether every gradient is
+   finite.
 
-Prints one JSON line for 1 and one line a model for 2. Imports nothing of JAX.
+4. ``cli.bench``'s train link (res8 bf16, B=256, its scan lengths and
+   reps), audio-s/s, in turns: as shipped; with BN's sums in float32 by
+   ``mean`` (the one-rank formula before the float64 sums); with
+   autograd's bf16 weight gradients (the convs as plain bf16 ops); with
+   both (the arithmetic before the repair); as shipped again.
+
+Prints one JSON line for 1, one for 2, one line a model for 3 and one JSON
+line for 4. Imports nothing of JAX.
 """
+import contextlib
 import json
 import os
 import sys
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import chip_smoke as C
-from honk_tpu_torch import use_full_f32
-from honk_tpu_torch.models import find_config, find_model, init_weights, layers
+import chip_smoke as C  # noqa: E402
+from honk_tpu_torch import use_full_f32  # noqa: E402
+from honk_tpu_torch.cli import bench  # noqa: E402
+from honk_tpu_torch.models import find_config, find_model, init_weights, layers, res  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("probe_torch_bf16_wgrad: needs a CUDA device")
@@ -34,28 +53,37 @@ dev = torch.device("cuda")
 g = torch.Generator(device="cpu").manual_seed(0)
 model = init_weights(find_model("res8")(find_config("res8"), dtype=torch.bfloat16),
                      torch.Generator().manual_seed(0)).to(dev)
-out = {}
-for name, shape in (("conv0", (64, 1, 101, 40)), ("conv1", (64, 45, 25, 13))):
+
+
+def operands(name, rows):
     layer = getattr(model, name)
-    x16 = torch.randn(shape, generator=g).bfloat16().to(dev)
-    if shape[1] > 1:
+    x16 = torch.randn((rows, *((1, 101, 40) if name == "conv0" else (45, 25, 13))), generator=g).bfloat16().to(dev)
+    if name != "conv0":
         x16[:, 0] = 0  # a dead input channel
     y = F.conv2d(x16, layer.weight.bfloat16(), None, layer.stride, layer.padding, layer.dilation)
-    dy = (torch.randn(y.shape, generator=g) * 1e-3).bfloat16().to(dev)
+    return layer, x16, (torch.randn(y.shape, generator=g) * 1e-3).bfloat16().to(dev)
 
-    def grad(rows, rounded):
+
+def geometry(layer):
+    return layer.stride, layer.padding, layer.dilation
+
+
+out = {}
+for name in ("conv0", "conv1"):
+    layer, x16, dy = operands(name, 64)
+
+    def grad(rows):
         layer.weight.grad = None
-        layers._Float32GradConv.apply(x16[rows], layer.weight, None, torch.bfloat16,
-                                      (layer.stride, layer.padding, layer.dilation), rounded).backward(dy[rows])
+        layers._LowConv.apply(x16[rows], layer.weight, None, torch.bfloat16, geometry(layer)).backward(dy[rows])
         return layer.weight.grad.clone()
 
-    whole = grad(slice(0, 64), True)
+    whole = grad(slice(0, 64)).bfloat16().float()
     truth = C.conv_wgrad(layer, x16, dy, torch.float64, torch.device("cpu"))
     row = {"whole_vs_truth": C.rounding_reading(whole, truth),
-           "dead_channel_zero": bool((whole[:, :1] == 0).all()) if shape[1] > 1 else None}
+           "dead_channel_zero": bool((whole[:, :1] == 0).all()) if name != "conv0" else None}
     for n in (2, 4):
         r = 64 // n
-        total = sum(grad(slice(i * r, (i + 1) * r), False) for i in range(n)).bfloat16().float()
+        total = sum(grad(slice(i * r, (i + 1) * r)) for i in range(n)).bfloat16().float()
         d = C.ulps(total, whole)
         row[n] = [float((d > 0).double().mean()), float((d > 1).double().mean()), float(d.max())]
     out[name] = row
@@ -75,7 +103,58 @@ def events(fn, iters=10):
     return a.elapsed_time(b) / iters
 
 
-rule = layers._float32_grads
+@contextlib.contextmanager
+def tf32():
+    flag, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
+    full, layers._full_f32 = layers._full_f32, contextlib.nullcontext
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, layers._full_f32 = flag, full
+
+
+def bf16_gemm_grad(layer, x16, dy):
+    """The layers' columns, kept in bf16, through cuBLAS's bf16 GEMM with a float32 output."""
+    cols = layers._columns(x16, layer.weight.shape, dy.shape[2:], geometry(layer))
+    return torch.bmm(dy.flatten(2), cols.transpose(1, 2), out_dtype=torch.float32).sum(dim=0).view(
+        layer.weight.shape)
+
+
+def unfold_grad(layer, x16, dy):
+    cols = F.unfold(x16.float(), layer.weight.shape[2:], layer.dilation, layer.padding, layer.stride)
+    with layers._full_f32():
+        return torch.bmm(dy.float().flatten(2), cols.transpose(1, 2)).sum(dim=0).view(layer.weight.shape)
+
+
+out = {}
+for name in ("conv0", "conv1"):
+    layer, x16, dy = operands(name, 256)
+    truth = C.conv_wgrad(layer, x16, dy, torch.float64, torch.device("cpu"))
+    fns = {"cudnn_bf16": lambda: C.conv_wgrad(layer, x16, dy, torch.bfloat16),
+           "layers": lambda: layers._conv_weight_grad(dy.float(), x16, layer.weight.shape, geometry(layer)),
+           "unfold": lambda: unfold_grad(layer, x16, dy), "bf16_gemm_f32_out": lambda: bf16_gemm_grad(layer, x16, dy)}
+    row = {}
+    for k, fn in fns.items():
+        try:
+            row[k] = {"ms": events(fn, 20), "vs_truth": C.rounding_reading(fn().bfloat16(), truth)}
+        except (RuntimeError, TypeError) as e:  # a torch without bmm's out_dtype
+            row[k] = {"error": str(e)[:200]}
+    with tf32():
+        row["layers_tf32"] = {"ms": events(fns["layers"], 20),
+                              "vs_truth": C.rounding_reading(fns["layers"]().bfloat16(), truth)}
+    out[name] = row
+print(json.dumps(out), flush=True)
+
+
+def autograd_conv(layer, x, dtype):
+    """``layers.conv`` in bf16 as plain autograd ops: cuDNN's bf16 weight gradient."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, *geometry(layer))
+    return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
+
+
+conv = res.conv
 for conf, B in (("res8", 256), ("res15", 64)):
     m = init_weights(find_model(conf)(find_config(conf), dtype=torch.bfloat16),
                      torch.Generator().manual_seed(0)).to(dev).train()
@@ -85,12 +164,38 @@ for conf, B in (("res8", 256), ("res15", 64)):
     def step():
         m.zero_grad(set_to_none=True)
         F.cross_entropy(m(feats), labels).backward()
+        layers.round_cast_grads(m)
 
     t = {}
-    autograd = lambda x, s: False  # noqa: E731 - the CPU's rule: autograd's bf16 weight gradients
-    for tag, fn in (("autograd", autograd), ("float32", rule), ("float32 ", rule), ("autograd ", autograd)):
-        layers._float32_grads = fn
+    for tag, fn in (("layers", conv), ("autograd", autograd_conv), ("autograd ", autograd_conv), ("layers ", conv)):
+        res.conv = fn
         t[tag] = events(step)
-    layers._float32_grads = rule
+    res.conv = conv
     step()
     print(conf, B, json.dumps(t), all(bool(torch.isfinite(p.grad).all()) for p in m.parameters()), flush=True)
+
+
+def f32_stats(xf, mesh=None):
+    """BN's one-rank statistics before the float64 sums: float32 ``mean``."""
+    mean = xf.mean(dim=(0, 2, 3))
+    return mean, ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+
+
+def train_link():
+    knobs = bench.settings()
+    rng = np.random.default_rng(0)
+    m = bench.make_model(knobs["model"], torch.bfloat16, dev)
+    pool_n = bench.make_pool(rng, knobs["batch"], dev).shape[0]
+    t, _ = bench.marginal(bench.make_train_run(m, rng, knobs["batch"], pool_n, knobs["scan_lens"], dev),
+                          knobs["scan_lens"], knobs["reps"])
+    return knobs["batch"] / t
+
+
+stats, link = res.batch_stats, {}
+for tag, c, st in (("shipped", conv, stats), ("before_repair", autograd_conv, f32_stats),
+                   ("bn_float32_sums", conv, f32_stats), ("autograd_wgrad", autograd_conv, stats),
+                   ("shipped_again", conv, stats)):
+    res.conv, res.batch_stats = c, st
+    link[tag] = train_link()
+res.conv, res.batch_stats = conv, stats
+print(json.dumps({"train_link_audio_s_per_s": link}), flush=True)

@@ -159,11 +159,11 @@ def test_two_gloo_ranks_round_each_bf16_weight_gradient_once_as_one_rank_does(ru
     0.2% by more than one bf16 ulp.
 
     Each rank's weight gradient now leaves its layer in float32 and the
-    sum over the ranks is rounded to bf16 once (``layers._Float32GradConv``,
+    sum over the ranks is rounded to bf16 once (``layers._LowConv``,
     ``round_cast_grads``), as one rank rounds the whole batch's sum
     once; BN's sums are float64 on every topology (``res.batch_stats``).
-    Measured here: 0.03-0.6% of each tensor's elements differ, at most
-    0.03% (one element) by more than one ulp, the largest by 3 ulps. When
+    Measured here: 0-0.09% of each tensor's elements differ, none by more
+    than one ulp. When
     each rank's bf16 gradient was added in float32 after its own rounding,
     87-94% of each tensor's elements differed, 48-71% by more than one
     ulp, the largest by 384 ulps.
@@ -181,55 +181,109 @@ def test_two_gloo_ranks_round_each_bf16_weight_gradient_once_as_one_rank_does(ru
     assert not bad, f"(share differing, share past one ulp, largest ulps) past 0.02 / 0.002: {bad}"
 
 
-def _old_conv(layer, x, dtype, *sharded):
+def _old_conv(layer, x, dtype):
     """``layers.conv`` in bf16 through autograd alone (no float32-gradient layer)."""
     y = F.conv2d(x.to(dtype), layer.weight.to(dtype), None, layer.stride, layer.padding, layer.dilation)
     return y if layer.bias is None else y + layer.bias.to(dtype)[:, None, None]
 
 
-def _old_dense(layer, x, dtype, *sharded):
+def _old_dense(layer, x, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
 
 
+def _one_rounding_bound(v: torch.Tensor, truth: torch.Tensor, n_terms: int, scale: torch.Tensor) -> torch.Tensor:
+    """Whether each element of bf16-valued ``v`` is one rounding of a float32 sum of ``n_terms`` exact
+    products whose float64 sum is ``truth`` and whose magnitudes sum to ``scale``: within half a bf16 ulp
+    plus float32's summation bound of the truth."""
+    _, e = torch.frexp(torch.maximum(v.double().abs(), truth.abs()).clamp_min(2.0 ** -126))
+    return (v.double() - truth).abs() <= torch.ldexp(torch.ones_like(truth), e - 9) + n_terms * 2.0 ** -24 * scale
+
+
 @pytest.mark.parametrize("conf", ["res8-narrow", "cnn-trad-pool2"])
-def test_at_one_rank_a_bf16_models_backward_is_the_autograd_path_bit_for_bit(conf, monkeypatch):
-    """On the CPU a one-rank mesh keeps autograd's bf16 gradients (oneDNN's rounds a float32 sum once):
-    a bf16 model's training logits and every gradient are bit for bit those of the autograd path that
-    the float32-gradient layers replace on the card and on every rank of a sharded step, and the step's
-    one rounding (``round_cast_grads``) leaves them as they are."""
+def test_at_one_rank_a_bf16_models_gradients_are_autograds_up_to_float32_regrouping(conf, monkeypatch):
+    """At one rank a bf16 model's training logits are bit for bit those of
+    the autograd path the float32-gradient layers replaced, and so is every
+    gradient but those of the parameters the layers cast. Those, rounded
+    once as the step rounds them (``round_cast_grads``), and autograd's
+    (oneDNN's bf16 weight gradient also rounds a float32 sum once, in
+    another order) are each one rounding of a float32 sum of the layer's
+    exact products: within half a bf16 ulp plus float32's summation bound
+    of the float64 truth of the same operands. Measured here: 7 of
+    res8-narrow's 19,905 and 12 of cnn-trad-pool2's 493,708 elements
+    differ; most by one ulp, one of cnn-trad-pool2's by 6, where its sum
+    cancels."""
     from honk_tpu_torch.models import cnn, res
     from honk_tpu_torch.parallel import DataMesh
 
     feats = torch.from_numpy(np.random.default_rng(3).standard_normal((6, 101, 40)).astype(np.float32))
     labels = torch.arange(6) % 12
+    taps = {}
+
+    def tapped(fn):
+        def layer_fn(layer, x, dtype):
+            y = fn(layer, x, dtype)
+            entry = taps[layer] = [x.detach().to(dtype)]
+            y.register_hook(lambda g: entry.append(g.detach()))
+            return y
+        return layer_fn
 
     def grads(mesh):
         model = model_of(conf, dtype=torch.bfloat16).train()
         masks = model.keep_masks(6, torch.Generator().manual_seed(1)) if hasattr(model, "keep_masks") else None
         logits = model(feats, dropout=masks, mesh=mesh)
         F.cross_entropy(logits, labels).backward()
-        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
         round_cast_grads(model)
-        assert all(torch.equal(p.grad, grads[n]) for n, p in model.named_parameters())
-        return logits, grads
+        return logits, {n: p.grad.clone() for n, p in model.named_parameters()}, model
 
-    got = grads(DataMesh("data", 0, 1))
+    for mod in (res, cnn):
+        monkeypatch.setattr(mod, "conv", tapped(mod.conv))
+    monkeypatch.setattr(cnn, "dense", tapped(cnn.dense))
+    got, got_grads, model = grads(DataMesh("data", 0, 1))
     for mod in (res, cnn):
         monkeypatch.setattr(mod, "conv", _old_conv)
     monkeypatch.setattr(cnn, "dense", _old_dense)
-    want = grads(None)
-    assert torch.equal(got[0], want[0])
-    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1]), [k for k in want[1]
-                                                                      if not torch.equal(got[1][k], want[1][k])]
+    want, want_grads, _ = grads(None)
+    assert torch.equal(got, want)
+    names = {id(p): n for n, p in model.named_parameters()}
+    cast = {names[id(p)] for p in cast_parameters(model)}
+    for k in set(want_grads) - cast:
+        assert torch.equal(got_grads[k], want_grads[k]), k
+    checked, differ = set(), 0
+    for layer, (x16, gy) in taps.items():
+        x, dy = x16.double(), gy.double()
+        if isinstance(layer, torch.nn.Conv2d):
+            geometry = (layer.stride, layer.padding, layer.dilation)
+
+            def wgrad(d, xs):
+                return torch.ops.aten.convolution_backward(d, xs, layer.weight.double(), None, *geometry, False,
+                                                           [0, 0], 1, [False, True, False])[1]
+
+            n_terms, dims = dy[:, 0].numel(), (0, 2, 3)
+            sums = {"weight": (wgrad(dy, x), wgrad(dy.abs(), x.abs()))}
+        else:
+            n_terms, dims = dy.shape[0], (0,)
+            sums = {"weight": (dy.t().mm(x), dy.abs().t().mm(x.abs()))}
+        if layer.bias is not None:
+            sums["bias"] = (dy.sum(dim=dims), dy.abs().sum(dim=dims))
+        for what, (truth, scale) in sums.items():
+            k = names[id(getattr(layer, what))]
+            g, w = got_grads[k], want_grads[k]
+            assert torch.equal(g, g.bfloat16().float()), k
+            for v in (g, w):
+                assert bool(_one_rounding_bound(v, truth, n_terms, scale).all()), k
+            checked.add(k)
+            differ += int((g != w).sum())
+    assert checked == cast
+    assert differ <= 1e-3 * sum(want_grads[k].numel() for k in cast), differ
 
 
 @pytest.mark.parametrize("layer", ["conv", "dilated_conv", "dense"])
 def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_gradient(layer):
-    """``conv`` / ``dense`` on a rank of a sharded step: the output and the input gradient bit for bit the
-    autograd path's; the weight gradient the float32 sum of the bf16 operands' exact products, unrounded,
-    within float32's summation bound of the float64 truth (so exactly 0 for a dead input channel), and the
-    bias gradient the float32 sum of the output's cotangent; rounded once, within one bf16 ulp of the
-    autograd path's bf16 gradients; and where no all-reduce follows, those rounded once by the layer."""
+    """``conv`` / ``dense`` in bf16: the output and the input gradient bit for bit the autograd path's;
+    the weight gradient the float32 sum of the bf16 operands' exact products, unrounded, within float32's
+    summation bound of the float64 truth (so exactly 0 for a dead input channel), and the bias gradient
+    the float32 sum of the output's cotangent; rounded once, within one bf16 ulp of the autograd path's
+    bf16 gradients."""
     from honk_tpu_torch.models import layers
 
     rng = np.random.default_rng(5)
@@ -247,22 +301,21 @@ def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_grad
         for p in mod.parameters():
             p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
 
-    def run(f, **kw):
+    def run(f):
         mod.zero_grad()
         xi = x.clone().requires_grad_(True)
-        y = f(mod, xi, torch.bfloat16, **kw)
+        y = f(mod, xi, torch.bfloat16)
         ct = torch.from_numpy(np.random.default_rng(6).standard_normal(y.shape).astype(np.float32))
         y.backward(ct.bfloat16())
         return y, xi.grad, mod.weight.grad.clone(), mod.bias.grad.clone(), ct.bfloat16()
 
-    y, gx, gw, gb, ct = run(fn, sharded=True)
+    y, gx, gw, gb, ct = run(fn)
     y0, gx0, gw0, gb0, _ = run(old)
     assert y.dtype == torch.bfloat16 and torch.equal(y, y0) and torch.equal(gx, gx0)
     x16 = x.bfloat16().double()
     if layer == "dense":
         truth, scale, n_terms = ct.double().t().mm(x16), ct.double().abs().t().mm(x16.abs()), x.shape[0]
         want_b = ct.float().sum(dim=0)
-        geometry = ()
     else:
         geometry = (mod.stride, mod.padding, mod.dilation)
 
@@ -277,10 +330,31 @@ def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_grad
     assert bool((gw[:, :1] == 0).all()) and not torch.equal(gw, gw.bfloat16().float())
     for got, ref in ((gw, gw0), (gb, gb0)):
         assert float(_bf16_ulps(got.bfloat16().float(), ref).max()) <= 1
-    # Where no all-reduce follows (one rank on the card), the layer rounds them once itself.
-    fn_rounded = layers._Float32GradDense if layer == "dense" else layers._Float32GradConv
-    mod.zero_grad()
-    xi = x.clone().requires_grad_(True)
-    fn_rounded.apply(xi, mod.weight, mod.bias, torch.bfloat16, *((geometry,) if geometry else ()), True).backward(ct)
-    assert torch.equal(xi.grad, gx)
-    assert torch.equal(mod.weight.grad, gw.bfloat16().float()) and torch.equal(mod.bias.grad, gb.bfloat16().float())
+
+
+# (in channels, out channels, kernel, stride, padding, dilation, input H x W): res8's and res15's
+# 3x3 convs, cnn-trad-pool2's conv1, cnn-one-fstride4's strided conv1, and a stride and padding on
+# both axes unequal.
+COLUMN_GEOMETRIES = [(4, 6, (3, 3), (1, 1), (1, 1), (1, 1), (9, 7)), (4, 6, (3, 3), (1, 1), (2, 2), (2, 2), (9, 7)),
+                     (1, 8, (20, 8), (1, 1), (0, 0), (1, 1), (101, 40)), (3, 5, (4, 3), (1, 4), (0, 0), (1, 1), (21, 40)),
+                     (2, 3, (3, 3), (2, 3), (1, 2), (1, 1), (11, 13))]
+
+
+@pytest.mark.parametrize("geometry", COLUMN_GEOMETRIES, ids=lambda g: "k{}s{}p{}d{}".format(*g[2:6]))
+def test_the_weight_gradients_columns_are_unfolds(geometry):
+    """``layers._columns`` (one strided copy of the padded input) is ``F.unfold``'s im2col bit for bit, at
+    every geometry the two families use; and ``_conv_weight_grad`` from it equals the float32 GEMM over
+    ``F.unfold``'s columns."""
+    from honk_tpu_torch.models import layers
+
+    c, o, k, s, p, d, hw = geometry
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, c, *hw), generator=g).bfloat16()
+    shape = torch.Size((o, c, *k))
+    out_hw = tuple((hw[a] + 2 * p[a] - d[a] * (k[a] - 1) - 1) // s[a] + 1 for a in range(2))
+    cols = layers._columns(x, shape, out_hw, (s, p, d))
+    want = F.unfold(x.float(), k, d, p, s)
+    assert cols.dtype == torch.bfloat16 and cols.shape == want.shape and torch.equal(cols.float(), want)
+    gy = torch.randn((3, o, *out_hw), generator=g).bfloat16().float()
+    got = layers._conv_weight_grad(gy, x, shape, (s, p, d))
+    assert torch.equal(got, torch.bmm(gy.flatten(2), want.transpose(1, 2)).sum(dim=0).view(shape))

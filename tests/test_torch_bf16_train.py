@@ -194,13 +194,13 @@ def _port_layer_dtypes(model, feats, masks):
     seen, drops = {}, []
     conv, dense, bn, drop = res.conv, cnn.dense, res.batch_norm_train, cnn.apply_dropout
 
-    def rec_conv(layer, x, dtype, *sharded):
-        y = conv(layer, x, dtype, *sharded)
+    def rec_conv(layer, x, dtype):
+        y = conv(layer, x, dtype)
         seen[names[id(layer)]] = y.dtype
         return y
 
-    def rec_dense(layer, x, dtype, *sharded):
-        y = dense(layer, x, dtype, *sharded)
+    def rec_dense(layer, x, dtype):
+        y = dense(layer, x, dtype)
         seen[names[id(layer)]] = y.dtype
         return y
 

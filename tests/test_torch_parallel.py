@@ -260,8 +260,8 @@ def test_one_gradient_all_reduce_of_the_parameter_count(dp):
     collectives = dp["ranks"][0]["steps"]["res8-narrow"]["collectives"]
     n_params = sum(v.numel() for k, v in dp["one"]["steps"]["res8-narrow"]["state"].items()
                    if "running" not in k and "num_batches" not in k)
-    assert all(op == "all_reduce" for op, _ in collectives)
-    sizes = [n for _, n in collectives]
+    assert all(op == "all_reduce" for op, *_ in collectives)
+    sizes = [n for _, n, _ in collectives]
     assert sizes.count(n_params) == 1
     rest = [n for n in sizes if n != n_params]
     # 6 BN layers x (sums, sums of squares, count) forward and backward, and the loss and hits.

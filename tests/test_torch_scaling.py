@@ -201,8 +201,8 @@ def test_a_steps_collectives_at_two_ranks_match_the_jax_steps_all_reduces(scaled
     collectives = scaled["records"][1][0]["collectives"]
     jax_bytes = _jax_all_reduce_bytes(2, 4)
     n_params = sum(p.numel() for p in find_model("res8")(find_config("res8")).parameters())
-    assert all(op == "all_reduce" for op, _ in collectives)
-    sizes = [n for _, n in collectives]
+    assert all(op == "all_reduce" for op, *_ in collectives)
+    sizes = [n for _, n, _ in collectives]
     assert sizes.count(n_params) == 1 and 4 * n_params + 8 in jax_bytes
     bn = [n for n in sizes if n not in (n_params, 2)]
     jax_bn = [b for b in jax_bytes if b != 4 * n_params + 8]
