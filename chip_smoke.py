@@ -307,13 +307,17 @@ and the res stack with the stem inside it (right after phase 29):
 
 and the bf16 data-parallel step's weight gradients (right after phase 33):
 
-51. res8's bf16 step at B=64 on 2 and 4 ranks emulated on one card: each
-    conv's parts as a rank's step takes them (float32, unrounded), summed
-    and rounded once, against the one-rank step's gradient (BF16_RANKS_*),
-    both against the float64 truth of the same operands
-    (BF16_TRUTH_PAST_HALF); the pre-repair path (parts rounded first) and
-    bf16 partial sums of 8 rows refused; cuDNN's bf16 weight gradient and
-    the float32 sum with TF32 on read beside them.
+51. res8's bf16 step at B=64 on 2 and 4 ranks emulated on one card, on
+    the one-rank step's operands: each conv's parts as a rank's step takes
+    them (float64, unrounded), summed and rounded once, bit for bit the
+    one-rank step's gradient and within BF16_RANKS_* of it, both against
+    the float64 truth of the same operands (BF16_TRUTH_PAST_HALF), each
+    rank's per-sample partials bit for bit the whole batch's; each BN's
+    input gradient on the ranks' rows, its collectives summed in rank
+    order (``emulate``), bit for bit one rank's; the pre-repair path (parts
+    rounded first) and bf16 partial sums of 8 rows refused; cuDNN's input
+    gradient at 16 and 32 rows against 64, its bf16 weight gradient and the
+    float32 sum with TF32 on read beside them.
 
 It prints a JSON line of per-kernel results (for the res stack also each
 mode's forward from the features, and its launches by entry on every path),
@@ -389,16 +393,18 @@ TRAIN_BATCH = 64
 BF16_TRAIN_RATIO = 0.5
 BF16_TRAIN_TENSOR_RATIO = 1.0
 # Phase 51: res8's bf16 data-parallel step on 2 and 4 ranks (BF16_RANKS),
-# emulated on one card. Each rank's weight gradient leaves its layer in
-# float32 and their sum is rounded to bf16 once; the whole batch's gradient
-# is one rounding of a float32 sum of the same bf16 products too. Two such
-# roundings part only where a float32 sum's own error crosses a rounding
-# midpoint, by one ulp unless the sum cancels: on gloo ranks 0.03-0.6% of a
-# tensor's elements differ, at most 0.03% by more than one ulp
-# (tests/test_torch_bf16_ranks.py). So at most BF16_RANKS_DIFFER of a
-# tensor's elements may differ from the whole batch's, and at most
-# BF16_RANKS_PAST_ULP by more than one ulp. The path before the repair (each
-# part rounded to bf16, then added) parts 87-94% and 48-71% of them there.
+# emulated on one card. Each rank's weight gradient leaves its layer as a
+# float64 sum of per-sample float32 partials and the ranks' sum is rounded
+# to bf16 once; given the same rows the whole batch's gradient is the same
+# bits (tests/test_torch_topology_invariance.py on gloo ranks). Before the
+# parts were float64 (float32 parts), two such roundings parted only where
+# a float32 sum's own error crossed a rounding midpoint, by one ulp unless
+# the sum cancelled: on gloo ranks 0.03-0.6% of a tensor's elements
+# differed, at most 0.03% by more than one ulp. Those limits stay, beside
+# the bitwise one: at most BF16_RANKS_DIFFER of a tensor's elements may
+# differ from the whole batch's, and at most BF16_RANKS_PAST_ULP by more
+# than one ulp. The path before the repair (each part rounded to bf16, then
+# added) parts 87-94% and 48-71% of them there.
 # Both sides are also held to the float64 truth of the same bf16 operands:
 # one rounding of the exact sum is never more than half an ulp from it, and
 # one of a float32 sum is only where the sum cancels so far that float32's
@@ -831,25 +837,66 @@ def conv_wgrad(layer, x, dy, dtype, device=None):
             layer.padding, layer.dilation, False, [0, 0], 1, [False, True, False])[1]
 
 
+class EmulatedRank:
+    """A rank's mesh in a group of ``size`` ranks emulated in one process (``emulate``): each
+    ``all_reduce_`` records this rank's tensor and, where the group's sum of that call is known
+    (``totals``), leaves the sum in it, as ``DataMesh.all_reduce_`` does."""
+
+    def __init__(self, size: int, totals: list):
+        self.size, self.totals, self.seen = size, totals, []
+
+    def all_reduce_(self, t):
+        self.seen.append(t.clone())
+        if len(self.seen) <= len(self.totals):
+            t.copy_(self.totals[len(self.seen) - 1])
+        return t
+
+
+def emulate(size: int, fn) -> list:
+    """``fn(rank, mesh)`` of every rank of a group of ``size`` ranks on this device, each rank's
+    collectives summed in rank order: run again with one more collective's sum known each time, until
+    every one the ranks call is known (a rank's later collectives depend on the sums of its earlier
+    ones). The ranks' results."""
+    totals: list = []
+    while True:
+        meshes = [EmulatedRank(size, totals) for _ in range(size)]
+        results = [fn(rank, mesh) for rank, mesh in enumerate(meshes)]
+        if len(meshes[0].seen) == len(totals):
+            return results
+        call = [m.seen[len(totals)] for m in meshes]
+        total = call[0].clone()
+        for part in call[1:]:
+            total += part
+        totals.append(total)
+
+
 def phase_bf16_ranks(torch, dev, A, smi) -> dict:
     """51. res8's bf16 train step at B=64 on BF16_RANKS ranks, emulated on one card: phase 33's first
-    batch, each conv's operands taken from the one-rank step; each part's weight gradient as a rank's
-    step takes it (``layers.conv``: a float32 sum, unrounded), added in rank order as
-    ``all_reduce_grads`` adds them, then rounded once (``round_cast_grads``). Held to the one-rank
-    step's gradient within BF16_RANKS_DIFFER / BF16_RANKS_PAST_ULP, and both to the float64 truth of
-    the same operands within BF16_TRUTH_PAST_HALF, as is the layers' float32 sum of 16 rows rounded
-    once. Planted faults: the path before the repair (each part rounded to bf16 before the sum) must
-    miss the first limits, and bf16 partial sums of 8 rows the truth's. Prints reading (c) of each conv
-    at 16 and 64 rows (cuDNN's bf16 weight gradient and the layers' float32 sum rounded once, against
-    the truth), and the float32 sum with TF32 on, which a bf16 operand's 8-bit significand fits, so it
-    is no fault and only read."""
+    batch, each conv's and BN's operands taken from the one-rank step.
+    - Each conv's weight gradient as a rank's step takes it (``layers.conv``: a float64 sum of
+      per-sample float32 partials, kept by ``wide_grads``), the parts added in rank order as
+      ``all_reduce_grads`` adds them, then rounded once as ``finish_grads`` rounds them: bit for bit
+      the one-rank step's gradient, and within BF16_RANKS_DIFFER / BF16_RANKS_PAST_ULP of it (the
+      gates before the float64 parts), both within BF16_TRUTH_PAST_HALF of the float64 truth of the
+      same operands, as is the float32 sum of 16 rows rounded once. The per-sample partials of a
+      rank's rows (``layers._conv_weight_partials``) are bit for bit the whole batch's: cuBLAS picks
+      its batched GEMM by the batch count, and a split of one sample's sum would part them.
+    - Each BN's input gradient on the ranks' rows (``res._BatchNorm``, its two all-reduces summed in
+      rank order, ``emulate``) put together: bit for bit the one-rank BN's on the same rows.
+    - Planted faults: the path before the unrounded parts (each part rounded to bf16 before the sum)
+      must miss the first limits, and bf16 partial sums of 8 rows the truth's.
+    Readings: cuDNN's input gradient of each conv at 16 and 32 rows against 64 (its per-shape
+    algorithms, which part the rows a rank's convs hand back: ROADMAP §3.2), reading (c) of each conv
+    at 16 and 64 rows (cuDNN's bf16 weight gradient and the layers' sum rounded once, against the
+    truth), and the float32 partials with TF32 on, which a bf16 operand's 8-bit significand fits, so
+    it is no fault and only read."""
     import contextlib as ctx
 
     import torch.nn.functional as F
 
     from honk_tpu_torch.frontend import compute_mfccs
     from honk_tpu_torch.models import find_config, find_model, init_weights, layers, res
-    from honk_tpu_torch.models.layers import _conv_weight_grad, conv, round_cast_grads
+    from honk_tpu_torch.models.layers import _conv_weight_grad, _conv_weight_partials, conv, finish_grads, wide_grads
 
     t0 = time.perf_counter()
     raw, labels, noise, cfg = train_step_inputs(A)
@@ -860,7 +907,8 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
                          TRAIN_BATCH, cfg)
     audio, lab = A.assemble_batch(A.Draws(*(t.to(dev) for t in draws)), arrays, cfg)
     names = {id(m): n for n, m in model.named_modules()}
-    operands = {}
+    operands, bns = {}, {}
+    norm = res.batch_norm_train
 
     def tapped(layer, x, dtype):
         name = names[id(layer)]
@@ -869,18 +917,28 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
         y.register_hook(lambda g: operands[name].append(g.detach()))
         return y
 
-    res.conv = tapped
+    def tapped_bn(x, bn, mesh=None):
+        out = norm(x, bn, mesh)
+        entry = bns[names[id(bn)]] = [x.detach()]
+        out.register_hook(lambda g: entry.append(g.detach()))
+        return out
+
+    res.conv, res.batch_norm_train = tapped, tapped_bn
     try:
-        F.cross_entropy(model(compute_mfccs(audio)), lab).backward()
+        with wide_grads() as wide:
+            F.cross_entropy(model(compute_mfccs(audio)), lab, reduction="sum").div(TRAIN_BATCH).backward()
     finally:
-        res.conv = conv
-    round_cast_grads(model)
+        res.conv, res.batch_norm_train = conv, norm
+    finish_grads(model, wide)
     whole = {n: getattr(model, n).weight.grad.clone() for n in operands}  # the one-rank step's
 
     def apart(got, ref) -> dict:
         d = ulps(got, ref)
         return {"share_differ": float((d > 0).double().mean()), "share_past_ulp": float((d > 1).double().mean()),
                 "max_ulps": float(d.max())}
+
+    def rows_apart(got, ref) -> int:
+        return int((got != ref).flatten(1).any(dim=1).sum())
 
     @ctx.contextmanager
     def tf32():
@@ -899,11 +957,19 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
         geometry = (layer.stride, layer.padding, layer.dilation)
 
         def f32(rows):
-            return _conv_weight_grad(dy[rows].float(), x16[rows], layer.weight.shape, geometry)
+            return _conv_weight_grad(dy[rows].float(), x16[rows], layer.weight.shape, geometry).float()
+
+        def dgrad(rows):
+            return torch.ops.aten.convolution_backward(dy[rows], x16[rows], layer.weight.to(torch.bfloat16), None,
+                                                       *geometry, False, [0, 0], 1, [True, False, False])[0]
 
         row = {"c": {r: {"cudnn_bf16": rounding_reading(conv_wgrad(layer, x16[:r], dy[:r], torch.bfloat16), t),
                          "f32_rounded_once": rounding_reading(f32(slice(0, r)).bfloat16(), t)}
                      for r, t in truth.items()}}
+        if name != "conv0":  # conv0's input is the features: no input gradient
+            full = dgrad(slice(None))
+            row["dgrad_rows_apart"] = {r: rows_apart(torch.cat([dgrad(slice(i, i + r)) for i in range(0, TRAIN_BATCH, r)]),
+                                                     full) for r in (16, 32)}
         with tf32():
             row["tf32_rounded_once"] = rounding_reading(f32(slice(None)).bfloat16(), truth[TRAIN_BATCH])
         partials = sum(f32(slice(i, i + 8)).bfloat16().float() for i in range(0, TRAIN_BATCH, 8))
@@ -914,62 +980,91 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
                                                                        row["c"][16]["f32_rounded_once"])):
             if r["share_past_half"] > BF16_TRUTH_PAST_HALF:
                 bad.append(f"{name}'s {what} against the truth: {r}")
+        every = _conv_weight_partials(dy.float(), x16, layer.weight.shape, geometry)
         for n in BF16_RANKS:
             rows = TRAIN_BATCH // n
-            parts = []
+            parts, partials_apart = [], 0
             for r in range(n):
-                model.zero_grad(set_to_none=True)
-                conv(layer, x16[r * rows:(r + 1) * rows], torch.bfloat16).backward(dy[r * rows:(r + 1) * rows])
-                parts.append(layer.weight.grad.clone())
-            total = parts[0]
+                part = slice(r * rows, (r + 1) * rows)
+                with wide_grads() as w:
+                    conv(layer, x16[part], torch.bfloat16).backward(dy[part])
+                parts.append(w[layer.weight])
+                mine = _conv_weight_partials(dy[part].float(), x16[part], layer.weight.shape, geometry)
+                partials_apart += int((mine != every[part]).sum())
+            total = parts[0].clone()
             for p in parts[1:]:
-                total = total + p
-            model.zero_grad(set_to_none=True)
-            layer.weight.grad = total
-            round_cast_grads(model)
-            planted = parts[0].bfloat16().float()
+                total += p  # in rank order, as all_reduce_grads adds them
+            repaired = total.float().bfloat16().float()  # as finish_grads rounds it
+            planted = parts[0].float().bfloat16().float()
             for p in parts[1:]:
-                planted = planted + p.bfloat16().float()
-            got = {"repaired": apart(layer.weight.grad, whole[name]), "planted": apart(planted, whole[name]),
+                planted = planted + p.float().bfloat16().float()
+            got = {"repaired": apart(repaired, whole[name]), "planted": apart(planted, whole[name]),
+                   "bitwise": bool(torch.equal(repaired, whole[name])), "partials_apart": partials_apart,
                    "part_dtype": str(parts[0].dtype).replace("torch.", ""),
-                   "part_unrounded": not torch.equal(parts[0], parts[0].bfloat16().float()),
-                   "repaired_vs_truth": rounding_reading(layer.weight.grad, truth[TRAIN_BATCH])}
+                   "part_unrounded": not torch.equal(parts[0], parts[0].bfloat16().double()),
+                   "repaired_vs_truth": rounding_reading(repaired, truth[TRAIN_BATCH])}
             row[n] = got
-            if not (got["part_dtype"] == "float32" and got["part_unrounded"]
+            if not (got["part_dtype"] == "float64" and got["part_unrounded"] and got["bitwise"]
+                    and got["partials_apart"] == 0
                     and got["repaired"]["share_differ"] <= BF16_RANKS_DIFFER
                     and got["repaired"]["share_past_ulp"] <= BF16_RANKS_PAST_ULP
                     and got["repaired_vs_truth"]["share_past_half"] <= BF16_TRUTH_PAST_HALF):
-                bad.append(f"{name} on {n} ranks: {got['repaired']}, against the truth "
-                           f"{got['repaired_vs_truth']} (parts {got['part_dtype']}, unrounded "
-                           f"{got['part_unrounded']})")
+                bad.append(f"{name} on {n} ranks: {got['repaired']}, bitwise {got['bitwise']}, per-sample partials "
+                           f"apart {partials_apart}, against the truth {got['repaired_vs_truth']} (parts "
+                           f"{got['part_dtype']}, unrounded {got['part_unrounded']})")
             if (got["planted"]["share_differ"] <= BF16_RANKS_DIFFER
                     and got["planted"]["share_past_ulp"] <= BF16_RANKS_PAST_ULP):
                 bad.append(f"{name} on {n} ranks: the planted fault {got['planted']} passes the limits")
         readings[name] = row
     if not refused:
         bad.append("the planted bf16 partial sums of 8 rows pass the truth's limit in every conv")
+
+    bn_rows = {}
+    for name, (x, g) in bns.items():
+        def bn_dx(rank, mesh, x=x, g=g, rows=TRAIN_BATCH):
+            part = slice(rank * rows, (rank + 1) * rows)
+            xr = x[part].clone().requires_grad_(True)
+            res._BatchNorm.apply(xr, mesh)[0].backward(g[part])
+            return xr.grad
+
+        one = bn_dx(0, None)
+        bn_rows[name] = {}
+        for n in BF16_RANKS:
+            rows = TRAIN_BATCH // n
+            got = torch.cat(emulate(n, lambda rank, mesh: bn_dx(rank, mesh, rows=rows)))
+            bn_rows[name][n] = rows_apart(got, one)
+            if got.dtype != torch.bfloat16 or bn_rows[name][n]:
+                bad.append(f"{name}'s input gradient on {n} emulated ranks: {bn_rows[name][n]} of {TRAIN_BATCH} rows "
+                           f"apart from one rank's ({got.dtype})")
     if bad:
-        fail(f"bf16 ranks emulated (limits: {BF16_RANKS_DIFFER} of the elements differing, "
+        fail(f"bf16 ranks emulated (limits: bit for bit, and {BF16_RANKS_DIFFER} of the elements differing, "
              f"{BF16_RANKS_PAST_ULP} past one ulp, {BF16_TRUTH_PAST_HALF} past half an ulp of the truth): "
              + "; ".join(bad))
-    out = {"readings": readings, "limits": [BF16_RANKS_DIFFER, BF16_RANKS_PAST_ULP, BF16_TRUTH_PAST_HALF],
-           "card": smi, "s": time.perf_counter() - t0}
+    out = {"readings": readings, "bn_rows_apart": bn_rows,
+           "limits": [BF16_RANKS_DIFFER, BF16_RANKS_PAST_ULP, BF16_TRUTH_PAST_HALF], "card": smi,
+           "s": time.perf_counter() - t0}
     brief = {name: {**{f"c{r}": [c["cudnn_bf16"]["share_past_half"], c["f32_rounded_once"]["share_past_half"],
                                  c["cudnn_bf16"]["max_ulps"]] for r, c in row["c"].items()},
                     "truth": [row["whole_vs_truth"]["share_past_half"], row["whole_vs_truth"]["max_ulps"],
                               *(row[n]["repaired_vs_truth"]["share_past_half"] for n in BF16_RANKS)],
                     "faults": [row["bf16_partials_8"]["share_past_half"], row["tf32_rounded_once"]["share_past_half"]],
-                    **{f"ranks{n}": [row[n]["repaired"]["share_differ"], row[n]["repaired"]["share_past_ulp"],
+                    "dgrad": row.get("dgrad_rows_apart"),
+                    **{f"ranks{n}": [row[n]["bitwise"], row[n]["repaired"]["share_differ"],
                                      row[n]["planted"]["share_differ"], row[n]["planted"]["share_past_ulp"]]
                        for n in BF16_RANKS}} for name, row in readings.items()}
-    print(f"[bf16_ranks] res8 B={TRAIN_BATCH} bf16 step on {list(BF16_RANKS)} ranks emulated on one card: each "
-          f"conv's summed float32 parts rounded once against the one-rank step's gradient, [share differing, "
-          f"past one ulp] repaired then planted (limits {BF16_RANKS_DIFFER}, {BF16_RANKS_PAST_ULP}; the planted "
-          f"pre-repair path refused); against the float64 truth (limit {BF16_TRUTH_PAST_HALF} past half an ulp), "
-          f"truth: [one rank's share past half, its largest ulps, N ranks' shares], faults: [bf16 partials of 8 "
-          f"rows' share, TF32's (read, not gated)]; reading (c) at 16 and {TRAIN_BATCH} rows, [cuDNN's bf16 "
-          f"share past half an ulp, the float32 sum rounded once's, cuDNN's largest ulps]: {json.dumps(brief)}; "
-          f"{smi}; {out['s']:.1f} s")
+    dgrad = [v for row in readings.values() for v in row.get("dgrad_rows_apart", {}).values()]
+    out["dgrad_share"] = sum(dgrad) / (len(dgrad) * TRAIN_BATCH)
+    print(f"[bf16_ranks] res8 B={TRAIN_BATCH} bf16 step on {list(BF16_RANKS)} ranks emulated on one card, "
+          f"operands of the one-rank step: BN's input gradients of the ranks' rows (collectives summed in rank "
+          f"order), rows apart from one rank's per BN {json.dumps(bn_rows)} (limit 0); each conv's float64 parts "
+          f"summed and rounded once against the one-rank step's gradient, [bitwise, share differing] repaired, "
+          f"[share differing, past one ulp] planted (limits bit for bit, {BF16_RANKS_DIFFER}, "
+          f"{BF16_RANKS_PAST_ULP}; the planted pre-repair path refused); against the float64 truth (limit "
+          f"{BF16_TRUTH_PAST_HALF} past half an ulp), truth: [one rank's share past half, its largest ulps, N ranks' "
+          f"shares], faults: [bf16 partials of 8 rows' share, TF32's (read, not gated)]; reading (c) at 16 and "
+          f"{TRAIN_BATCH} rows, [cuDNN's bf16 share past half an ulp, the float32 sum rounded once's, cuDNN's "
+          f"largest ulps]; dgrad: cuDNN's input gradient at 16 and 32 rows, rows apart from 64 rows' (read, not "
+          f"gated; {out['dgrad_share']:.3f} of all): {json.dumps(brief)}; {smi}; {out['s']:.1f} s")
     return out
 
 

@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import apply_dropout, conv, dense, draw_keep_masks
+from .layers import Output, apply_dropout, conv, dense, draw_keep_masks
 
 
 def _conv_out(size: int, kernel: int, stride: int) -> int:
@@ -83,7 +83,7 @@ class SpeechModel(nn.Module):
             if f"{name}_size" in config:
                 self.add_module(name, nn.Linear(width, config[f"{name}_size"]))
                 width = config[f"{name}_size"]
-        self.output = nn.Linear(width, config["n_labels"])
+        self.output = Output(width, config["n_labels"])
 
     @staticmethod
     def feature_shape(cfg: dict[str, Any]) -> tuple[int, int, int]:

@@ -5,12 +5,14 @@
 - ``conv`` / ``dense``: a layer in the compute dtype, as flax's ``nn.Conv`` /
   ``nn.Dense`` with ``dtype``: bf16 operands, a bf16 product, then the
   bias added in bf16 (two roundings), the result left in bf16. Its weight
-  and bias gradients are flax's too: the float32 sum of the bf16 products,
-  rounded to bf16 once. The layer sums them in float32 itself
-  (``_LowConv``: cuDNN's bf16 weight gradient rounds more than once) and
-  leaves them unrounded; the train step rounds them once, after the
-  all-reduce of a data-parallel step (``round_cast_grads``), so one rank
-  and N ranks round the same sum.
+  and bias gradients are flax's too: the sum of the bf16 products, rounded
+  to bf16 once. ``Output``: the models' last Dense, float32 in every dtype.
+- The parameter gradients these layers sum over the batch's rows leave the
+  layer as float64 sums (``_LowConv``: cuDNN's bf16 weight gradient rounds
+  more than once), kept by ``wide_grads``; ``finish_grads`` adds them over
+  the ranks of a data-parallel step in float64 and rounds each once, so one
+  rank and N ranks round the same sum (``models/res.py``'s BN backward
+  sums its cotangents the same way).
 - ``avg_pool``: flax's ``nn.avg_pool``; in bf16 its window sum is a chain of
   bf16 adds, then a bf16 division by the window's size.
 - ``draw_keep_masks`` / ``apply_dropout``: flax's ``nn.Dropout`` with the
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
@@ -67,7 +70,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``,
     then the bias added in ``dtype`` (not fused into the product). Its weight
-    and bias gradients are float32 sums, not yet rounded (``_LowConv``)."""
+    and bias gradients are float64 sums, not yet rounded (``_LowConv``)."""
     if dtype == torch.float32:
         return layer(x)
     return _LowConv.apply(x, layer.weight, layer.bias, dtype, (layer.stride, layer.padding, layer.dilation))
@@ -75,10 +78,18 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` in ``dtype``, flax's way: the product rounded to ``dtype``, then the bias added in
-    ``dtype``. Its weight and bias gradients are float32 sums, not yet rounded (``_LowDense``)."""
+    ``dtype``. Its weight and bias gradients are float64 sums, not yet rounded (``_LowDense``)."""
     if dtype == torch.float32:
         return layer(x)
     return _LowDense.apply(x, layer.weight, layer.bias, dtype)
+
+
+class Output(nn.Linear):
+    """The models' last Dense, float32 in every dtype: ``nn.Linear``'s forward and input gradient bit
+    for bit, its weight and bias gradients float64 sums (``_Output``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _Output.apply(x, self.weight, self.bias)
 
 
 def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
@@ -89,18 +100,59 @@ def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
             for p in m.parameters()]
 
 
+_SINK = threading.local()
+
+
+@contextlib.contextmanager
+def wide_grads():
+    """Yields a dict that the layers run inside fill, parameter -> float64 gradient.
+
+    Each of ``_LowConv``, ``_LowDense`` and ``_Output`` sums its parameters'
+    gradients over the rows in float64 and, when its forward ran inside
+    ``wide_grads`` (the backward may run on another thread), adds that sum to
+    the dict; autograd's ``.grad`` gets its float32 rounding all the same,
+    for callers that read ``.grad`` alone. ``finish_grads`` takes the dict.
+    """
+    outer = getattr(_SINK, "grads", None)
+    _SINK.grads = grads = {}
+    try:
+        yield grads
+    finally:
+        _SINK.grads = outer
+
+
+def _sink() -> dict | None:
+    return getattr(_SINK, "grads", None)
+
+
+def _keep(sink: dict | None, param: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g``, a float64 gradient of ``param``, added to ``sink``'s (if any)."""
+    if sink is not None:
+        sink[param] = sink[param] + g if param in sink else g
+    return g
+
+
 @torch.no_grad()
-def round_cast_grads(model: nn.Module) -> None:
-    """After the backward of a step in a low dtype (and the all-reduce of a
-    sharded one): round the float32 sum that is the gradient of every
-    parameter ``conv`` / ``dense`` cast to the model's dtype to that dtype,
-    once, and widen it back for the float32 update: flax's one rounding of
-    the whole batch's sum."""
-    if model.dtype == torch.float32:
-        return
-    for p in cast_parameters(model):
-        if p.grad is not None:
-            p.grad.copy_(p.grad.to(model.dtype))
+def finish_grads(model: nn.Module, wide: dict, mesh=None) -> None:
+    """The update's gradients from a backward run inside ``wide_grads``: every
+    parameter's float64 sum over this rank's rows (``wide``'s, or its float32
+    ``.grad`` widened, as autograd's float32 convs give it), added over the
+    ranks of ``mesh`` in float64 (``mesh.all_reduce_grads``, one flat
+    all-reduce), then rounded once into ``.grad``: to float32, and for a
+    parameter ``conv`` / ``dense`` casts to the model's dtype also to that
+    dtype, widened back for the float32 update (flax's one rounding of the
+    whole batch's sum). The float64 sum reaches bf16 through float32, as
+    ``Tensor.to`` takes it and as a float32 accumulator rounded to bf16
+    would; it parts from a direct rounding only where the float32 value is a
+    bf16 tie. One path on every device and topology: at one rank (or without
+    ``mesh``) nothing is communicated."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    sums = [wide[p] if p in wide else p.grad.double() for p in params]
+    if mesh is not None and mesh.size > 1:
+        mesh.all_reduce_grads(sums)
+    cast = set(cast_parameters(model)) if model.dtype != torch.float32 else set()
+    for p, s in zip(params, sums):
+        p.grad.copy_(s.float().to(model.dtype) if p in cast else s)
 
 
 @contextlib.contextmanager
@@ -128,37 +180,49 @@ def _columns(x: torch.Tensor, shape: torch.Size, out_hw: tuple[int, int], geomet
 
 
 def _conv_weight_grad(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
-    """A conv's float32 weight gradient from its bf16 operands: im2col, then a
-    batched float32 GEMM (every product exact, TF32 off) summed over the
-    rows. Not cuDNN's bf16 weight gradient, which rounds more than once on
-    the card (conv0 of res8: 4.94% of the elements more than half a bf16 ulp
-    from the truth), nor its float32 one, whose algorithm is chosen by shape
-    and includes inexact transforms (0.6-0.7% of a 45-map conv's elements
-    past half an ulp at 16 and 32 rows, and no exact zero for a dead input
-    channel; PERF.md §6)."""
+    """A conv's float64 weight gradient from its bf16 operands: im2col, then a
+    batched float32 GEMM (every product exact, TF32 off), one partial a
+    sample (``_conv_weight_partials``), whose order of summation is the
+    sample's own at any row count (``tests/test_torch_topology_invariance.py``,
+    ``chip_smoke.py`` phase 51 on the card); the partials summed over
+    the rows in float64, exactly while their magnitudes span less than
+    2**(29 - log2(rows)) (2**21 at 256 rows), so a rank's part and the
+    ranks' sum add to the same value. Not cuDNN's bf16 weight
+    gradient, which rounds more than once on the card (conv0 of res8: 4.94%
+    of the elements more than half a bf16 ulp from the truth), nor its
+    float32 one, whose algorithm is chosen by shape and includes inexact
+    transforms (0.6-0.7% of a 45-map conv's elements past half an ulp at 16
+    and 32 rows, and no exact zero for a dead input channel; PERF.md §6)."""
+    return _conv_weight_partials(gy32, x16, shape, geometry).sum(dim=0, dtype=torch.float64).view(shape)
+
+
+def _conv_weight_partials(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
+    """(B, out channels, in channels * kh * kw): each sample's float32 weight gradient, by one batched
+    GEMM over ``_columns``, TF32 off."""
     cols = _columns(x16, shape, gy32.shape[2:], geometry).float()
     with _full_f32():
-        return torch.bmm(gy32.flatten(2), cols.transpose(1, 2)).sum(dim=0).view(shape)
+        return torch.bmm(gy32.flatten(2), cols.transpose(1, 2))
 
 
 class _LowConv(torch.autograd.Function):
-    """``conv`` in a low dtype whose weight and bias gradients are summed in float32.
+    """``conv`` in a low dtype whose weight and bias gradients are float64 sums.
 
     Forward and input gradient are autograd's ops on the same operands (a
     bf16 product, the bias added in bf16; the input gradient in bf16, cast
-    to the input's dtype). The weight gradient is the float32 correlation of
-    the bf16 operands (``_conv_weight_grad``: every product exact, summed in
-    float32), the bias gradient the float32 sum of the output's cotangent.
-    Both leave the layer unrounded: on a rank of a data-parallel step they
-    are a part of the batch's sum, and the step rounds the sum once
-    (``round_cast_grads``), on every topology.
+    to the input's dtype). The weight gradient is the correlation of the
+    bf16 operands (``_conv_weight_grad``), the bias gradient the float64 sum
+    of the output's cotangent. Both leave the layer unrounded
+    (``wide_grads``): on a rank of a data-parallel step they are a part of
+    the batch's sum, and the step rounds the sum once (``finish_grads``), on
+    every topology.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, dtype, geometry):
         x16, w16 = x.to(dtype), weight.to(dtype)
         ctx.save_for_backward(x16, w16)
-        ctx.geometry, ctx.shape, ctx.x_dtype, ctx.has_bias = geometry, weight.shape, x.dtype, bias is not None
+        ctx.geometry, ctx.shape, ctx.x_dtype = geometry, weight.shape, x.dtype
+        ctx.params, ctx.sink = (weight, bias), _sink()
         y = F.conv2d(x16, w16, None, *geometry)
         return y if bias is None else y + bias.to(dtype)[:, None, None]
 
@@ -169,38 +233,54 @@ class _LowConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             gx = torch.ops.aten.convolution_backward(gy, x16, w16, None, *ctx.geometry, False, [0, 0], 1,
                                                      [True, False, False])[0].to(ctx.x_dtype)
-        gy32 = gy.float()
         if ctx.needs_input_grad[1]:
-            gw = _conv_weight_grad(gy32, x16, ctx.shape, ctx.geometry)
-        if ctx.has_bias and ctx.needs_input_grad[2]:
-            gb = gy32.sum(dim=(0, 2, 3))
+            gw = _keep(ctx.sink, ctx.params[0], _conv_weight_grad(gy.float(), x16, ctx.shape, ctx.geometry))
+        if ctx.params[1] is not None and ctx.needs_input_grad[2]:
+            gb = _keep(ctx.sink, ctx.params[1], gy.sum(dim=(0, 2, 3), dtype=torch.float64))
         return gx, gw, gb, None, None
 
 
+def _dense_grads(ctx, gy: torch.Tensor, x: torch.Tensor) -> tuple:
+    """A Dense layer's weight and bias gradients as float64 sums over the rows of ``gy`` and ``x``
+    (each product exact for bf16 operands), kept by ``wide_grads``."""
+    weight, bias = ctx.params
+    gw = _keep(ctx.sink, weight, gy.double().t().mm(x.double())) if ctx.needs_input_grad[1] else None
+    gb = _keep(ctx.sink, bias, gy.sum(dim=0, dtype=torch.float64)) if ctx.needs_input_grad[2] else None
+    return gw, gb
+
+
 class _LowDense(torch.autograd.Function):
-    """``dense`` in a low dtype whose weight and bias gradients are summed in float32, unrounded (as
+    """``dense`` in a low dtype whose weight and bias gradients are float64 sums, unrounded (as
     ``_LowConv``)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, dtype):
         x16, w16 = x.to(dtype), weight.to(dtype)
         ctx.save_for_backward(x16, w16)
-        ctx.x_dtype = x.dtype
+        ctx.x_dtype, ctx.params, ctx.sink = x.dtype, (weight, bias), _sink()
         return F.linear(x16, w16) + bias.to(dtype)
 
     @staticmethod
     def backward(ctx, gy):
         x16, w16 = ctx.saved_tensors
-        gx = gw = gb = None
-        if ctx.needs_input_grad[0]:
-            gx = gy.mm(w16).to(ctx.x_dtype)
-        gy32 = gy.float()
-        if ctx.needs_input_grad[1]:
-            with _full_f32():
-                gw = gy32.t().mm(x16.float())
-        if ctx.needs_input_grad[2]:
-            gb = gy32.sum(dim=0)
-        return gx, gw, gb, None
+        gx = gy.mm(w16).to(ctx.x_dtype) if ctx.needs_input_grad[0] else None
+        return gx, *_dense_grads(ctx, gy, x16), None
+
+
+class _Output(torch.autograd.Function):
+    """``Output``: ``F.linear`` in float32, its weight and bias gradients float64 sums (as ``_LowDense``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.params, ctx.sink = (weight, bias), _sink()
+        return F.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        gx = gy.mm(weight) if ctx.needs_input_grad[0] else None
+        return gx, *_dense_grads(ctx, gy, x)
 
 
 def avg_pool(x: torch.Tensor, window: tuple[int, int]) -> torch.Tensor:

@@ -46,11 +46,12 @@ the convolutions go through cuDNN (the JAX package has no Pallas kernel for
 them either), in ``dtype`` or float32. In bf16 it computes what flax's
 ``apply(train=True)`` of a bf16 model computes: every conv returns bf16,
 ReLU, the pool (``layers.avg_pool``: bf16 adds in window order) and the
-residual add stay bf16, BN takes its statistics over the float32 values
-(summed in float64, so every topology of a data-parallel step gets the
-same statistics: ``batch_stats``),
+residual add stay bf16, BN takes its statistics over the float32 values,
 normalises in float32 and returns bf16, and the global mean is taken over
-the float32 values. BN uses batch statistics with flax's semantics
+the float32 values. BN's sums over the rows, forward and backward, are
+float64 (``batch_moments``, ``_BatchNorm``), as are the layers' parameter
+gradients (``layers``), so every topology of a data-parallel step takes
+the same step. BN uses batch statistics with flax's semantics
 (``honk_tpu/models/res.py``): the biased batch variance as
 ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5, in float32, and running
 statistics updated by hand, ``r = 0.9 * r + 0.1 * batch`` with the
@@ -68,7 +69,7 @@ import torch.nn.functional as F
 
 from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_forward, stem_plain
 from ..parallel.mesh import DataMesh
-from .layers import avg_pool, conv
+from .layers import Output, avg_pool, conv
 
 BN_MOMENTUM = 0.9  # flax's convention: r = momentum * r + (1 - momentum) * batch
 
@@ -93,7 +94,7 @@ class SpeechResModel(nn.Module):
             d = 2 ** ((i - 1) // 3) if self.dilated else 1
             self.add_module(f"conv{i}", nn.Conv2d(self.n_maps, self.n_maps, 3, padding=d, dilation=d, bias=False))
             self.add_module(f"bn{i}", nn.BatchNorm2d(self.n_maps, affine=False))
-        self.output = nn.Linear(self.n_maps, config["n_labels"])
+        self.output = Output(self.n_maps, config["n_labels"])
 
     def eval_operands(self) -> tuple[torch.Tensor, ...]:
         """What the eval forward takes from the weights, to prepare once per set
@@ -161,31 +162,30 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None 
     """Affine-free BN of (B, C, H, W) with batch statistics, flax semantics; updates ``bn``'s buffers.
 
     Under a ``mesh`` of more than one rank, ``x`` is this rank's rows: the
-    per-channel sums, sums of squares and the count are all-reduced (with
-    autograd), so every rank normalises by the global batch's statistics
-    and updates the same running statistics, as GSPMD's BN does.
+    statistics are the global batch's and every rank updates the same
+    running statistics, as GSPMD's BN does (``_BatchNorm``).
 
     A bf16 ``x`` is normalised as flax normalises it: statistics over its
     float32 values, ``x - mean`` in float32, the result rounded to bf16.
     """
-    mean, var = batch_stats(x.float(), mesh)  # its own cast, as flax's: the cotangents of the two casts add in bf16
+    out, mean, var = _BatchNorm.apply(x, mesh if mesh is not None and mesh.size > 1 else None)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
         bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
-    return ((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None]).to(x.dtype)
+    return out
 
 
-def batch_stats(xf: torch.Tensor, mesh: DataMesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """BN's per-channel batch mean and biased variance (``E[x^2] - E[x]^2``
-    clipped at 0) of float32 (B, C, H, W) ``xf``; under a ``mesh`` of more
-    than one rank, the global batch's: the sums and the count all-reduced
-    (with autograd).
+def batch_moments(xf: torch.Tensor, mesh: DataMesh | None = None) -> tuple[torch.Tensor, ...]:
+    """BN's per-channel batch mean and mean of squares of (B, C, H, W) ``xf``,
+    in its dtype, and the batch's count (a float64 scalar); under a ``mesh``
+    of more than one rank the global batch's, the sums and the count
+    all-reduced.
 
     The sums of ``xf`` and ``xf * xf`` are float64 (of bf16 values: exact,
     their squares exact in float32), divided by the count in float64 and
-    rounded to float32 once, so one rank and N ranks, whose float32 sums
-    would group the rows otherwise, normalise by the same statistics: the
-    float32 sums of 2 or 4 parts of res8's batch differ from the whole
+    rounded to ``xf``'s dtype once, so one rank and N ranks, whose float32
+    sums would group the rows otherwise, normalise by the same statistics:
+    the float32 sums of 2 or 4 parts of res8's batch differ from the whole
     batch's in 8-36 of its 45 channels, on the card and on the CPU
     (``scripts/chip_train_nccl.py --sections bf16parts``, PERF.md §6)."""
     c = xf.shape[1]
@@ -193,6 +193,55 @@ def batch_stats(xf: torch.Tensor, mesh: DataMesh | None = None) -> tuple[torch.T
     stats = torch.cat([xf.sum(dim=(0, 2, 3), dtype=torch.float64), (xf * xf).sum(dim=(0, 2, 3), dtype=torch.float64),
                        count])
     if mesh is not None and mesh.size > 1:
-        stats = mesh.all_reduce_sum(stats)
-    mean, meansq = (stats[:c] / stats[-1]).float(), (stats[c:2 * c] / stats[-1]).float()
-    return mean, (meansq - mean * mean).clamp_min(0.0)
+        mesh.all_reduce_(stats)
+    return (stats[:c] / stats[-1]).to(xf.dtype), (stats[c:2 * c] / stats[-1]).to(xf.dtype), stats[-1]
+
+
+class _BatchNorm(torch.autograd.Function):
+    """``(out, mean, var)`` of affine-free BN with batch statistics (``batch_norm_train``); ``mean``
+    and ``var`` are not differentiated.
+
+    Forward, with ``w`` the wider of ``x``'s dtype and float32: ``mean`` and
+    ``meansq`` from ``batch_moments`` of ``x`` in ``w`` (one all-reduce under
+    a ``mesh``), ``var = max(meansq - mean**2, 0)``,
+    ``out = ((x - mean) * rsqrt(var + eps))`` rounded to ``x``'s dtype.
+
+    Backward, flax's VJP of that forward with its two cross-row sums taken
+    over the global batch in float64: this rank's per-channel sums of the
+    cotangent ``g`` and of ``g * (x - mean)`` (the products in ``w``),
+    all-reduced in float64 as one pair, give the cotangents of ``mean`` and
+    ``var`` in float64, and from them, by one formula on every topology, the
+    input gradient elementwise in ``w``. flax's dtype flow is kept: ``x``
+    enters twice, through the statistics' cast and through ``x - mean``'s
+    promotion, so the two cotangents are rounded to ``x``'s dtype apart and
+    added in it (in bf16 for a bf16 model). A float64 ``x`` runs the same
+    formula in float64 (``torch.autograd.gradcheck``).
+    """
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        xw = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, meansq, count = batch_moments(xw, mesh)
+        var = meansq - mean * mean
+        live = var >= 0  # clamp_min passes the gradient where it clamped nothing
+        var = var.clamp_min(0.0)
+        rstd = torch.rsqrt(var + BN_EPS)
+        ctx.save_for_backward(x, mean, rstd, live, count)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return ((xw - mean[:, None, None]) * rstd[:, None, None]).to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, g, _mean, _var):
+        x, mean, rstd, live, count = ctx.saved_tensors
+        c, xw, gw = mean.shape[0], x.to(mean.dtype), g.to(mean.dtype)
+        sums = torch.cat([gw.sum(dim=(0, 2, 3), dtype=torch.float64),
+                          (gw * (xw - mean[:, None, None])).sum(dim=(0, 2, 3), dtype=torch.float64)])
+        if ctx.mesh is not None:
+            ctx.mesh.all_reduce_(sums)
+        r = rstd.double()
+        g_var = torch.where(live, -0.5 * r ** 3 * sums[c:], 0.0)
+        g_mean = -r * sums[:c] - 2 * mean.double() * g_var
+        # The statistics' cotangents per element: d mean / dx = 1 / n, d meansq / dx = 2 x / n.
+        a, b = ((v / count).to(mean.dtype)[:, None, None] for v in (g_mean, g_var))
+        return (gw * rstd[:, None, None]).to(x.dtype) + (a + 2 * (b * xw)).to(x.dtype), None

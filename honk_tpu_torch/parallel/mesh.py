@@ -12,11 +12,11 @@ out with one process per device:
   of ``ceil(n / size)`` rows in rank order, the last one shorter (GSPMD's
   uneven tail; a rank with no row is refused), so reductions add sums and
   counts, never means;
-- ``all_reduce_sum`` is a collective with autograd: its backward
-  all-reduces the gradient, which is what makes BN statistics global
-  through the backward pass too;
+- BN all-reduces its float64 sums in place, once in the forward and once
+  in the backward (``models/res.py``, ``_BatchNorm``);
 - ``all_reduce_grads`` is the step's one all-reduce of the flattened
-  gradients; ``all_gather_rows`` puts the rows of the ranks back in order.
+  float64 gradients; ``all_gather_rows`` puts the rows of the ranks back in
+  order.
 
 At size 1 every collective is the identity and nothing is communicated,
 so a one-rank run computes exactly what the single-device code computes.
@@ -57,12 +57,6 @@ class DataMesh:
         if self.collectives is not None:
             self.collectives.append((op, t.numel(), t.element_size()))
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of ``t``; differentiable (the backward all-reduces the gradient)."""
-        if self.size == 1:
-            return t
-        return _AllReduceSum.apply(t, self)
-
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over the ranks, no autograd (counts, gradients)."""
         if self.size > 1:
@@ -70,11 +64,11 @@ class DataMesh:
             dist.all_reduce(t, group=self.group)
         return t
 
-    def all_reduce_grads(self, module: torch.nn.Module) -> None:
-        """Sum every parameter's ``.grad`` over the ranks: one all-reduce of them all, flattened."""
+    def all_reduce_grads(self, grads: list[torch.Tensor]) -> None:
+        """Sum ``grads`` (each a parameter's float64 gradient over this rank's rows) over the ranks, in
+        place: one all-reduce of them all, flattened."""
         if self.size == 1:
             return
-        grads = [p.grad for p in module.parameters() if p.grad is not None]
         flat = self.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
         offset = 0
         for g in grads:
@@ -109,17 +103,6 @@ class DataMesh:
         if int(flag):
             raise ValueError(f"replicate: {int(flag)} tensors differed from rank 0's across the ranks")
         return module
-
-
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return mesh.all_reduce_(t.clone())
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.mesh.all_reduce_(grad.clone()), None
 
 
 def make_data_mesh(n_devices: int = 0, axis_name: str = "data") -> DataMesh:

@@ -24,12 +24,16 @@ Data parallel (the JAX package's ``data_axis``, ``parallel/mesh.py``):
 under a ``mesh`` of more than one rank, every rank draws the global batch
 from the step's generator, then assembles, featurizes and runs forward and
 backward on its own rows; BN's statistics are the global batch's; the loss
-is the rank's cross-entropy *sum* over the global batch size, so the one
-all-reduce of the flattened gradients gives the global mean's gradient on
-every rank before the same update; loss and accuracy are reduced too. A
-bf16 layer's weight gradient leaves its rank as a float32 part of the sum,
-and is rounded to bf16 once after the all-reduce (``round_cast_grads``), as
-one rank rounds its whole batch's sum once. An
+is the rank's cross-entropy *sum* over the global batch size (one formula
+on every topology, one rank's included), so the one all-reduce of the
+flattened gradients gives the global mean's gradient on every rank before
+the same update; loss and accuracy are reduced too. Every sum over rows
+that leaves a rank is float64: BN's, forward and backward
+(``models/res.py``), and each parameter's gradient (``layers.wide_grads``),
+all-reduced as one flat float64 vector and rounded once
+(``layers.finish_grads``), as one rank rounds its whole batch's sums once.
+On the CPU 1, 2 and 4 ranks take the same step bit for bit
+(``tests/test_torch_topology_invariance.py``). An
 eval sweep scores each rank's rows of every batch and all-reduces the two
 counts once at the end. At one rank nothing is communicated and the step
 is the single-device step.
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 from ..data.augment import AugmentConfig, TrainArrays, eval_batch, sample_train_batch, step_generator
 from ..frontend.mfcc import compute_mfccs
 from ..metrics import annotate
-from ..models.layers import round_cast_grads
+from ..models.layers import finish_grads, wide_grads
 from ..parallel import DataMesh
 from .state import SGD, TrainState
 
@@ -76,17 +80,13 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
         model = state.model
         model.train()
         model.zero_grad(set_to_none=True)
-        with annotate("forward_backward"):
+        with annotate("forward_backward"), wide_grads() as wide:
             logits = model(feats, dropout=dropout, mesh=mesh)
-            if sharded:  # this rank's share of the global batch's mean
-                loss = F.cross_entropy(logits, labels, reduction="sum") / batch_size
-            else:
-                loss = F.cross_entropy(logits, labels)
+            # This rank's share of the global batch's mean (at one rank, the mean).
+            loss = F.cross_entropy(logits, labels, reduction="sum") / batch_size
             loss.backward()
         with annotate("update"):
-            if sharded:
-                mesh.all_reduce_grads(model)
-            round_cast_grads(model)
+            finish_grads(model, wide, mesh)
             tx.apply(state)
         hits = logits.detach().argmax(dim=-1) == labels
         if not sharded:

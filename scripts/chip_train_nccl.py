@@ -3,7 +3,8 @@
 
     python scripts/chip_train_nccl.py [--worlds 2 4]
         [--sections steps f32 bf16 dryrun scaling gap dead bf16steps repeat bf16parts]
-        [--recipe_seeds 0] [--recipe_controls] [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240] [--device cpu]
+        [--recipe_seeds 0] [--recipe_controls] [--gap_seeds 0 1 2 3 4] [--gap_budget_s 240]
+        [--gap_dtypes float32 bfloat16] [--device cpu]
 
 Needs as many cards as the largest world, and exits 1 with fewer
 (``--device cpu`` rehearses the script on gloo ranks, where no kernel
@@ -61,7 +62,7 @@ cards' name and power limit, then one JSON line of the readings, and exits
    JAX package's CPU reading (``torch_resume.JAX_BF16_GAP``; in float32
    JAX's largest is half of ``TOPOLOGY_GAP_F32``). This section is read,
    not gated. A seed starts only while the section is inside
-   ``--gap_budget_s``.
+   ``--gap_budget_s``; ``--gap_dtypes bfloat16`` runs the bf16 recipe alone.
 7. ``dead``: ``cli.train --n_devices 2`` (bf16, phase 10's corpus). Once
    rank 0 has logged its first epoch, rank 1 is killed (SIGKILL): as it
    runs, and, in the other ``DEAD_RUNS`` runs, while it waits for rank 0 in
@@ -117,7 +118,9 @@ cards' name and power limit, then one JSON line of the readings, and exits
    (e) ``share``: the all-reduced gradient's distance from one rank's as a
        share of one rank's bf16-to-float32 gradient distance (Frobenius,
        the unit of ``bf16steps``), over all parameters and the largest
-       tensor's; and float32's 1-vs-N distance in the same unit.
+       tensor's; and float32's 1-vs-N distance in the same unit;
+   and ``bitwise``: the share of each of (a)-(e) bit for bit one rank's
+   (``bitwise_shares``).
    The one-rank line adds the readings on one card (``alone``) of each
    conv at 16, 32 and 64 rows (``PARTS_ROWS``) on the one-rank run's
    operands: forward and input gradient row by row against the whole
@@ -132,8 +135,8 @@ cards' name and power limit, then one JSON line of the readings, and exits
    ranks of a world being bitwise equal.
 
 Imports nothing of JAX. Its default worlds need four cards of one host.
-On one card, ``--worlds 1 --sections bf16steps`` runs section 8 with its
-two ranks sharing the card over gloo.
+On one card, ``--worlds 1 --sections bf16steps bf16parts`` runs sections 8
+and 10 with the ranks of a world sharing the card over gloo.
 """
 
 from __future__ import annotations
@@ -279,13 +282,14 @@ def taps(model, mesh):
     input (``x``, as the conv casts it), output (``y``) and their cotangents
     (``dx``, ``dy``) by layer name, BN's input (``bn_x``), batch mean and
     variance by layer order, and each parameter's gradient as it enters
-    ``mesh.all_reduce_grads`` (``partial``), all on the CPU."""
+    ``mesh.all_reduce_grads`` (``partial``: this rank's float64 sum), all on
+    the CPU."""
     import torch
     from honk_tpu_torch.models import res
 
     names = {id(m): n for n, m in model.named_modules()}
     rec = {k: {} for k in ("x", "y", "dx", "dy", "partial")} | {"bn_x": [], "mean": [], "var": []}
-    conv, stats, reduce = res.conv, res.batch_stats, mesh.all_reduce_grads
+    conv, stats, reduce = res.conv, res.batch_moments, mesh.all_reduce_grads
 
     def keep(key, name):
         return lambda g: rec[key].__setitem__(name, g.detach().cpu())
@@ -302,20 +306,22 @@ def taps(model, mesh):
         return y
 
     def tapped_stats(xf, mesh=None):
-        mean, var = stats(xf, mesh)
+        mean, meansq, count = stats(xf, mesh)
+        var = (meansq - mean * mean).clamp_min(0.0)
         for key, t in (("bn_x", xf), ("mean", mean), ("var", var)):
             rec[key].append(t.detach().cpu())
-        return mean, var
+        return mean, meansq, count
 
-    def tapped_reduce(module):
-        rec["partial"] = {n: p.grad.detach().cpu().clone() for n, p in module.named_parameters()}
-        return reduce(module)
+    def tapped_reduce(grads):
+        params = [n for n, p in model.named_parameters() if p.grad is not None]
+        rec["partial"] = {n: g.detach().cpu().clone() for n, g in zip(params, grads)}
+        return reduce(grads)
 
-    res.conv, res.batch_stats, mesh.all_reduce_grads = tapped_conv, tapped_stats, tapped_reduce
+    res.conv, res.batch_moments, mesh.all_reduce_grads = tapped_conv, tapped_stats, tapped_reduce
     try:
         yield rec
     finally:
-        res.conv, res.batch_stats = conv, stats
+        res.conv, res.batch_moments = conv, stats
         del mesh.all_reduce_grads
 
 
@@ -643,19 +649,25 @@ def section_f32(checks: Checks, corpus: str, worlds: list[int], n_cards: int, de
 def section_bf16(checks: Checks, world: int, device: str, tmp: str, seeds: list[int], n_cards: int,
                  controls: bool) -> dict:
     """3. res8 and res15 at zoo_hard_v2's recipe on ``world`` ranks through --n_devices from each of
-    ``seeds``, scored as cli.zoo; with ``controls``, also on one rank from each seed, the one-rank runs
-    at once on cards of their own after the ``world``-rank runs."""
+    ``seeds``, each seed scored as cli.zoo as soon as it is trained (a call cut by its time limit keeps
+    the seeds done); with ``controls``, also on one rank from each seed, the one-rank runs at once on
+    cards of their own after the ``world``-rank runs."""
     root = os.path.join(tmp, "hard_v2")
     corpus_s = C.hard_v2_corpus(root) if not os.path.isdir(root) else 0.0
-    trained = {(world, seed): train_recipe(checks, world, device, tmp, root, seed, None) for seed in seeds}
-    if controls:
-        trained.update(in_waves([((1, seed), 1, lambda cards, seed=seed: train_recipe(checks, 1, device, tmp, root,
-                                                                                   seed, cards))
-                                 for seed in seeds], n_cards, device))
     out = {}
-    for (w, seed), (runs, zoo) in trained.items():
+
+    def score(w, seed, runs, zoo):
         runs["corpus_s"] = corpus_s
         out[f"{w}_ranks_seed{seed}"] = score_recipe(checks, runs, zoo, root, device)
+
+    for seed in seeds:
+        score(world, seed, *train_recipe(checks, world, device, tmp, root, seed, None))
+    if controls:
+        trained = in_waves([((1, seed), 1, lambda cards, seed=seed: train_recipe(checks, 1, device, tmp, root,
+                                                                              seed, cards))
+                            for seed in seeds], n_cards, device)
+        for (w, seed), (runs, zoo) in trained.items():
+            score(w, seed, runs, zoo)
     return out
 
 
@@ -775,8 +787,8 @@ def section_scaling(checks: Checks, worlds: list[int], device: str) -> dict:
 
 
 def section_gap(checks: Checks, seeds: list[str], budget_s: float, worlds: list[int], n_cards: int, device: str,
-                tmp: str) -> dict:
-    """6. ROADMAP §3.2: the resume recipe on 1, 2 and each world's ranks, float32 and bf16, per corpus."""
+                tmp: str, dtypes: tuple[str, ...] = ("float32", "bfloat16")) -> dict:
+    """6. ROADMAP §3.2: the resume recipe on 1, 2 and each world's ranks in each of ``dtypes``, per corpus."""
     import torch_resume as R
     from torch_ranks import TIMEOUT, rank_env
 
@@ -784,7 +796,6 @@ def section_gap(checks: Checks, seeds: list[str], budget_s: float, worlds: list[
     t0 = time.perf_counter()
     whole = sorted({1, 2, *worlds})
     first = {**{f"whole{w}": (R.EPOCHS, w) for w in whole}, "half1": (R.EPOCHS // 2, 1), "half2": (R.EPOCHS // 2, 2)}
-    dtypes = ("float32", "bfloat16")
     for seed in seeds:
         if time.perf_counter() - t0 > budget_s:
             break
@@ -814,7 +825,8 @@ def section_gap(checks: Checks, seeds: list[str], budget_s: float, worlds: list[
             row[d] = {**{f"{a}_vs_{b}": R.max_gap(w[f"whole{a}"], w[f"whole{b}"])
                          for a in (1, 2) for b in whole if b > a},
                       "1to2_vs_2to1": R.max_gap(w["1to2"], w["2to1"])}
-        row["bfloat16"]["jax_1_vs_2"] = R.JAX_BF16_GAP.get(seed)
+        if "bfloat16" in row:
+            row["bfloat16"]["jax_1_vs_2"] = R.JAX_BF16_GAP.get(seed)
         out["seeds"][seed] = row
         print(f"[gap] hash seed {seed}: " + json.dumps(row), flush=True)
     return out
@@ -954,7 +966,28 @@ def world_readings(one: dict, ranks: list[dict], model) -> dict:
                     "largest_tensor": [worst, per[worst]],
                     "f32_1_vs_n": grad_distance(mine[f]["grad"], one[f]["grad"], keys) / unit,
                     "bf16_vs_f32": unit}
+    out["bitwise"] = bitwise_shares(out, one, mine)
     return out
+
+
+def bitwise_shares(readings: dict, one: dict, mine: dict) -> dict:
+    """The share of each reading (a)-(e) that is bit for bit one rank's: (a) conv output rows, (b) BN
+    channels (mean and variance), (c) the all-reduced conv weight-gradient elements, (d) conv input
+    gradient rows, (e) every gradient element of the step."""
+    import torch
+
+    b = "bfloat16"
+
+    def rows(part):
+        return 1 - sum(r["rows"] for r in readings[part].values()) / sum(r["of"] for r in readings[part].values())
+
+    def elements(keys):
+        return sum(int((mine[b]["grad"][k] == one[b]["grad"][k]).sum()) for k in keys) / sum(
+            one[b]["grad"][k].numel() for k in keys)
+
+    channels = [(mine[b][k][i] == one[b][k][i]) for i in range(len(one[b]["mean"])) for k in ("mean", "var")]
+    return {"a": rows("fwd"), "b": float(torch.cat(channels).double().mean()),
+            "c": elements([f"{n}.weight" for n in one[b]["x"]]), "d": rows("dgrad"), "e": elements(list(one[b]["grad"]))}
 
 
 def section_bf16parts(checks: Checks, n_cards: int, device: str, tmp: str) -> dict:
@@ -964,7 +997,7 @@ def section_bf16parts(checks: Checks, n_cards: int, device: str, tmp: str) -> di
     from honk_tpu_torch.models import find_config, find_model
 
     runs = {"default": False, "deterministic": True}
-    res = in_waves([(f"{name}-{w}", w, lambda cards, w=w, det=det, n=f"{name}-{w}":
+    res = in_waves([(f"{name}-{w}", min(w, max(n_cards, 1)), lambda cards, w=w, det=det, n=f"{name}-{w}":
                      run_ranks("bf16parts", [], w, device, tmp, f"bf16parts-{n}", det, cards))
                     for name, det in runs.items() for w in PARTS_WORLDS], n_cards, device)
     if device == "cuda":  # and on the host's CPU, one group at a time
@@ -1163,6 +1196,7 @@ def main() -> int:
                    help="the bf16 section also trains each seed on one rank, the paired control")
     p.add_argument("--gap_seeds", nargs="+", default=["0", "1", "2", "3", "4"])
     p.add_argument("--gap_budget_s", type=float, default=240.0)
+    p.add_argument("--gap_dtypes", nargs="+", choices=("float32", "bfloat16"), default=["float32", "bfloat16"])
     p.add_argument("--device", default="cuda", help="cuda, or cpu to rehearse the script on gloo ranks")
     p.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--spec", default=None, help=argparse.SUPPRESS)
@@ -1205,7 +1239,8 @@ def main() -> int:
                                              args.recipe_controls),
                 "dryrun": lambda: section_dryrun(checks, counters, worlds, d, tmp),
                 "scaling": lambda: section_scaling(checks, worlds, d),
-                "gap": lambda: section_gap(checks, args.gap_seeds, args.gap_budget_s, worlds, slots, d, tmp),
+                "gap": lambda: section_gap(checks, args.gap_seeds, args.gap_budget_s, worlds, slots, d, tmp,
+                                           tuple(args.gap_dtypes)),
                 "dead": lambda: section_dead(checks, corpus, d, tmp),
                 "bf16steps": lambda: section_bf16steps(checks, slots, d, tmp),
                 "repeat": lambda: section_repeat(checks, slots, d, tmp),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The bf16 layers' float32 weight gradient on the card (``layers._LowConv``).
+"""The bf16 layers' float64 weight gradient on the card (``layers._LowConv``).
 
     python scripts/probe_torch_bf16_wgrad.py      # one card
 
@@ -7,24 +7,24 @@
    dead input channel): the weight gradient of the 64 rows rounded once
    against its float64 truth (``chip_smoke.rounding_reading``), whether
    the dead channel's is exactly 0, and, as ``chip_smoke.py`` phase 51
-   holds it, the float32 parts of 2 and 4 ranks added and rounded once
+   holds it, the float64 parts of 2 and 4 ranks added and rounded once
    against the whole's: [share of elements differing, share past one bf16
    ulp, largest ulps].
 2. The weight gradient alone, conv0 and conv1 of res8 at B=256, ms by CUDA
    events (20 calls after 3): cuDNN's bf16 one (autograd's), the layers'
    (``_conv_weight_grad``: one strided im2col copy, a batched float32
-   GEMM), the same on ``F.unfold``'s im2col, the layers' columns in bf16
+   GEMM, the per-sample partials summed in float64), the same on ``F.unfold``'s im2col, the layers' columns in bf16
    through a bf16 GEMM with a float32 output, and the layers' with TF32 on,
    each with its reading against the float64 truth.
 3. A bf16 forward and backward of res8 at B=256 and of res15 at B=64 on
    seeded features, ms a step by CUDA events (10 steps after 3), with the
-   layers' float32 weight gradients and with autograd's bf16 ones (the
+   layers' float64 weight gradients and with autograd's bf16 ones (the
    convs as plain bf16 ops), in turns; and whether every gradient is
    finite.
 
 4. ``cli.bench``'s train link (res8 bf16, B=256, its scan lengths and
-   reps), audio-s/s, in turns: as shipped; with BN's sums in float32 by
-   ``mean`` (the one-rank formula before the float64 sums); with
+   reps), audio-s/s, in turns: as shipped; with BN's forward sums in
+   float32 by ``mean`` (the one-rank formula before the float64 sums); with
    autograd's bf16 weight gradients (the convs as plain bf16 ops); with
    both (the arithmetic before the repair); as shipped again.
 
@@ -74,16 +74,17 @@ for name in ("conv0", "conv1"):
 
     def grad(rows):
         layer.weight.grad = None
-        layers._LowConv.apply(x16[rows], layer.weight, None, torch.bfloat16, geometry(layer)).backward(dy[rows])
-        return layer.weight.grad.clone()
+        with layers.wide_grads() as wide:
+            layers._LowConv.apply(x16[rows], layer.weight, None, torch.bfloat16, geometry(layer)).backward(dy[rows])
+        return wide[layer.weight]
 
-    whole = grad(slice(0, 64)).bfloat16().float()
+    whole = grad(slice(0, 64)).float().bfloat16().float()
     truth = C.conv_wgrad(layer, x16, dy, torch.float64, torch.device("cpu"))
     row = {"whole_vs_truth": C.rounding_reading(whole, truth),
            "dead_channel_zero": bool((whole[:, :1] == 0).all()) if name != "conv0" else None}
     for n in (2, 4):
         r = 64 // n
-        total = sum(grad(slice(i * r, (i + 1) * r)) for i in range(n)).bfloat16().float()
+        total = sum(grad(slice(i * r, (i + 1) * r)) for i in range(n)).float().bfloat16().float()
         d = C.ulps(total, whole)
         row[n] = [float((d > 0).double().mean()), float((d > 1).double().mean()), float(d.max())]
     out[name] = row
@@ -163,8 +164,9 @@ for conf, B in (("res8", 256), ("res15", 64)):
 
     def step():
         m.zero_grad(set_to_none=True)
-        F.cross_entropy(m(feats), labels).backward()
-        layers.round_cast_grads(m)
+        with layers.wide_grads() as wide:
+            F.cross_entropy(m(feats), labels).backward()
+        layers.finish_grads(m, wide)
 
     t = {}
     for tag, fn in (("layers", conv), ("autograd", autograd_conv), ("autograd ", autograd_conv), ("layers ", conv)):
@@ -177,8 +179,7 @@ for conf, B in (("res8", 256), ("res15", 64)):
 
 def f32_stats(xf, mesh=None):
     """BN's one-rank statistics before the float64 sums: float32 ``mean``."""
-    mean = xf.mean(dim=(0, 2, 3))
-    return mean, ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3)), xf.new_tensor(xf.numel() // xf.shape[1])
 
 
 def train_link():
@@ -191,11 +192,11 @@ def train_link():
     return knobs["batch"] / t
 
 
-stats, link = res.batch_stats, {}
+stats, link = res.batch_moments, {}
 for tag, c, st in (("shipped", conv, stats), ("before_repair", autograd_conv, f32_stats),
                    ("bn_float32_sums", conv, f32_stats), ("autograd_wgrad", autograd_conv, stats),
                    ("shipped_again", conv, stats)):
-    res.conv, res.batch_stats = c, st
+    res.conv, res.batch_moments = c, st
     link[tag] = train_link()
-res.conv, res.batch_stats = conv, stats
+res.conv, res.batch_moments = conv, stats
 print(json.dumps({"train_link_audio_s_per_s": link}), flush=True)

@@ -19,18 +19,17 @@ Gates:
   from JAX's op-by-op step at most max(0.5, JAX's compiled 2-device step's
   own distance from it). Measured on seeds 0-2: at most 0.68 of that limit
   after one step, 0.88 after two. After three steps seed 0 (this test's)
-  reads 1.41 of it (conv0, conv1, output.bias), where the port's one-rank
-  step still holds the rule: the difference grows over steps, and is
-  recorded in ROADMAP.md §3.2, not gated.
+  reads 1.21 of it (output.bias, conv1, conv0), on one rank and two alike:
+  the difference from JAX's op-by-op step grows over steps whatever the
+  topology, so step 3 is read, not gated.
 - Where the parting comes from. Over all parameters after each of steps
-  1-3, the port's one and two ranks part no further than JAX's one and two
-  devices (seeds 0-2: 0.12-0.96 of JAX's gap). So each rank's weight
-  gradient rounded to bf16 before the float32 all-reduce (the suspect,
-  ``parallel/mesh.py``) does not part the port's topologies further than
-  JAX's partitioned step parts its own on a step: JAX's partitioner also
-  reduces bf16 partial products. Per tensor the port's gap first exceeds
-  JAX's in BN's running statistics (over all of them after step 1:
-  0.015 against 0.004).
+  1-3, the port's one and two ranks do not part at all: every sum over
+  rows that leaves a rank is float64 and rounded once after the
+  all-reduce (BN's forward and backward, every parameter gradient,
+  ``layers.finish_grads``), so the two topologies take the same step bit
+  for bit, where JAX's one and two devices part (its partitioner reduces
+  float32 and bf16 partial sums per device; its share of the unit reads
+  0.125 / 0.394 / 0.614 after steps 1-3 here).
 """
 
 import os
@@ -50,7 +49,7 @@ from honk_tpu.train import state as JS
 from honk_tpu.train import steps as JT
 from honk_tpu_torch.data import augment as A
 from honk_tpu_torch.models import from_flax_variables
-from honk_tpu_torch.models.layers import cast_parameters, round_cast_grads
+from honk_tpu_torch.models.layers import cast_parameters, finish_grads, wide_grads
 from test_torch_bf16_train import RATIO, _jmodel, _np
 from test_torch_parallel import _jax_draws
 from torch_bf16_rank_worker import model_of
@@ -65,19 +64,49 @@ def _norm(a: dict, b: dict, keys) -> float:
                              for k in keys)))
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The state after each step: JAX's compiled step on 1 and 2 devices in bf16 and on 2 in
-    float32, its op-by-op bf16 step, the port's bf16 step on 1 rank and on 2 gloo ranks."""
+def injected() -> dict:
+    """The recipe's inputs: the corpus, JAX's initial train state and step key, and, for the port,
+    those variables and each step's global batch assembled from the JAX step's own draws."""
     rng = np.random.default_rng(0)
     raw = rng.integers(-3000, 3000, (N_CLIPS, 16000), dtype=np.int16)
     labels = rng.integers(2, 12, (N_CLIPS,), dtype=np.int32)
     noise = (rng.standard_normal(16000 * 3) * 0.05).astype(np.float32)
     jaug = JA.AugmentConfig(n_silence=4)
-    jpool, jwin = JA.prepare_train_arrays(raw, noise, jaug, layout="xla")
     tx = JS.make_optimizer(lrs=(0.01,), boundaries=())
     init = JS.create_train_state(_jmodel(CONF, None), tx, jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(7)
+    aug = A.AugmentConfig(n_silence=4)
+    arrays = A.prepare_train_arrays(raw, labels, noise, aug)
+    batches = []
+    for s in range(STEPS):
+        k_sample, _ = jax.random.split(jax.random.fold_in(key, s))
+        batches.append(A.assemble_batch(_jax_draws(k_sample, N_CLIPS, jaug, arrays.n_noise, BATCH), arrays, aug))
+    variables = from_flax_variables({"params": jax.tree.map(np.asarray, init.params),
+                                     "batch_stats": jax.tree.map(np.asarray, init.batch_stats)})
+    return {"raw": raw, "labels": labels, "noise": noise, "jaug": jaug, "tx": tx, "init": init, "key": key,
+            "variables": variables, "batches": batches}
+
+
+def port_ranks(inputs: dict, tmp, worlds, dtypes=("bfloat16",)) -> dict:
+    """``tests/torch_bf16_rank_worker.py`` on each of ``worlds`` (1: no group; more: gloo ranks), all at
+    once, on ``inputs``' variables and batches: each world's ranks' outputs, in rank order."""
+    spec = str(tmp / "spec.pt")
+    torch.save({"variables": inputs["variables"], "batches": inputs["batches"], "dtypes": list(dtypes)}, spec)
+    worker = os.path.join(REPO, "tests", "torch_bf16_rank_worker.py")
+    outs = {w: [str(tmp / f"world{w}-rank{r}.pt") for r in range(w)] for w in worlds}
+    ports = {w: free_port() if w > 1 else 0 for w in worlds}
+    run_ranks([[sys.executable, worker, str(r), str(w), str(ports[w]), spec, o]
+               for w in worlds for r, o in enumerate(outs[w])])
+    return {w: [torch.load(o, weights_only=False) for o in outs[w]] for w in worlds}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The state after each step: JAX's compiled step on 1 and 2 devices in bf16 and on 2 in
+    float32, its op-by-op bf16 step, the port's bf16 step on 1 rank and on 2 gloo ranks."""
+    inputs = injected()
+    jaug, tx, init, key = (inputs[k] for k in ("jaug", "tx", "init", "key"))
+    jpool, jwin = JA.prepare_train_arrays(inputs["raw"], inputs["noise"], jaug, layout="xla")
 
     def jax_run(devices, dtype, jit=True):
         mesh = jmake_data_mesh(devices, "data")
@@ -85,7 +114,7 @@ def runs(tmp_path_factory):
         states = []
         with jax.set_mesh(mesh):
             state = jreplicate(mesh, init)
-            args = jreplicate(mesh, (jpool, jnp.asarray(labels), jwin))
+            args = jreplicate(mesh, (jpool, jnp.asarray(inputs["labels"]), jwin))
             for _ in range(STEPS):
                 if jit:
                     state, _ = step(state, key, *args)
@@ -98,24 +127,8 @@ def runs(tmp_path_factory):
 
     out = {"jax1": jax_run(1, jnp.bfloat16), "jax2": jax_run(2, jnp.bfloat16), "jax2_f32": jax_run(2, None),
            "flax_flow": jax_run(1, jnp.bfloat16, jit=False)}
-    aug = A.AugmentConfig(n_silence=4)
-    arrays = A.prepare_train_arrays(raw, labels, noise, aug)
-    batches = []
-    for s in range(STEPS):
-        k_sample, _ = jax.random.split(jax.random.fold_in(key, s))
-        batches.append(A.assemble_batch(_jax_draws(k_sample, N_CLIPS, jaug, arrays.n_noise, BATCH), arrays, aug))
-    variables = from_flax_variables({"params": jax.tree.map(np.asarray, init.params),
-                                     "batch_stats": jax.tree.map(np.asarray, init.batch_stats)})
-    tmp = tmp_path_factory.mktemp("bf16_ranks")
-    spec = str(tmp / "spec.pt")
-    torch.save({"variables": variables, "batches": batches}, spec)
-    port = free_port()
-    worker = os.path.join(REPO, "tests", "torch_bf16_rank_worker.py")
-    outs = [str(tmp / f"rank{r}.pt") for r in range(2)] + [str(tmp / "one.pt")]
-    run_ranks([[sys.executable, worker, str(r), "2", str(port), spec, outs[r]] for r in range(2)]
-              + [[sys.executable, worker, "0", "1", "0", spec, outs[2]]])
-    (rank0, grads2), (rank1, _), (one, grads1) = ((r["bfloat16"], r["grads"]) for r in
-                                                  (torch.load(o, weights_only=False) for o in outs))
+    ranks = port_ranks(inputs, tmp_path_factory.mktemp("bf16_ranks"), (1, 2))
+    (rank0, grads2), (rank1, _), (one, grads1) = ((r["bfloat16"], r["grads"]) for r in (*ranks[2], *ranks[1]))
     for a, b in zip(rank0, rank1):
         assert all(torch.equal(a[k], b[k]) for k in a), "the two ranks' states differ"
     out["port2"] = [{k: v.numpy() for k, v in s.items()} for s in rank0]
@@ -142,7 +155,7 @@ def test_two_gloo_ranks_part_no_further_than_jaxs_two_devices(runs, step):
     params = [k for k in runs["jax2_f32"][s] if "running" not in k]
     port_gap = _norm(runs["port1"][s], runs["port2"][s], params)
     jax_gap = _norm(runs["jax1"][s], runs["jax2"][s], params)
-    assert 0 < port_gap <= jax_gap, f"after step {step}: the port's 1 and 2 ranks {port_gap:.4g} apart, JAX's {jax_gap:.4g}"
+    assert port_gap == 0, f"after step {step}: the port's 1 and 2 ranks {port_gap:.4g} apart, JAX's {jax_gap:.4g}"
 
 
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -154,31 +167,24 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def test_two_gloo_ranks_round_each_bf16_weight_gradient_once_as_one_rank_does(runs):
     """After step 1, the gradient of every parameter a bf16 layer casts
     (``layers.cast_parameters``: the convs' weights) as the update takes it
-    on two gloo ranks lies within float32 regrouping of one rank's: both
-    are bf16 values, at most 2% of a tensor's elements differ, and at most
-    0.2% by more than one bf16 ulp.
+    on two gloo ranks is bit for bit one rank's, and a bf16 value.
 
-    Each rank's weight gradient now leaves its layer in float32 and the
-    sum over the ranks is rounded to bf16 once (``layers._LowConv``,
-    ``round_cast_grads``), as one rank rounds the whole batch's sum
-    once; BN's sums are float64 on every topology (``res.batch_stats``).
-    Measured here: 0-0.09% of each tensor's elements differ, none by more
-    than one ulp. When
-    each rank's bf16 gradient was added in float32 after its own rounding,
-    87-94% of each tensor's elements differed, 48-71% by more than one
-    ulp, the largest by 384 ulps.
+    Each rank's weight gradient leaves its layer as a float64 sum of
+    per-sample float32 partials (``layers._conv_weight_grad``), the ranks'
+    parts are added in float64 and the sum is rounded to bf16 once
+    (``layers.finish_grads``), as one rank rounds the whole batch's sum
+    once; BN's sums are float64 forward and backward on every topology
+    (``res._BatchNorm``). Each rank's bf16 gradient added in float32 after
+    its own rounding parts 87-94% of the elements, 48-71% by more than one
+    ulp (``chip_smoke.py`` phase 51 plants that path).
     """
     model = model_of(CONF, dtype=torch.bfloat16)
     names = {id(p): n for n, p in model.named_parameters()}
-    readings = {}
     for p in cast_parameters(model):
         k = names[id(p)]
         g1, g2 = runs["grads1"][k], runs["grads2"][k]
-        d = _bf16_ulps(g1, g2)
-        readings[k] = (float((d > 0).double().mean()), float((d > 1).double().mean()), float(d.max()))
         assert torch.equal(g2, g2.bfloat16().float()) and torch.equal(g1, g1.bfloat16().float()), k
-    bad = {k: r for k, r in readings.items() if r[0] > 0.02 or r[1] > 0.002}
-    assert not bad, f"(share differing, share past one ulp, largest ulps) past 0.02 / 0.002: {bad}"
+        assert torch.equal(g1, g2), f"{k}: {int((g1 != g2).sum())} of {g1.numel()} elements differ"
 
 
 def _old_conv(layer, x, dtype):
@@ -202,16 +208,16 @@ def _one_rounding_bound(v: torch.Tensor, truth: torch.Tensor, n_terms: int, scal
 @pytest.mark.parametrize("conf", ["res8-narrow", "cnn-trad-pool2"])
 def test_at_one_rank_a_bf16_models_gradients_are_autograds_up_to_float32_regrouping(conf, monkeypatch):
     """At one rank a bf16 model's training logits are bit for bit those of
-    the autograd path the float32-gradient layers replaced, and so is every
+    the autograd path the float64-gradient layers replaced, and so is every
     gradient but those of the parameters the layers cast. Those, rounded
-    once as the step rounds them (``round_cast_grads``), and autograd's
+    once as the step rounds them (``finish_grads``), and autograd's
     (oneDNN's bf16 weight gradient also rounds a float32 sum once, in
-    another order) are each one rounding of a float32 sum of the layer's
-    exact products: within half a bf16 ulp plus float32's summation bound
-    of the float64 truth of the same operands. Measured here: 7 of
-    res8-narrow's 19,905 and 12 of cnn-trad-pool2's 493,708 elements
-    differ; most by one ulp, one of cnn-trad-pool2's by 6, where its sum
-    cancels."""
+    another order) are each one rounding of a sum of the layer's exact
+    products within float32's summation bound: within half a bf16 ulp plus
+    that bound of the float64 truth of the same operands. Measured here
+    with the parts summed in float32: 7 of res8-narrow's 19,905 and 12 of
+    cnn-trad-pool2's 493,708 elements differ; most by one ulp, one of
+    cnn-trad-pool2's by 6, where its sum cancels."""
     from honk_tpu_torch.models import cnn, res
     from honk_tpu_torch.parallel import DataMesh
 
@@ -230,9 +236,10 @@ def test_at_one_rank_a_bf16_models_gradients_are_autograds_up_to_float32_regroup
     def grads(mesh):
         model = model_of(conf, dtype=torch.bfloat16).train()
         masks = model.keep_masks(6, torch.Generator().manual_seed(1)) if hasattr(model, "keep_masks") else None
-        logits = model(feats, dropout=masks, mesh=mesh)
-        F.cross_entropy(logits, labels).backward()
-        round_cast_grads(model)
+        with wide_grads() as wide:
+            logits = model(feats, dropout=masks, mesh=mesh)
+            F.cross_entropy(logits, labels).backward()
+        finish_grads(model, wide)
         return logits, {n: p.grad.clone() for n, p in model.named_parameters()}, model
 
     for mod in (res, cnn):
@@ -279,11 +286,13 @@ def test_at_one_rank_a_bf16_models_gradients_are_autograds_up_to_float32_regroup
 
 @pytest.mark.parametrize("layer", ["conv", "dilated_conv", "dense"])
 def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_gradient(layer):
-    """``conv`` / ``dense`` in bf16: the output and the input gradient bit for bit the autograd path's;
-    the weight gradient the float32 sum of the bf16 operands' exact products, unrounded, within float32's
-    summation bound of the float64 truth (so exactly 0 for a dead input channel), and the bias gradient
-    the float32 sum of the output's cotangent; rounded once, within one bf16 ulp of the autograd path's
-    bf16 gradients."""
+    """``conv`` / ``dense`` in bf16: the output and the input gradient bit for bit the autograd path's.
+    The weight gradient is a float64 sum of the bf16 operands' exact products, unrounded, within
+    float32's summation bound of the float64 truth (a conv's per-sample partials are float32; so
+    exactly 0 for a dead input channel), and the bias gradient the float64 sum of the output's
+    cotangent, exactly; ``wide_grads`` holds both, ``.grad`` their float32 rounding. Rounded once
+    through float32, as ``finish_grads`` rounds them, within one bf16 ulp of the autograd path's bf16
+    gradients."""
     from honk_tpu_torch.models import layers
 
     rng = np.random.default_rng(5)
@@ -304,18 +313,19 @@ def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_grad
     def run(f):
         mod.zero_grad()
         xi = x.clone().requires_grad_(True)
-        y = f(mod, xi, torch.bfloat16)
+        with wide_grads() as wide:
+            y = f(mod, xi, torch.bfloat16)
         ct = torch.from_numpy(np.random.default_rng(6).standard_normal(y.shape).astype(np.float32))
         y.backward(ct.bfloat16())
-        return y, xi.grad, mod.weight.grad.clone(), mod.bias.grad.clone(), ct.bfloat16()
+        return y, xi.grad, mod.weight.grad.clone(), mod.bias.grad.clone(), ct.bfloat16(), wide
 
-    y, gx, gw, gb, ct = run(fn)
-    y0, gx0, gw0, gb0, _ = run(old)
-    assert y.dtype == torch.bfloat16 and torch.equal(y, y0) and torch.equal(gx, gx0)
+    y, gx, gw, gb, ct, wide = run(fn)
+    y0, gx0, gw0, gb0, _, unused = run(old)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y0) and torch.equal(gx, gx0) and not unused
     x16 = x.bfloat16().double()
     if layer == "dense":
         truth, scale, n_terms = ct.double().t().mm(x16), ct.double().abs().t().mm(x16.abs()), x.shape[0]
-        want_b = ct.float().sum(dim=0)
+        dims = (0,)
     else:
         geometry = (mod.stride, mod.padding, mod.dilation)
 
@@ -324,12 +334,15 @@ def test_a_float32_gradient_bf16_layer_computes_autograds_forward_and_input_grad
                                                        [0, 0], 1, [False, True, False])[1]
 
         truth, scale, n_terms = wgrad(ct.double(), x16), wgrad(ct.double().abs(), x16.abs()), ct[:, 0].numel()
-        want_b = ct.float().sum(dim=(0, 2, 3))
-    assert gw.dtype == gb.dtype == torch.float32 and torch.equal(gb, want_b)
-    assert bool(((gw.double() - truth).abs() <= n_terms * 2.0 ** -24 * scale).all())
-    assert bool((gw[:, :1] == 0).all()) and not torch.equal(gw, gw.bfloat16().float())
-    for got, ref in ((gw, gw0), (gb, gb0)):
-        assert float(_bf16_ulps(got.bfloat16().float(), ref).max()) <= 1
+        dims = (0, 2, 3)
+    gw64, gb64 = wide[mod.weight], wide[mod.bias]
+    assert gw64.dtype == gb64.dtype == torch.float64 and gw.dtype == gb.dtype == torch.float32
+    assert torch.equal(gw, gw64.float()) and torch.equal(gb, gb64.float())
+    assert torch.equal(gb64, ct.double().sum(dim=dims))
+    assert bool(((gw64 - truth).abs() <= n_terms * 2.0 ** -24 * scale).all())
+    assert bool((gw64[:, :1] == 0).all()) and not torch.equal(gw, gw.bfloat16().float())
+    for got, ref in ((gw64, gw0), (gb64, gb0)):
+        assert float(_bf16_ulps(got.float().bfloat16().float(), ref).max()) <= 1
 
 
 # (in channels, out channels, kernel, stride, padding, dilation, input H x W): res8's and res15's
@@ -344,7 +357,7 @@ COLUMN_GEOMETRIES = [(4, 6, (3, 3), (1, 1), (1, 1), (1, 1), (9, 7)), (4, 6, (3, 
 def test_the_weight_gradients_columns_are_unfolds(geometry):
     """``layers._columns`` (one strided copy of the padded input) is ``F.unfold``'s im2col bit for bit, at
     every geometry the two families use; and ``_conv_weight_grad`` from it equals the float32 GEMM over
-    ``F.unfold``'s columns."""
+    ``F.unfold``'s columns, one partial a sample, summed over the samples in float64."""
     from honk_tpu_torch.models import layers
 
     c, o, k, s, p, d, hw = geometry
@@ -357,4 +370,4 @@ def test_the_weight_gradients_columns_are_unfolds(geometry):
     assert cols.dtype == torch.bfloat16 and cols.shape == want.shape and torch.equal(cols.float(), want)
     gy = torch.randn((3, o, *out_hw), generator=g).bfloat16().float()
     got = layers._conv_weight_grad(gy, x, shape, (s, p, d))
-    assert torch.equal(got, torch.bmm(gy.flatten(2), want.transpose(1, 2)).sum(dim=0).view(shape))
+    assert torch.equal(got, torch.bmm(gy.flatten(2), want.transpose(1, 2)).sum(dim=0, dtype=torch.float64).view(shape))

@@ -379,11 +379,11 @@ def test_bf16_checkpoints_resume_across_one_and_two_ranks(resumed_bfloat16):
     _assert_resumed_across(resumed_bfloat16)
 
 
-@pytest.mark.xfail(strict=True, raises=AssertionError,
-                   reason="open difference, ROADMAP.md §3: in bf16 the port's 1 and 2 ranks part further "
-                          "than the JAX package's 1 and 2 devices")
 def test_bf16_resumes_across_one_and_two_ranks_within_the_jax_gap(dp, resumed_bfloat16):
-    """The two resumed bf16 runs part no further than the JAX package's 1 and 2 devices in bf16 on the same corpus."""
+    """The two resumed bf16 runs part no further than the JAX package's 1 and 2 devices in bf16 on the same corpus.
+
+    Every sum over rows that leaves a rank is float64 and rounded once
+    (ROADMAP.md §3.2), so on the CPU the two part by 0."""
     data = dp["spec"]["train"]["data_dir"]
     jax_gap = R.max_gap(*(R.jax_weights(data, "bfloat16", n) for n in (1, 2)))
     gap = R.max_gap(*(R.port_weights(resumed_bfloat16["state"][n]) for n in ("1to2", "2to1")))
