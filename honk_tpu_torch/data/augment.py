@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..metrics.profiling import annotate
 from ..ops import assemble_kernel as K
 
 
@@ -220,7 +221,8 @@ def eval_batch(
     """
     n = audio_i16.shape[0]
     r0, r1 = rows if rows is not None else (0, batch_size)
-    idx = start + torch.arange(r0, r1, device=audio_i16.device)
-    valid = idx < n
-    safe = torch.where(valid, idx, 0)
-    return audio_i16[safe].float() / 32768.0, labels[safe], valid
+    with annotate("eval_gather"):
+        idx = start + torch.arange(r0, r1, device=audio_i16.device)
+        valid = idx < n
+        safe = torch.where(valid, idx, 0)
+        return audio_i16[safe].float() / 32768.0, labels[safe], valid

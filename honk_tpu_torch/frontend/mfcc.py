@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..metrics.profiling import annotate
 from . import filters as C
 
 
@@ -85,4 +86,5 @@ def compute_mfccs(audio: torch.Tensor) -> torch.Tensor:
         )
     from ..ops import mfcc_kernel  # the kernel module builds on the plain steps above
 
-    return mfcc_kernel.mfcc(audio.to(torch.float32).contiguous())
+    with annotate("mfcc"):
+        return mfcc_kernel.mfcc(audio.to(torch.float32).contiguous())

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..metrics.profiling import annotate
 from ..ops.res_kernel import chained_avg_pool
 
 # Standard deviation of a standard normal truncated to [-2, 2]: flax's
@@ -234,7 +235,8 @@ class _LowConv(torch.autograd.Function):
             gx = torch.ops.aten.convolution_backward(gy, x16, w16, None, *ctx.geometry, False, [0, 0], 1,
                                                      [True, False, False])[0].to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
-            gw = _keep(ctx.sink, ctx.params[0], _conv_weight_grad(gy.float(), x16, ctx.shape, ctx.geometry))
+            with annotate("conv_weight_grad"):
+                gw = _keep(ctx.sink, ctx.params[0], _conv_weight_grad(gy.float(), x16, ctx.shape, ctx.geometry))
         if ctx.params[1] is not None and ctx.needs_input_grad[2]:
             gb = _keep(ctx.sink, ctx.params[1], gy.sum(dim=(0, 2, 3), dtype=torch.float64))
         return gx, gw, gb, None, None

@@ -67,6 +67,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..metrics.profiling import annotate
 from ..ops.res_kernel import BN_EPS, fold_bn, pack_res_params, res_forward, stem_plain
 from ..parallel.mesh import DataMesh
 from .layers import Output, avg_pool, conv
@@ -125,10 +126,11 @@ class SpeechResModel(nn.Module):
             return self._stack(x, self.dtype, lambda i, y: batch_norm_train(y, getattr(self, f"bn{i}"), mesh))
         if packed is None:
             packed = self.eval_operands()
-        if not self.dilated:
-            return res_forward(x.contiguous(), self.conv0.weight, self.pool, *packed, compute_dtype=self.dtype,
-                               activation_dtype=self.dtype)
-        return self._folded_stack(x, self.dtype, *packed)
+        with annotate("eval_forward"):
+            if not self.dilated:
+                return res_forward(x.contiguous(), self.conv0.weight, self.pool, *packed, compute_dtype=self.dtype,
+                                   activation_dtype=self.dtype)
+            return self._folded_stack(x, self.dtype, *packed)
 
     def frozen_forward(self, x: torch.Tensor) -> torch.Tensor:
         """The float32 eval forward's logits as PyTorch ops under autograd, in
@@ -168,10 +170,11 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d, mesh: DataMesh | None 
     A bf16 ``x`` is normalised as flax normalises it: statistics over its
     float32 values, ``x - mean`` in float32, the result rounded to bf16.
     """
-    out, mean, var = _BatchNorm.apply(x, mesh if mesh is not None and mesh.size > 1 else None)
-    with torch.no_grad():
-        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
-        bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    with annotate("bn_forward"):
+        out, mean, var = _BatchNorm.apply(x, mesh if mesh is not None and mesh.size > 1 else None)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
     return out
 
 
@@ -233,15 +236,16 @@ class _BatchNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _mean, _var):
-        x, mean, rstd, live, count = ctx.saved_tensors
-        c, xw, gw = mean.shape[0], x.to(mean.dtype), g.to(mean.dtype)
-        sums = torch.cat([gw.sum(dim=(0, 2, 3), dtype=torch.float64),
-                          (gw * (xw - mean[:, None, None])).sum(dim=(0, 2, 3), dtype=torch.float64)])
-        if ctx.mesh is not None:
-            ctx.mesh.all_reduce_(sums)
-        r = rstd.double()
-        g_var = torch.where(live, -0.5 * r ** 3 * sums[c:], 0.0)
-        g_mean = -r * sums[:c] - 2 * mean.double() * g_var
-        # The statistics' cotangents per element: d mean / dx = 1 / n, d meansq / dx = 2 x / n.
-        a, b = ((v / count).to(mean.dtype)[:, None, None] for v in (g_mean, g_var))
-        return (gw * rstd[:, None, None]).to(x.dtype) + (a + 2 * (b * xw)).to(x.dtype), None
+        with annotate("bn_backward"):
+            x, mean, rstd, live, count = ctx.saved_tensors
+            c, xw, gw = mean.shape[0], x.to(mean.dtype), g.to(mean.dtype)
+            sums = torch.cat([gw.sum(dim=(0, 2, 3), dtype=torch.float64),
+                              (gw * (xw - mean[:, None, None])).sum(dim=(0, 2, 3), dtype=torch.float64)])
+            if ctx.mesh is not None:
+                ctx.mesh.all_reduce_(sums)
+            r = rstd.double()
+            g_var = torch.where(live, -0.5 * r ** 3 * sums[c:], 0.0)
+            g_mean = -r * sums[:c] - 2 * mean.double() * g_var
+            # The statistics' cotangents per element: d mean / dx = 1 / n, d meansq / dx = 2 x / n.
+            a, b = ((v / count).to(mean.dtype)[:, None, None] for v in (g_mean, g_var))
+            return (gw * rstd[:, None, None]).to(x.dtype) + (a + 2 * (b * xw)).to(x.dtype), None

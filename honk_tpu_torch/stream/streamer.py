@@ -50,6 +50,7 @@ import torch
 
 from ..config import StreamConfig
 from ..frontend import filters as F
+from ..metrics.profiling import annotate
 from ..models import load_state_dict
 from ..ops.mfcc_kernel import mfcc
 from ..parallel import make_data_mesh
@@ -210,23 +211,27 @@ def stream_file(
     with torch.no_grad():
         if packed is None:
             packed = model.eval_operands()
-        feats = frame_mfccs(torch.from_numpy(audio).to(_device(model)))  # each frame computed once
+        with annotate("stream_copy"):
+            wave = torch.from_numpy(audio).to(_device(model))
+        feats = frame_mfccs(wave)  # each frame computed once
         # (n_windows, 40, 101) view over the frame axis -> (n_windows, 101, 40)
         windows = feats.unfold(0, WINDOW_FRAMES, hop_frames).transpose(1, 2)
-        if data_axis is None:
-            post = torch.softmax(model(windows.contiguous(), packed=packed), dim=-1)
-        else:
-            mesh = make_data_mesh(0, data_axis)
-            n_padded = -(-n_windows // mesh.size) * mesh.size
-            start, stop = mesh.shard_rows(n_padded)
-            mine = windows[start:min(stop, n_windows)]
-            if stop > n_windows:  # the padding: zero windows, dropped below
-                mine = torch.cat([mine, mine.new_zeros((stop - max(start, n_windows),) + mine.shape[1:])])
-            post = torch.softmax(model(mine.contiguous(), packed=packed), dim=-1)
-            post = mesh.all_gather_rows(post, n_padded)[:n_windows]
+        with annotate("stream_forward"):
+            if data_axis is None:
+                post = torch.softmax(model(windows.contiguous(), packed=packed), dim=-1)
+            else:
+                mesh = make_data_mesh(0, data_axis)
+                n_padded = -(-n_windows // mesh.size) * mesh.size
+                start, stop = mesh.shard_rows(n_padded)
+                mine = windows[start:min(stop, n_windows)]
+                if stop > n_windows:  # the padding: zero windows, dropped below
+                    mine = torch.cat([mine, mine.new_zeros((stop - max(start, n_windows),) + mine.shape[1:])])
+                post = torch.softmax(model(mine.contiguous(), packed=packed), dim=-1)
+                post = mesh.all_gather_rows(post, n_padded)[:n_windows]
         smoothed = smooth_posteriors(post, cfg.smoothing_window).cpu().numpy()
     hop_s = cfg.hop_samples / F.SAMPLE_RATE
-    return smoothed, detect(smoothed, cfg, hop_s)
+    with annotate("stream_detect"):
+        return smoothed, detect(smoothed, cfg, hop_s)
 
 
 class StreamState(NamedTuple):

@@ -95,7 +95,7 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
         return state, {"loss": m[0], "acc": m[1] / batch_size}
 
     def apply_batch(state: TrainState, audio: torch.Tensor, labels: torch.Tensor, dropout=None):
-        with torch.no_grad(), annotate("mfcc"):
+        with torch.no_grad():
             feats = compute_mfccs(audio)
         return apply_features(state, feats, labels, dropout)
 
