@@ -7,8 +7,8 @@ Run from a checkout of the repository on a machine with a CUDA device and
 nvcc. Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the three kernels (csrc/mfcc.cu, csrc/res_stack.cu,
-   csrc/assemble.cu) with nvcc, in parallel;
+2. build the four kernels (csrc/mfcc.cu, csrc/res_stack.cu,
+   csrc/assemble.cu, csrc/conv_wgrad.cu) with nvcc, in parallel;
 3. MFCC kernel against its plain PyTorch version on the card, B=257
    (256 rows of seeded noise and one silent row, which must be exactly 0)
    at 16000 samples and at the 8000 and 24000 that /listen also sends,
@@ -36,7 +36,8 @@ nvcc. Phases, in order; any failure exits non-zero:
     trains res8 (bf16, B=64) for 2 epochs on a synthetic corpus, with exact
     launch counts of all three kernels over the run (the res stack's in its
     bf16-activation mode: the run's dev and test sweeps evaluate its bf16
-    model in flax's dtype flow); then
+    model in flax's dtype flow) and of the weight-gradient kernel (one a
+    bf16 conv's backward: 7 a res8 step); then
     --type eval of its best.pt (float32) on cuda and on the CPU must give
     the same accuracy;
 11. timings with CUDA events: the assembly kernel and its plain version
@@ -317,10 +318,22 @@ and the bf16 data-parallel step's weight gradients (right after phase 33):
     order (``emulate``), bit for bit one rank's; the pre-repair path (parts
     rounded first) and bf16 partial sums of 8 rows refused; cuDNN's input
     gradient at 16 and 32 rows against 64, its bf16 weight gradient and the
-    float32 sum with TF32 on read beside them.
+    float32 sum with TF32 on read beside them; res15's 14 convs in a bf16
+    step at 64 and RES15_WGRAD_ROWS rows, the kernel's gradient against the
+    float64 truth (BF16_TRUTH_PAST_HALF), the plain path's read beside it;
+
+and the weight-gradient kernel (csrc/conv_wgrad.cu) at the training shapes:
+
+52. every conv of a res15 and a res8 bf16 step at B=64 and
+    RES15_WGRAD_ROWS on seeded operands: the kernel's ms a step, its plain
+    version's (the float32 im2col and cuBLAS GEMM it replaced, also the
+    library path) and the bound, by CUDA events; its launches in one bf16
+    forward and backward of each model (14 a res15 step, 7 a res8 step).
 
 It prints a JSON line of per-kernel results (for the res stack also each
-mode's forward from the features, and its launches by entry on every path),
+mode's forward from the features, and its launches by entry on every path;
+for the weight-gradient kernel its launches on every path and its times a
+step by model and batch),
 then, as the last line,
 {"ok": true, "device": {...}}. The port's package, never JAX, is imported.
 """
@@ -416,6 +429,8 @@ BF16_TRAIN_TENSOR_RATIO = 1.0
 # miss it. cuDNN's bf16 weight gradient is only read: on this batch it
 # reads 0.49% of conv0's elements at 64 rows and 0.70% of conv1's at 16 on
 # the card, too near the limit to be refused every run.
+# Phase 51 also reads res15's 14 convs at 64 and RES15_WGRAD_ROWS rows (the dp cell's rows a card).
+RES15_WGRAD_ROWS = 256
 BF16_RANKS = (2, 4)
 BF16_RANKS_DIFFER, BF16_RANKS_PAST_ULP = 0.02, 0.002
 BF16_TRUTH_PAST_HALF = 0.005
@@ -879,8 +894,8 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
       the one-rank step's gradient, and within BF16_RANKS_DIFFER / BF16_RANKS_PAST_ULP of it (the
       gates before the float64 parts), both within BF16_TRUTH_PAST_HALF of the float64 truth of the
       same operands, as is the float32 sum of 16 rows rounded once. The per-sample partials of a
-      rank's rows (``layers._conv_weight_partials``) are bit for bit the whole batch's: cuBLAS picks
-      its batched GEMM by the batch count, and a split of one sample's sum would part them.
+      rank's rows (``ops/wgrad_kernel.py::conv_wgrad``, the kernel) are bit for bit the whole
+      batch's: a split of one sample's sum, or an order chosen by the row count, would part them.
     - Each BN's input gradient on the ranks' rows (``res._BatchNorm``, its two all-reduces summed in
       rank order, ``emulate``) put together: bit for bit the one-rank BN's on the same rows.
     - Planted faults: the path before the unrounded parts (each part rounded to bf16 before the sum)
@@ -888,15 +903,19 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
     Readings: cuDNN's input gradient of each conv at 16 and 32 rows against 64 (its per-shape
     algorithms, which part the rows a rank's convs hand back: ROADMAP §3.2), reading (c) of each conv
     at 16 and 64 rows (cuDNN's bf16 weight gradient and the layers' sum rounded once, against the
-    truth), and the float32 partials with TF32 on, which a bf16 operand's 8-bit significand fits, so
-    it is no fault and only read."""
+    truth), and the plain path's float32 partials (im2col and cuBLAS) with TF32 on, which a bf16
+    operand's 8-bit significand fits, so it is no fault and only read.
+    - res15's 14 convs in a bf16 step at 64 and RES15_WGRAD_ROWS rows: the kernel's gradient summed in
+      float64 and rounded once, within BF16_TRUTH_PAST_HALF of the float64 truth, beside the plain
+      path's (the float32 im2col and cuBLAS GEMM the kernel replaced), which is read."""
     import contextlib as ctx
 
     import torch.nn.functional as F
 
     from honk_tpu_torch.frontend import compute_mfccs
-    from honk_tpu_torch.models import find_config, find_model, init_weights, layers, res
-    from honk_tpu_torch.models.layers import _conv_weight_grad, _conv_weight_partials, conv, finish_grads, wide_grads
+    from honk_tpu_torch.models import find_config, find_model, init_weights, res
+    from honk_tpu_torch.models.layers import conv, finish_grads, wide_grads
+    from honk_tpu_torch.ops import wgrad_kernel
 
     t0 = time.perf_counter()
     raw, labels, noise, cfg = train_step_inputs(A)
@@ -943,11 +962,11 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
     @ctx.contextmanager
     def tf32():
         flag, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
-        full, layers._full_f32 = layers._full_f32, ctx.nullcontext
+        full, wgrad_kernel.full_f32 = wgrad_kernel.full_f32, ctx.nullcontext
         try:
             yield
         finally:
-            torch.backends.cuda.matmul.allow_tf32, layers._full_f32 = flag, full
+            torch.backends.cuda.matmul.allow_tf32, wgrad_kernel.full_f32 = flag, full
 
     readings, bad, refused = {}, [], False
     for name, (x16, dy) in operands.items():
@@ -956,8 +975,9 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
         truth = {r: conv_wgrad(layer, x16[:r], dy[:r], torch.float64, cpu) for r in (16, TRAIN_BATCH)}
         geometry = (layer.stride, layer.padding, layer.dilation)
 
-        def f32(rows):
-            return _conv_weight_grad(dy[rows].float(), x16[rows], layer.weight.shape, geometry).float()
+        def f32(rows, partials=wgrad_kernel.conv_wgrad):
+            return partials(dy[rows], x16[rows], layer.weight.shape, geometry).sum(
+                dim=0, dtype=torch.float64).view(layer.weight.shape).float()
 
         def dgrad(rows):
             return torch.ops.aten.convolution_backward(dy[rows], x16[rows], layer.weight.to(torch.bfloat16), None,
@@ -971,7 +991,8 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
             row["dgrad_rows_apart"] = {r: rows_apart(torch.cat([dgrad(slice(i, i + r)) for i in range(0, TRAIN_BATCH, r)]),
                                                      full) for r in (16, 32)}
         with tf32():
-            row["tf32_rounded_once"] = rounding_reading(f32(slice(None)).bfloat16(), truth[TRAIN_BATCH])
+            row["tf32_rounded_once"] = rounding_reading(f32(slice(None), wgrad_kernel.conv_wgrad_plain).bfloat16(),
+                                                        truth[TRAIN_BATCH])
         partials = sum(f32(slice(i, i + 8)).bfloat16().float() for i in range(0, TRAIN_BATCH, 8))
         row["bf16_partials_8"] = rounding_reading(partials.bfloat16(), truth[TRAIN_BATCH])
         refused = refused or row["bf16_partials_8"]["share_past_half"] > BF16_TRUTH_PAST_HALF
@@ -980,7 +1001,7 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
                                                                        row["c"][16]["f32_rounded_once"])):
             if r["share_past_half"] > BF16_TRUTH_PAST_HALF:
                 bad.append(f"{name}'s {what} against the truth: {r}")
-        every = _conv_weight_partials(dy.float(), x16, layer.weight.shape, geometry)
+        every = wgrad_kernel.conv_wgrad(dy, x16, layer.weight.shape, geometry)
         for n in BF16_RANKS:
             rows = TRAIN_BATCH // n
             parts, partials_apart = [], 0
@@ -989,7 +1010,7 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
                 with wide_grads() as w:
                     conv(layer, x16[part], torch.bfloat16).backward(dy[part])
                 parts.append(w[layer.weight])
-                mine = _conv_weight_partials(dy[part].float(), x16[part], layer.weight.shape, geometry)
+                mine = wgrad_kernel.conv_wgrad(dy[part], x16[part], layer.weight.shape, geometry)
                 partials_apart += int((mine != every[part]).sum())
             total = parts[0].clone()
             for p in parts[1:]:
@@ -1036,6 +1057,11 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
             if got.dtype != torch.bfloat16 or bn_rows[name][n]:
                 bad.append(f"{name}'s input gradient on {n} emulated ranks: {bn_rows[name][n]} of {TRAIN_BATCH} rows "
                            f"apart from one rank's ({got.dtype})")
+    res15_rows = res15_wgrad_reading(torch, dev, A, arrays, (raw, labels, noise, cfg))
+    for name, row in res15_rows.items():
+        for r, got in row.items():
+            if got["kernel"]["share_past_half"] > BF16_TRUTH_PAST_HALF:
+                bad.append(f"res15's {name} at {r} rows: the kernel's gradient against the truth {got['kernel']}")
     if bad:
         fail(f"bf16 ranks emulated (limits: bit for bit, and {BF16_RANKS_DIFFER} of the elements differing, "
              f"{BF16_RANKS_PAST_ULP} past one ulp, {BF16_TRUTH_PAST_HALF} past half an ulp of the truth): "
@@ -1065,6 +1091,139 @@ def phase_bf16_ranks(torch, dev, A, smi) -> dict:
           f"{TRAIN_BATCH} rows, [cuDNN's bf16 share past half an ulp, the float32 sum rounded once's, cuDNN's "
           f"largest ulps]; dgrad: cuDNN's input gradient at 16 and 32 rows, rows apart from 64 rows' (read, not "
           f"gated; {out['dgrad_share']:.3f} of all): {json.dumps(brief)}; {smi}; {out['s']:.1f} s")
+    out["res15"] = res15_rows
+    print(f"[bf16_ranks] res15's convs in a bf16 step, the gradient of 64 and {RES15_WGRAD_ROWS} rows summed in "
+          f"float64 and rounded once against the float64 truth, share past half a bf16 ulp [the kernel's (limit "
+          f"{BF16_TRUTH_PAST_HALF}), the plain float32 im2col and GEMM's (read)]: "
+          + json.dumps({name: {r: [got["kernel"]["share_past_half"], got["plain"]["share_past_half"]]
+                               for r, got in row.items()} for name, row in res15_rows.items()}))
+    return out
+
+
+def res15_wgrad_reading(torch, dev, A, arrays, corpus) -> dict:
+    """Phase 51's res15 reading: each conv's operands in one bf16 res15 step of RES15_WGRAD_ROWS rows,
+    and for the first 64 and all of them, the kernel's weight gradient (``layers._conv_weight_grad``'s
+    float64 sum of its partials, rounded once) and the plain path's against the float64 truth."""
+    import torch.nn.functional as F
+
+    from honk_tpu_torch.frontend import compute_mfccs
+    from honk_tpu_torch.models import find_config, find_model, init_weights, res
+    from honk_tpu_torch.models.layers import conv, wide_grads
+    from honk_tpu_torch.ops import wgrad_kernel
+
+    raw, labels, noise, cfg = corpus
+    model = init_weights(find_model("res15")(find_config("res15"), dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(SEED)).to(dev).train()
+    draws = A.draw_batch(A.step_generator(SEED + 2, 0, "cpu"), A.prepare_train_arrays(raw, labels, noise, cfg),
+                         RES15_WGRAD_ROWS, cfg)
+    audio, lab = A.assemble_batch(A.Draws(*(t.to(dev) for t in draws)), arrays, cfg)
+    names = {id(m): n for n, m in model.named_modules()}
+    operands = {}
+
+    def tapped(layer, x, dtype):
+        name = names[id(layer)]
+        y = conv(layer, x, dtype)
+        operands[name] = [x.detach().to(dtype)]
+        y.register_hook(lambda g: operands[name].append(g.detach()))
+        return y
+
+    res.conv = tapped
+    try:
+        with wide_grads():
+            F.cross_entropy(model(compute_mfccs(audio)), lab, reduction="sum").div(RES15_WGRAD_ROWS).backward()
+    finally:
+        res.conv = conv
+    rows = {}
+    for name, (x16, dy) in operands.items():
+        layer = getattr(model, name)
+        shape, geometry = layer.weight.shape, (layer.stride, layer.padding, layer.dilation)
+
+        def summed(partials, r):
+            return partials(dy[:r], x16[:r], shape, geometry).sum(dim=0, dtype=torch.float64).view(shape)
+
+        rows[name] = {}
+        for r in (TRAIN_BATCH, RES15_WGRAD_ROWS):
+            truth = 0
+            for i in range(0, r, TRAIN_BATCH):
+                cols = wgrad_kernel.columns(x16[i:i + TRAIN_BATCH], shape, dy.shape[2:], geometry).double()
+                truth = truth + torch.bmm(dy[i:i + TRAIN_BATCH].double().flatten(2), cols.transpose(1, 2)).sum(dim=0)
+            truth = truth.view(shape)
+            rows[name][r] = {k: rounding_reading(summed(fn, r).float().bfloat16(), truth)
+                             for k, fn in (("kernel", wgrad_kernel.conv_wgrad),
+                                           ("plain", wgrad_kernel.conv_wgrad_plain))}
+    return rows
+
+
+def phase_wgrad(torch, dev, name, smi) -> dict:
+    """52. The weight-gradient kernel at res15's and res8's training shapes, B=TRAIN_BATCH and
+    RES15_WGRAD_ROWS: for every conv of a step, on seeded bf16 operands, the kernel's ms (``time_ms``),
+    its plain version's (``conv_wgrad_plain``: the float32 im2col and cuBLAS GEMM the kernel replaced,
+    also the library path) and the bound (x and gy read once in bf16, the partials written once in
+    float32, or the bf16 products), summed over the step's convs (each distinct geometry timed once);
+    the largest difference of the kernel's partials from the plain ones, read; and the kernel's launches
+    in one bf16 forward and backward of each model at TRAIN_BATCH rows, which must be one a conv."""
+    import torch.nn.functional as F
+
+    from honk_tpu_torch.models import find_config, find_model, init_weights
+    from honk_tpu_torch.models.layers import wide_grads
+    from honk_tpu_torch.ops import wgrad_kernel
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(SEED)
+    out = {}
+    for conf in ("res15", "res8"):
+        model = init_weights(find_model(conf)(find_config(conf), dtype=torch.bfloat16),
+                             torch.Generator().manual_seed(SEED)).to(dev).train()
+        with torch.no_grad():
+            stack_chw = tuple(model.stem(torch.zeros(1, 101, 40, device=dev)).shape[1:])
+        geometries = {}
+        for n, m in model.named_modules():
+            if isinstance(m, torch.nn.Conv2d):
+                key = (tuple(m.weight.shape), m.stride, m.padding, m.dilation, (1, 101, 40) if n == "conv0" else stack_chw)
+                geometries[key] = geometries.get(key, 0) + 1
+        feats = torch.randn((TRAIN_BATCH, 101, 40), generator=g).to(dev)
+        labels = torch.randint(0, model.output.out_features, (TRAIN_BATCH,), generator=g).to(dev)
+        before = wgrad_kernel.launches
+        with wide_grads():
+            F.cross_entropy(model(feats), labels).backward()
+        torch.cuda.synchronize()
+        row = {"launches_per_step": wgrad_kernel.launches - before, "convs": sum(geometries.values())}
+        if row["launches_per_step"] != row["convs"]:
+            fail(f"{conf}'s bf16 step launched the weight-gradient kernel {row['launches_per_step']} times for "
+                 f"{row['convs']} convs")
+        for b in (TRAIN_BATCH, RES15_WGRAD_ROWS):
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0}
+            by_conv = {}
+            for (shape, stride, padding, dilation, chw), count in geometries.items():
+                shape, geo = torch.Size(shape), (stride, padding, dilation)
+                x16 = torch.randn((b, *chw), generator=g).bfloat16().to(dev)
+                hw = wgrad_kernel.out_size(chw[1:], shape[2:], *geo)
+                gy = (torch.randn((b, shape[0], *hw), generator=g) * 1e-3).bfloat16().to(dev)
+                kernel = wgrad_kernel.conv_wgrad(gy, x16, shape, geo)
+                plain = wgrad_kernel.conv_wgrad_plain(gy, x16, shape, geo)
+                flops = 2 * kernel.numel() * hw[0] * hw[1]
+                nbytes = 2 * (x16.numel() + gy.numel()) + 4 * kernel.numel()
+                bnd, by = bound(flops, nbytes, name, bf16=True)
+                c = {"count": count, "ms": time_ms(torch, lambda: wgrad_kernel.conv_wgrad(gy, x16, shape, geo), 20),
+                     "plain_ms": time_ms(torch, lambda: wgrad_kernel.conv_wgrad_plain(gy, x16, shape, geo), 20),
+                     "bound_ms": bnd, "bound_by": by, "bytes_ms": bound(0, nbytes, name)[0],
+                     "max_abs_err": max_err(kernel, plain)}
+                by_conv[f"{shape[1]}->{shape[0]} {chw[1]}x{chw[2]} d{dilation[0]}"] = c
+                for k in ("ms", "plain_ms", "bound_ms", "bytes_ms"):
+                    tot[k] += count * c[k]
+                tot["max_abs_err"] = max(tot["max_abs_err"], c["max_abs_err"])
+                del x16, gy, kernel, plain
+            tot["bound_by"] = "bytes" if all(c["bound_by"] == "bytes" for c in by_conv.values()) else "mixed"
+            row[str(b)] = {**tot, "by_conv": by_conv}
+        out[conf] = row
+    out["s"] = time.perf_counter() - t0
+    print(f"[wgrad] the weight-gradient kernel a bf16 step of {TRAIN_BATCH} and {RES15_WGRAD_ROWS} rows, every "
+          "conv summed, [kernel ms, plain ms, bound ms], launches a step: "
+          + json.dumps({c: {"launches_per_step": r["launches_per_step"],
+                            **{b: [r[b]["ms"], r[b]["plain_ms"], r[b]["bound_ms"]]
+                               for b in (str(TRAIN_BATCH), str(RES15_WGRAD_ROWS))}}
+                        for c, r in out.items() if c != "s"})
+          + f"; {smi}; {out['s']:.1f} s")
     return out
 
 
@@ -1114,6 +1273,10 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
     if launches != expect:
         fail(f"cli.train launched {launches}, expected {expect} "
              f"({steps} train steps, {evals} eval batches)")
+    convs = n_convs(conf)
+    if launches.wgrad != steps * convs:
+        fail(f"cli.train's bf16 steps launched the weight-gradient kernel {launches.wgrad} times, expected "
+             f"{steps * convs} ({steps} steps of {convs} convs)")
     # The run's model is bf16 (the CLI's default --compute_dtype), so are its dev and test sweeps.
     if by_mode != bf16_eval_modes(expect["res_stack"]):
         fail(f"cli.train's sweeps launched the res stack's modes {by_mode}: expected the bf16-activation mode only")
@@ -1136,12 +1299,22 @@ def phase_entry_point(torch, root, tmp, counters, conf="res8", n_epochs=2, flags
     if accs["cuda"] != accs["cpu"]:
         fail(f"--type eval of best.pt: cuda {accs['cuda']} != cpu {accs['cpu']}")
     print(f"[train_cli] {conf} bf16 B={TRAIN_BATCH} {' '.join(flags)}, {n_epochs} epochs on {n_train} clips "
-          f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} (exact), "
+          f"(dev {len(ds.dev)}, test {len(ds.test)}): {train_s:.1f} s; launches {launches} and the "
+          f"weight-gradient kernel's {launches.wgrad} ({convs} a step; exact), "
           f"res stack by mode {by_mode}; "
           f"epochs " + "; ".join(f"loss {r['loss']:.4f} acc {r['acc']:.4f} audio_s_per_s {r['audio_s_per_s']}"
                                  for r in epochs)
           + f"; final test accuracy {train_acc}; --type eval of best.pt cuda {accs['cuda']} = cpu {accs['cpu']}")
     return launches, epochs, train_acc, by_mode
+
+
+def n_convs(conf: str) -> int:
+    """The convs of a model: the weight-gradient kernel's launches in one of its bf16 train steps."""
+    import torch
+
+    from honk_tpu_torch.models import find_config, find_model
+
+    return sum(isinstance(m, torch.nn.Conv2d) for m in find_model(conf)(find_config(conf)).modules())
 
 
 def phase_step_times(torch, dev, A, K, mfcc_kernel, arrays, cfg):
@@ -1436,7 +1609,11 @@ def res_work(b: int, C: int, H: int, W: int, L: int, n_lab: int, mode: str = "fl
 
 
 def reset(counters) -> None:
-    """Every launch count to 0, the res stack's per-mode and per-entry counts too."""
+    """Every launch count to 0, the res stack's per-mode and per-entry counts and the weight-gradient
+    kernel's too."""
+    from honk_tpu_torch.ops import wgrad_kernel
+
+    wgrad_kernel.launches = 0
     for mod in counters.values():
         mod.launches = 0
         for by in (getattr(mod, "launches_by_mode", {}), getattr(mod, "launches_by_entry", {})):
@@ -1446,11 +1623,15 @@ def reset(counters) -> None:
 
 class Launches(dict):
     """Each kernel's launches since ``reset``; ``by_mode`` the res stack's by
-    operand mode and ``by_entry`` by entry (``res_forward``: from the features
-    with the stem inside; ``res_stack``: from the pooled map), read at the same time."""
+    operand mode, ``by_entry`` by entry (``res_forward``: from the features
+    with the stem inside; ``res_stack``: from the pooled map), and ``wgrad``
+    the weight-gradient kernel's (a training path's alone), read at the same time."""
 
     def __init__(self, counters):
+        from honk_tpu_torch.ops import wgrad_kernel
+
         super().__init__({k: mod.launches for k, mod in counters.items()})
+        self.wgrad = wgrad_kernel.launches
         self.by_mode = dict(counters["res_stack"].launches_by_mode)
         self.by_entry = dict(counters["res_stack"].launches_by_entry)
 
@@ -2365,6 +2546,9 @@ def phase_data_parallel(torch, dev, root, tmp, counters, single_acc, smi, A, arr
 
     if by_mode != bf16_eval_modes(launches["res_stack"]):
         fail(f"cli.train on a world-1 NCCL group: res stack modes {by_mode}, expected the bf16-activation mode only")
+    if launches.wgrad != launches["assemble"] * n_convs("res8"):
+        fail(f"cli.train on a world-1 NCCL group: the weight-gradient kernel launched {launches.wgrad} times over "
+             f"{launches['assemble']} bf16 steps, expected {n_convs('res8')} a step")
     out = {"train_s": train_s, "launches": launches, "res_stack_by_mode": by_mode, "weights_max_abs_err": weight_err,
            "weights_bitwise": bitwise, "final_test_accuracy": acc}
     initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
@@ -3952,7 +4136,7 @@ def main() -> int:
 
     # 2. Build the three kernels from the sources in this checkout, in parallel.
     t0 = time.perf_counter()
-    logs = _build.build("mfcc", "res_stack", "assemble")
+    logs = _build.build("mfcc", "res_stack", "assemble", "conv_wgrad")
     build_s = time.perf_counter() - t0
     print(f"[build] {build_s:.1f} s ({', '.join(sorted(logs)) or 'already built'})")
     for src, log in logs.items():
@@ -4108,6 +4292,8 @@ def main() -> int:
         bf16_train = phase_bf16_train(torch, dev, A, step_times, smi)
         # 51. The bf16 data-parallel step's weight gradients on 2 and 4 ranks, emulated on this card.
         bf16_ranks = phase_bf16_ranks(torch, dev, A, smi)
+        # 52. The weight-gradient kernel's times a res15 and a res8 step, and its launches a step.
+        wgrad = phase_wgrad(torch, dev, name, smi)
         # 35. The scaling harness at one card, beside phase 11's step.
         scaling = phase_scaling(torch, counters, step_times, smi)
         # 36-39. The measuring tools: entry(), cli.bench, cli.bench_stream, cli.bench_serve.
@@ -4274,6 +4460,22 @@ def main() -> int:
         "bound_ms": a64, "bound_by": aby64, "library_ms": None, "batch": TRAIN_BATCH,
         "ms_b1024": train_times["assemble_b1024"], "plain_ms_b1024": train_times["assemble_plain_b1024"],
         "bound_ms_b1024": a1024, "bound_by_b1024": aby1024,
+    })
+    # The weight-gradient kernel (phase 52): launches on every path as the others', times a step at
+    # res15's and res8's training shapes (ms / plain_ms / bound_ms at res15, B=TRAIN_BATCH). Its plain
+    # version is also the library path it replaced (cuBLAS's float32 GEMM over im2col).
+    wg = wgrad["res15"][str(TRAIN_BATCH)]
+    kernels.append({
+        "name": "conv_wgrad", "route": "cuda", "source": "honk_tpu_torch/ops/csrc/conv_wgrad.cu",
+        "replaces": None, "launches": train_launches.wgrad, "launches_path": "train_res8",
+        "launches_listen": launches.wgrad, "launches_dp": data_parallel["launches"].wgrad,
+        "launches_by_path": {p: getattr(v, "wgrad", None) for p, v in by_path.items()},
+        "launches_per_step": {c: wgrad[c]["launches_per_step"] for c in ("res15", "res8")},
+        "max_abs_err": max(wgrad[c][b]["max_abs_err"] for c in ("res15", "res8")
+                           for b in (str(TRAIN_BATCH), str(RES15_WGRAD_ROWS))),
+        "ms": wg["ms"], "plain_ms": wg["plain_ms"], "bound_ms": wg["bound_ms"], "bound_by": wg["bound_by"],
+        "library_ms": wg["plain_ms"], "batch": TRAIN_BATCH, "model": "res15",
+        "by_model_batch": {c: {b: r for b, r in wgrad[c].items() if b.isdigit()} for c in ("res15", "res8")},
     })
     # Each kernel beside the library path of the reference tool that times it against one (phases
     # 40-41, B=BATCH; ms a batch, the tool's marginal on the host clock, the kernel's leg beside it):

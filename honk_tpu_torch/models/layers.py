@@ -31,7 +31,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..metrics.profiling import annotate
+from ..ops import wgrad_kernel
 from ..ops.res_kernel import chained_avg_pool
+# The plain per-sample partials and their columns, the kernel's CPU path.
+from ..ops.wgrad_kernel import columns as _columns, conv_wgrad_plain as _conv_weight_partials  # noqa: F401
 
 # Standard deviation of a standard normal truncated to [-2, 2]: flax's
 # truncated_normal(stddev) scales its [-2, 2] samples by stddev / this.
@@ -156,53 +159,23 @@ def finish_grads(model: nn.Module, wide: dict, mesh=None) -> None:
         p.grad.copy_(s.float().to(model.dtype) if p in cast else s)
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """cuBLAS's float32 products outside TF32 inside, whatever the process
-    set, restored after."""
-    flag, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
-
-
-def _columns(x: torch.Tensor, shape: torch.Size, out_hw: tuple[int, int], geometry) -> torch.Tensor:
-    """im2col of (B, C, H, W) ``x`` for a conv of weight ``shape`` and output size ``out_hw``:
-    (B, C * kh * kw, Ho * Wo), ``F.unfold``'s layout, as one strided copy of the padded input
-    (``F.unfold`` on the card launches a kernel for each row)."""
-    stride, padding, dilation = geometry
-    xp = F.pad(x, (padding[1], padding[1], padding[0], padding[0]))
-    b, c, (kh, kw), (ho, wo) = x.shape[0], x.shape[1], shape[2:], out_hw
-    sb, sc, sh, sw = xp.stride()
-    view = xp.as_strided((b, c, kh, kw, ho, wo), (sb, sc, dilation[0] * sh, dilation[1] * sw,
-                                                  stride[0] * sh, stride[1] * sw))
-    return view.reshape(b, c * kh * kw, ho * wo)
-
-
-def _conv_weight_grad(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
-    """A conv's float64 weight gradient from its bf16 operands: im2col, then a
-    batched float32 GEMM (every product exact, TF32 off), one partial a
-    sample (``_conv_weight_partials``), whose order of summation is the
-    sample's own at any row count (``tests/test_torch_topology_invariance.py``,
-    ``chip_smoke.py`` phase 51 on the card); the partials summed over
-    the rows in float64, exactly while their magnitudes span less than
-    2**(29 - log2(rows)) (2**21 at 256 rows), so a rank's part and the
-    ranks' sum add to the same value. Not cuDNN's bf16 weight
-    gradient, which rounds more than once on the card (conv0 of res8: 4.94%
-    of the elements more than half a bf16 ulp from the truth), nor its
-    float32 one, whose algorithm is chosen by shape and includes inexact
-    transforms (0.6-0.7% of a 45-map conv's elements past half an ulp at 16
-    and 32 rows, and no exact zero for a dead input channel; PERF.md §6)."""
-    return _conv_weight_partials(gy32, x16, shape, geometry).sum(dim=0, dtype=torch.float64).view(shape)
-
-
-def _conv_weight_partials(gy32: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
-    """(B, out channels, in channels * kh * kw): each sample's float32 weight gradient, by one batched
-    GEMM over ``_columns``, TF32 off."""
-    cols = _columns(x16, shape, gy32.shape[2:], geometry).float()
-    with _full_f32():
-        return torch.bmm(gy32.flatten(2), cols.transpose(1, 2))
+def _conv_weight_grad(gy: torch.Tensor, x16: torch.Tensor, shape: torch.Size, geometry) -> torch.Tensor:
+    """A conv's float64 weight gradient from its bf16 operands (``gy`` bf16, or float32 holding bf16
+    values, which the cast to bf16 keeps exactly): one float32 partial a sample
+    (``ops/wgrad_kernel.py::conv_wgrad``, the Hopper kernel on the card, im2col and a float32 GEMM on
+    the CPU), every product exact, whose order of summation is the sample's own at any row count
+    (``tests/test_torch_topology_invariance.py``, ``tests/test_torch_wgrad_kernel.py``,
+    ``chip_smoke.py`` phase 51 on the card); the partials summed over the rows in float64, exactly
+    while their magnitudes span less than 2**(29 - log2(rows)) (2**21 at 256 rows), so a rank's part
+    and the ranks' sum add to the same value. Not cuDNN's bf16 weight gradient, which rounds more than
+    once on the card (conv0 of res8: 4.94% of the elements more than half a bf16 ulp from the truth),
+    nor its float32 one, whose algorithm is chosen by shape and includes inexact transforms (0.6-0.7%
+    of a 45-map conv's elements past half an ulp at 16 and 32 rows, and no exact zero for a dead input
+    channel). The operands go to the kernel contiguous, as it reads them (autograd can hand a strided
+    cotangent: the stride-0 expand of a ``.sum()``, or a channels_last one); ``contiguous`` copies
+    nothing where they already are."""
+    partials = wgrad_kernel.conv_wgrad(gy.to(torch.bfloat16).contiguous(), x16.contiguous(), shape, geometry)
+    return partials.sum(dim=0, dtype=torch.float64).view(shape)
 
 
 class _LowConv(torch.autograd.Function):
@@ -236,7 +209,7 @@ class _LowConv(torch.autograd.Function):
                                                      [True, False, False])[0].to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             with annotate("conv_weight_grad"):
-                gw = _keep(ctx.sink, ctx.params[0], _conv_weight_grad(gy.float(), x16, ctx.shape, ctx.geometry))
+                gw = _keep(ctx.sink, ctx.params[0], _conv_weight_grad(gy, x16, ctx.shape, ctx.geometry))
         if ctx.params[1] is not None and ctx.needs_input_grad[2]:
             gb = _keep(ctx.sink, ctx.params[1], gy.sum(dim=(0, 2, 3), dtype=torch.float64))
         return gx, gw, gb, None, None

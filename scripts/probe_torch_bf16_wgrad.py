@@ -10,12 +10,19 @@
    holds it, the float64 parts of 2 and 4 ranks added and rounded once
    against the whole's: [share of elements differing, share past one bf16
    ulp, largest ulps].
-2. The weight gradient alone, conv0 and conv1 of res8 at B=256, ms by CUDA
-   events (20 calls after 3): cuDNN's bf16 one (autograd's), the layers'
-   (``_conv_weight_grad``: one strided im2col copy, a batched float32
-   GEMM, the per-sample partials summed in float64), the same on ``F.unfold``'s im2col, the layers' columns in bf16
-   through a bf16 GEMM with a float32 output, and the layers' with TF32 on,
-   each with its reading against the float64 truth.
+2. The per-sample partials alone, at res8's conv0 and conv1 and res15's
+   conv0 and its five dilations, at B=64 and 256, ms by CUDA events (20
+   calls after 3): the kernel (``ops/wgrad_kernel.py::conv_wgrad``), the
+   plain path it replaced (``conv_wgrad_plain``: the cotangent cast to
+   float32, one strided im2col copy, again to float32, a batched float32
+   GEMM on cuBLAS, TF32 off) and cuBLAS's bf16 GEMM with a float32 output
+   over the bf16 columns; beside them the float64 sum over the rows that
+   the layer adds, cuDNN's bf16 weight gradient (autograd's, summed and
+   rounded by cuDNN: not the same function) and the bound (the larger of
+   the bytes, x and gy read once in bf16 and the partials written once in
+   float32, over 3.35 TB/s and the operations over 989 TFLOP/s); and the
+   kernel's and the plain path's sums rounded once against the float64
+   truth.
 3. A bf16 forward and backward of res8 at B=256 and of res15 at B=64 on
    seeded features, ms a step by CUDA events (10 steps after 3), with the
    layers' float64 weight gradients and with autograd's bf16 ones (the
@@ -27,11 +34,15 @@
    float32 by ``mean`` (the one-rank formula before the float64 sums); with
    autograd's bf16 weight gradients (the convs as plain bf16 ops); with
    both (the arithmetic before the repair); as shipped again.
+5. The kernel's N tile at section 2's shapes and batches: the narrowest
+   that holds O (``wgrad_kernel.plan``: 48 columns for 45 maps) against one
+   of 64 columns for every conv (zeros past O), ms by CUDA events in turns
+   (planned, 64, 64, planned), and whether the two give the same bits.
 
 Prints one JSON line for 1, one for 2, one line a model for 3 and one JSON
-line for 4. Imports nothing of JAX.
+line each for 4 and 5. Imports nothing of JAX.
 """
-import contextlib
+import ctypes
 import json
 import os
 import sys
@@ -45,6 +56,7 @@ import chip_smoke as C  # noqa: E402
 from honk_tpu_torch import use_full_f32  # noqa: E402
 from honk_tpu_torch.cli import bench  # noqa: E402
 from honk_tpu_torch.models import find_config, find_model, init_weights, layers, res  # noqa: E402
+from honk_tpu_torch.ops import _build, wgrad_kernel  # noqa: E402
 
 if not torch.cuda.is_available():
     sys.exit("probe_torch_bf16_wgrad: needs a CUDA device")
@@ -104,46 +116,55 @@ def events(fn, iters=10):
     return a.elapsed_time(b) / iters
 
 
-@contextlib.contextmanager
-def tf32():
-    flag, torch.backends.cuda.matmul.allow_tf32 = torch.backends.cuda.matmul.allow_tf32, True
-    full, layers._full_f32 = layers._full_f32, contextlib.nullcontext
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, layers._full_f32 = flag, full
-
-
-def bf16_gemm_grad(layer, x16, dy):
+def bf16_gemm_partials(dy, x16, shape, geo):
     """The layers' columns, kept in bf16, through cuBLAS's bf16 GEMM with a float32 output."""
-    cols = layers._columns(x16, layer.weight.shape, dy.shape[2:], geometry(layer))
-    return torch.bmm(dy.flatten(2), cols.transpose(1, 2), out_dtype=torch.float32).sum(dim=0).view(
-        layer.weight.shape)
+    cols = wgrad_kernel.columns(x16, shape, dy.shape[2:], geo)
+    return torch.bmm(dy.flatten(2), cols.transpose(1, 2), out_dtype=torch.float32)
 
 
-def unfold_grad(layer, x16, dy):
-    cols = F.unfold(x16.float(), layer.weight.shape[2:], layer.dilation, layer.padding, layer.stride)
-    with layers._full_f32():
-        return torch.bmm(dy.float().flatten(2), cols.transpose(1, 2)).sum(dim=0).view(layer.weight.shape)
+def truth_of(dy, x16, shape, geo, rows=64):
+    """The float64 weight gradient, by float64 GEMMs over the columns of ``rows`` samples at a time."""
+    total = 0
+    for i in range(0, dy.shape[0], rows):
+        cols = wgrad_kernel.columns(x16[i:i + rows], shape, dy.shape[2:], geo).double()
+        total = total + torch.bmm(dy[i:i + rows].double().flatten(2), cols.transpose(1, 2)).sum(dim=0)
+    return total.view(shape)
 
 
+res15 = init_weights(find_model("res15")(find_config("res15"), dtype=torch.bfloat16),
+                     torch.Generator().manual_seed(0)).to(dev)
+shapes = {"res8.conv0": (model.conv0, (1, 101, 40)), "res8.conv1": (model.conv1, (45, 25, 13)),
+          "res15.conv0": (res15.conv0, (1, 101, 40)),
+          **{f"res15.d{d}": (next(getattr(res15, f"conv{i}") for i in range(1, 14)
+                                  if getattr(res15, f"conv{i}").dilation[0] == d), (45, 101, 40))
+             for d in (1, 2, 4, 8, 16)}}
 out = {}
-for name in ("conv0", "conv1"):
-    layer, x16, dy = operands(name, 256)
-    truth = C.conv_wgrad(layer, x16, dy, torch.float64, torch.device("cpu"))
-    fns = {"cudnn_bf16": lambda: C.conv_wgrad(layer, x16, dy, torch.bfloat16),
-           "layers": lambda: layers._conv_weight_grad(dy.float(), x16, layer.weight.shape, geometry(layer)),
-           "unfold": lambda: unfold_grad(layer, x16, dy), "bf16_gemm_f32_out": lambda: bf16_gemm_grad(layer, x16, dy)}
-    row = {}
-    for k, fn in fns.items():
-        try:
-            row[k] = {"ms": events(fn, 20), "vs_truth": C.rounding_reading(fn().bfloat16(), truth)}
-        except (RuntimeError, TypeError) as e:  # a torch without bmm's out_dtype
-            row[k] = {"error": str(e)[:200]}
-    with tf32():
-        row["layers_tf32"] = {"ms": events(fns["layers"], 20),
-                              "vs_truth": C.rounding_reading(fns["layers"]().bfloat16(), truth)}
-    out[name] = row
+for name, (layer, chw) in shapes.items():
+    for rows in (64, 256):
+        shape, geo = layer.weight.shape, geometry(layer)
+        x16 = torch.randn((rows, *chw), generator=g).bfloat16().to(dev)
+        hw = wgrad_kernel.out_size(chw[1:], shape[2:], *geo)
+        dy = (torch.randn((rows, shape[0], *hw), generator=g) * 1e-3).bfloat16().to(dev)
+        partials = wgrad_kernel.conv_wgrad(dy, x16, shape, geo)
+        truth = truth_of(dy, x16, shape, geo)
+        n_bytes = 2 * (x16.numel() + dy.numel()) + 4 * partials.numel()
+        n_ops = 2 * partials.numel() * hw[0] * hw[1]
+        row = {"bound_ms": max(n_bytes / 3.35e12, n_ops / 989e12) * 1e3,
+               "by": "bytes" if n_bytes / 3.35e12 > n_ops / 989e12 else "ops"}
+        fns = {"kernel": lambda: wgrad_kernel.conv_wgrad(dy, x16, shape, geo),
+               "plain": lambda: wgrad_kernel.conv_wgrad_plain(dy, x16, shape, geo),
+               "library_bf16_gemm": lambda: bf16_gemm_partials(dy, x16, shape, geo),
+               "float64_sum": lambda: partials.sum(dim=0, dtype=torch.float64),
+               "cudnn_bf16": lambda: C.conv_wgrad(layer, x16, dy, torch.bfloat16)}
+        for k, fn in fns.items():
+            try:
+                row[f"{k}_ms"] = events(fn, 20)
+            except (RuntimeError, TypeError) as e:  # a torch without bmm's out_dtype
+                row[f"{k}_ms"] = str(e)[:200]
+        for k in ("kernel", "plain"):
+            got = fns[k]().sum(dim=0, dtype=torch.float64).view(shape).float().bfloat16()
+            row[f"{k}_vs_truth"] = C.rounding_reading(got, truth)
+        out[f"{name}.b{rows}"] = row
 print(json.dumps(out), flush=True)
 
 
@@ -200,3 +221,34 @@ for tag, c, st in (("shipped", conv, stats), ("before_repair", autograd_conv, f3
     link[tag] = train_link()
 res.conv, res.batch_moments = conv, stats
 print(json.dumps({"train_link_audio_s_per_s": link}), flush=True)
+
+
+def launch_with_tile(nn, dy, x16, shape, geo, out):
+    """``wgrad_kernel._launch`` with the N tile forced to ``nn`` * 8 columns, the shared memory to match."""
+    (st, pad, dil), (b, c, h, w), (o, _, kh, kw) = geo, x16.shape, shape
+    ho, wo = dy.shape[2:]
+    p = wgrad_kernel.plan(c, o, kh, kw, h, w, ho, wo)
+    smem = wgrad_kernel.NB * nn * 1024 + p["stages"] * wgrad_kernel.KC * 4 + -(-p["nch"] * h * w // 8) * 16 + 16
+    fn = _build.load("conv_wgrad").conv_wgrad_forward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+    err = fn(x16.data_ptr(), dy.data_ptr(), out.data_ptr(), b, c, h, w, o, ho, wo, kh, kw, *st, *pad, *dil, nn,
+             p["m_tiles"], -(-o // (nn * 8)), smem, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "conv_wgrad")
+
+
+out = {}
+for name, (layer, chw) in shapes.items():
+    for rows in (64, 256):
+        shape, geo = layer.weight.shape, geometry(layer)
+        x16 = torch.randn((rows, *chw), generator=g).bfloat16().to(dev)
+        hw = wgrad_kernel.out_size(chw[1:], shape[2:], *geo)
+        dy = (torch.randn((rows, shape[0], *hw), generator=g) * 1e-3).bfloat16().to(dev)
+        nn = wgrad_kernel.plan(chw[0], shape[0], *shape[2:], *chw[1:], *hw)["nn"]
+        got = {k: torch.empty((rows, shape[0], shape[1] * shape[2] * shape[3]), device=dev) for k in ("planned", "n64")}
+        row = {"planned_n": 8 * nn}
+        for k in ("planned", "n64", "n64", "planned"):
+            row.setdefault(f"{k}_ms", []).append(events(
+                lambda k=k: launch_with_tile(nn if k == "planned" else 8, dy, x16, shape, geo, got[k]), 20))
+        row["same_bits"] = bool(torch.equal(got["planned"], got["n64"]))
+        out[f"{name}.b{rows}"] = row
+print(json.dumps({"n_tile": out}), flush=True)
