@@ -11,7 +11,6 @@ import time
 import torch
 
 from . import harness
-from .reference import model as ref_model
 
 
 def sync(device: torch.device) -> None:
@@ -23,28 +22,26 @@ def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
-def make_weights(seed: int, config: dict, device: torch.device, output_gain: float = 1.0) -> dict:
-    """The model's float32 parameters from ``seed``, made on ``device`` in one draw: every conv and Dense
-    weight uniform in +-1/sqrt(fan_in) (the port's and flax's initialiser), the Dense weight times
-    ``output_gain``, the Dense bias 0."""
-    shapes = ref_model.param_shapes(config)
+def make_weights(seed: int, family, config: dict, device: torch.device, output_gain: float = 1.0) -> dict:
+    """The model's float32 parameters from ``seed``, made on ``device`` in one uniform draw in [-1, 1), each its
+    share of it in the order of the family's ``param_shapes``, by the family's ``init``; the ``output`` weight's
+    scale times ``output_gain``."""
+    shapes = family.param_shapes(config)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     u = torch.rand(sum(math.prod(s) for s in shapes.values()), generator=g, device=device) * 2 - 1
     out, at = {}, 0
     for name, shape in shapes.items():
         n = math.prod(shape)
-        if name.endswith("bias"):
-            out[name] = torch.zeros(shape, device=device)
-        else:
-            gain = output_gain if name == "output.weight" else 1.0
-            out[name] = u[at:at + n].view(shape) * (gain / math.sqrt(n / shape[0]))
+        gain = output_gain if name == "output.weight" else 1.0
+        out[name] = family.init(name, u[at:at + n].view(shape), gain, shapes)
         at += n
     return out
 
 
 def load_weights(model: torch.nn.Module, weights: dict, bn: dict | None = None) -> torch.nn.Module:
-    """Copy ``weights`` (and BN's running statistics ``bn[i] = (mean, var)``) into the port's model."""
+    """Copy ``weights`` (and the family's eval state, where it has one: BN's running statistics
+    ``bn[i] = (mean, var)``) into the port's model."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(weights[name])
@@ -123,11 +120,3 @@ class Clock:
                   flush=True)
         return now
 
-
-def calibrated_bn(weights: dict, config: dict, feats: torch.Tensor) -> dict:
-    """BN's running statistics as a trained model holds them: each layer's batch mean and biased variance over
-    ``feats`` in the reference's float32 training forward (so the folded BN of the eval forward normalises)."""
-    stats: list = []
-    with ref_model.no_tf32(), torch.no_grad():
-        ref_model.forward(weights, config, feats, stats=stats)
-    return {i + 1: s for i, s in enumerate(stats)}

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from kwsbench import common, harness, tracing
-from kwsbench.reference import frontend, model as ref_model, stream as ref_stream, work
+from kwsbench.reference import frontend, precision, stream as ref_stream
 
 
 @dataclasses.dataclass
@@ -46,7 +46,7 @@ class Inputs:
     bn: dict
 
 
-def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inputs:
+def make_inputs(seed: int, tr: dict, family, config: dict, device: torch.device) -> Inputs:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     n_samples = int(tr["recording_seconds"] * frontend.SAMPLE_RATE)
@@ -57,21 +57,22 @@ def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inpu
         gains = torch.exp(torch.rand(-(-n_samples // block), generator=g, device=device) * (hi - lo) + lo)
         x = torch.randn(n_samples, generator=g, device=device) * gains.repeat_interleave(block)[:n_samples]
         recs.append(x.clamp(-1.0, 1.0).cpu().numpy())
-    weights = common.make_weights(seed + 1, config, device, tr["output_gain"])
-    with ref_model.no_tf32():
+    weights = common.make_weights(seed + 1, family, config, device, tr["output_gain"])
+    with precision.no_tf32():
         feats = frontend.mfcc(torch.from_numpy(recs[0]).to(device)[None])[0]
         windows = feats.unfold(0, frontend.WINDOW_FRAMES, tr["stream"]["hop_samples"] // frontend.HOP)
         windows = windows.transpose(1, 2)[:tr["bn_windows"]]
-    return Inputs(recs, weights, common.calibrated_bn(weights, config, windows))
+    return Inputs(recs, weights, family.eval_state(weights, config, windows))
 
 
-def reference_search(inputs: Inputs, config: dict, stream: dict, r: int, device: torch.device,
+def reference_search(inputs: Inputs, family, config: dict, stream: dict, r: int, device: torch.device,
                      variant: str | None = None) -> np.ndarray:
     if variant not in (None, "fp8", "int8"):
         raise SystemExit(f"kwsbench: no control {variant!r} for recordings")
-    rounding = ref_model.rounding(variant)
+    rounding = precision.rounding(variant)
     audio = torch.from_numpy(inputs.recordings[r]).to(device)
-    return ref_stream.search(inputs.weights, config, inputs.bn, audio, stream, rounding).cpu().numpy()
+    return ref_stream.search(family.forward, inputs.weights, config, inputs.bn, audio, stream,
+                             rounding).cpu().numpy()
 
 
 class Session:
@@ -86,7 +87,7 @@ class Session:
 
         self.streamer, self.cell, self.device, config = streamer, cell, device, cell.config
         use_full_f32()
-        self.inputs = make_inputs(seed, cell.traffic, config, device)
+        self.inputs = make_inputs(seed, cell.traffic, cell.family, config, device)
         model = find_model(config["registry_name"])(config, dtype=getattr(torch, config["compute_dtype"]))
         self.model = common.load_weights(model.to(device), self.inputs.weights, self.inputs.bn).eval()
         self.cfg = StreamConfig(**cell.traffic["stream"])
@@ -107,16 +108,16 @@ class Session:
 
     def checks(self, done: list, control: str | None = None) -> list[tuple[str, float, float]]:
         """``done``: (request index, smoothed, detections) of the requests to compare."""
-        tr, config, cfg = self.cell.traffic, self.cell.config, self.cfg
+        tr, family, config, cfg = self.cell.traffic, self.cell.family, self.cell.config, self.cfg
         hop_s = cfg.hop_samples / frontend.SAMPLE_RATE
         refs: dict[int, np.ndarray] = {}
         gap, mismatched, found = (0.0 if done else math.inf), 0, 0
         for i, smoothed, dets in done:
             r = self.recording(i)
             if r not in refs:
-                refs[r] = reference_search(self.inputs, config, tr["stream"], r, self.device)
+                refs[r] = reference_search(self.inputs, family, config, tr["stream"], r, self.device)
             if control:
-                smoothed = reference_search(self.inputs, config, tr["stream"], r, self.device, control)
+                smoothed = reference_search(self.inputs, family, config, tr["stream"], r, self.device, control)
                 dets = [self.streamer.Detection(*e) for e in ref_stream.detect(
                     smoothed, cfg.detection_threshold, cfg.min_gap_windows, hop_s)]
             gap = max(gap, float(np.abs(smoothed - refs[r]).max()) if smoothed.shape == refs[r].shape else math.inf)
@@ -173,7 +174,7 @@ def run(cell: harness.Cell, args, clock: common.Clock) -> None:
     windows = len(done[0][1]) if done else 0
     if args.trace:
         n_samples = int(tr["recording_seconds"] * frontend.SAMPLE_RATE)
-        counters = {"model_flops": len(done) * windows * work.model_flops(config), "window_s": window_s,
+        counters = {"model_flops": len(done) * windows * cell.family.model_flops(config), "window_s": window_s,
                     "mfcc_launch": (1 + n_samples // frontend.HOP, n_samples), "units": len(done),
                     "traced_units": tr["trace_requests"], "work_s": trace.busy_s()}
         reading = common.Reading(trace, counters, config, tr, common.device_name(device), 1)

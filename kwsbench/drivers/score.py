@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from kwsbench import common, harness, tracing
-from kwsbench.reference import compare, frontend, model as ref_model, work
+from kwsbench.reference import compare, frontend, precision
 
 CLIP_SAMPLES = 16000
 
@@ -41,7 +41,7 @@ class Inputs:
     bn: dict
 
 
-def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inputs:
+def make_inputs(seed: int, tr: dict, family, config: dict, device: torch.device) -> Inputs:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     n = tr["n_clips"]
@@ -51,21 +51,22 @@ def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inpu
     for a in range(0, n, 1024):
         x = torch.randn((min(n, a + 1024) - a, CLIP_SAMPLES), generator=g, device=device) * gain[a:a + 1024, None]
         clips[a:a + 1024] = (x.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-    weights = common.make_weights(seed + 1, config, device, tr["output_gain"])
-    with ref_model.no_tf32():
+    weights = common.make_weights(seed + 1, family, config, device, tr["output_gain"])
+    with precision.no_tf32():
         feats = frontend.mfcc(clips[:tr["bn_clips"]].float() / 32768.0)
-    return Inputs(clips, weights, common.calibrated_bn(weights, config, feats))
+    return Inputs(clips, weights, family.eval_state(weights, config, feats))
 
 
-def reference_logits(inputs: Inputs, config: dict, variant: str | None = None, block: int = 1024) -> torch.Tensor:
+def reference_logits(inputs: Inputs, family, config: dict, variant: str | None = None,
+                     block: int = 1024) -> torch.Tensor:
     if variant not in (None, "fp8", "int8"):
         raise SystemExit(f"kwsbench: no control {variant!r} for scoring")
     out = []
-    with ref_model.no_tf32(), torch.no_grad():
+    with precision.no_tf32(), torch.no_grad():
         for a in range(0, inputs.clips.shape[0], block):
             feats = frontend.mfcc(inputs.clips[a:a + block].float() / 32768.0)
-            out.append(ref_model.forward(inputs.weights, config, feats, bn=inputs.bn,
-                                         rounding=ref_model.rounding(variant)))
+            out.append(family.forward(inputs.weights, config, feats, bn=inputs.bn,
+                                      rounding=precision.rounding(variant)))
     return torch.cat(out)
 
 
@@ -82,7 +83,7 @@ class Session:
         self.eval_batch, self.compute_mfccs = eval_batch, compute_mfccs
         self.cell, self.device, config = cell, device, cell.config
         use_full_f32()
-        self.inputs = make_inputs(seed, cell.traffic, config, device)
+        self.inputs = make_inputs(seed, cell.traffic, cell.family, config, device)
         model = find_model(config["registry_name"])(config, dtype=getattr(torch, config["compute_dtype"]))
         self.model = common.load_weights(model.to(device), self.inputs.weights, self.inputs.bn).eval()
         self.n, self.b = self.inputs.clips.shape[0], cell.traffic["batch"]
@@ -111,9 +112,9 @@ class Session:
         return got
 
     def checks(self, got: torch.Tensor, control: str | None = None) -> list[tuple[str, float, float]]:
-        ref = reference_logits(self.inputs, self.cell.config)
+        ref = reference_logits(self.inputs, self.cell.family, self.cell.config)
         if control:
-            got = reference_logits(self.inputs, self.cell.config, control)
+            got = reference_logits(self.inputs, self.cell.family, self.cell.config, control)
         largest, median = compare.logit_gaps(got, ref)
         return common.finite([("logit_gap", largest, self.cell.limits["logit_gap"]),
                               ("row_gap", median, self.cell.limits["row_gap"])])
@@ -150,7 +151,7 @@ def run(cell: harness.Cell, args, clock: common.Clock) -> None:
     checks = session.checks(session.release(), args.control)
     result = {"correct": all(v <= lim for _, v, lim in checks), "attempted": batches, "failed": 0}
     if args.trace:
-        counters = {"model_flops": scored * work.model_flops(config), "window_s": window_s,
+        counters = {"model_flops": scored * cell.family.model_flops(config), "window_s": window_s,
                     "res_forward_batch": session.b,
                     "mfcc_launch": (session.b * frontend.WINDOW_FRAMES, session.b * CLIP_SAMPLES),
                     "units": batches, "traced_units": tr["trace_batches"], "work_s": trace.busy_s()}

@@ -15,13 +15,18 @@ step and feed as the window's) and one call of the window's scan, times a
 second call, and so fixes the window's number of calls (the ranks agree on
 rank 0's). The window is that many calls, fenced by one synchronise.
 
+The traffic names its ``recipe`` (``reference/recipe_<recipe>.py``): the
+port's optimizer, how its first gradient is read back, and the
+reference's steps.
+
 ``correct``: the reference follows the first three steps from the same
-weights on the same draws in float32 (``reference.train``). Of these
-numbers, those that the cell's limits name are compared: the largest gap
-of the three losses and the first step's alone; the first gradient as the
-optimizer got it (its momentum after one step, less the decay) and the
-change of the parameters after three steps, each by the worst leaf and by
-the median leaf (``reference.compare``).
+weights on the same draws in float32 (the recipe's ``steps`` with the
+family's ``forward``). Of these numbers, those that the cell's limits name
+are compared: the largest gap of the three losses and the first step's
+alone; the first gradient as the optimizer got it (the recipe's
+``first_gradient``, read from its state after one step) and the change of
+the parameters after three steps, each by the worst leaf and by the median
+leaf (``reference.compare``).
 """
 
 from __future__ import annotations
@@ -35,8 +40,9 @@ import numpy as np
 import torch
 
 from kwsbench import common, harness
-from kwsbench.reference import assemble as ref_assemble, compare, frontend, model as ref_model, train as ref_train, work
+from kwsbench.reference import assemble as ref_assemble, compare, frontend, precision
 
+NEEDS = ("recipe",)  # keys a traffic of this kind names (harness.find_cell)
 CHECK_STEPS = 3
 CLIP_SAMPLES = 16000
 CLIP_SECONDS = 1.0  # a one-second clip at 16 kHz
@@ -54,7 +60,7 @@ class Inputs:
     key: int
 
 
-def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inputs:
+def make_inputs(seed: int, tr: dict, family, config: dict, device: torch.device) -> Inputs:
     """The corpus, made on the device in blocks and kept on the host (the port's loader packs a corpus there),
     the noise and the weights, all from ``seed``."""
     g = torch.Generator(device=device)
@@ -71,7 +77,7 @@ def make_inputs(seed: int, tr: dict, config: dict, device: torch.device) -> Inpu
     labels = torch.randint(1, config["n_labels"], (n,), generator=g, device=device).cpu().numpy().astype(np.int32)
     noise = (torch.randn(int(tr["noise_seconds"] * CLIP_SAMPLES), generator=g, device=device)
              * tr["noise_gain"]).cpu().numpy()
-    weights = common.make_weights(seed + 1, config, device)
+    weights = common.make_weights(seed + 1, family, config, device)
     return Inputs(clips, labels, noise, weights, int(tr["silence_prob"] * n), seed)
 
 
@@ -91,36 +97,35 @@ def build(cell: harness.Cell, inputs: Inputs, device: torch.device, mesh) -> Pro
     from honk_tpu_torch import use_full_f32
     from honk_tpu_torch.data import AugmentConfig, prepare_train_arrays
     from honk_tpu_torch.models import find_model
-    from honk_tpu_torch.train import create_train_state, make_optimizer, make_train_scan
+    from honk_tpu_torch.train import create_train_state, make_train_scan
 
     tr, config = cell.traffic, cell.config
     use_full_f32()
-    recipe = ref_assemble.Recipe()
-    aug = AugmentConfig(noise_prob=recipe.noise_prob, timeshift_samples=recipe.timeshift_samples,
-                        noise_scale=recipe.noise_scale, n_silence=inputs.n_silence)
-    arrays = prepare_train_arrays(inputs.clips, inputs.labels, inputs.noise, aug, noise_stride=recipe.noise_stride,
+    augment = ref_assemble.Recipe()
+    aug = AugmentConfig(noise_prob=augment.noise_prob, timeshift_samples=augment.timeshift_samples,
+                        noise_scale=augment.noise_scale, n_silence=inputs.n_silence)
+    arrays = prepare_train_arrays(inputs.clips, inputs.labels, inputs.noise, aug, noise_stride=augment.noise_stride,
                                   device=device)
     dtype = getattr(torch, config["compute_dtype"])
     model = find_model(config["registry_name"])(config, dtype=dtype).to(device)
     mesh.replicate(common.load_weights(model, inputs.weights))
-    tx = make_optimizer()
+    tx = cell.recipe.port_optimizer(harness.port)
     state = create_train_state(model, tx)
     return Program(state, make_train_scan(tx, tr["batch"], aug, tr["steps_per_call"], mesh),
                    make_train_scan(tx, tr["batch"], aug, 1, mesh), arrays, mesh, inputs.key)
 
 
-def program_readings(prog: Program) -> dict:
+def program_readings(prog: Program, recipe) -> dict:
     """Three steps through the scan at one step a call: each step's loss, the first gradient as the optimizer
-    got it, the parameters after three steps."""
+    got it (``recipe.first_gradient``), the parameters after three steps."""
     model, opt = prog.state.model, prog.state.optimizer
-    wd = opt.param_groups[0]["weight_decay"]
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     losses, grads1 = [], None
     for k in range(CHECK_STEPS):
         prog.state, m = prog.check_scan(prog.state, prog.key, prog.arrays)
         losses.append(m["loss"])
         if k == 0:
-            grads1 = {n: opt.state[p]["momentum_buffer"] - wd * params0[n] for n, p in model.named_parameters()}
+            grads1 = {n: recipe.first_gradient(opt, p, params0[n]) for n, p in model.named_parameters()}
     return {"losses": [float(v) for v in losses], "grads1": grads1, "params0": params0,
             "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
 
@@ -130,22 +135,22 @@ def reference_readings(inputs: Inputs, cell: harness.Cell, device: torch.device,
     """The reference's three steps; ``variant`` puts a lower precision (``fp8``, ``int8``), bf16's own rounding
     (``bf16``, the witness of the program's precision), half of each batch (``half_batch``) or one rank's rows
     without the exchange (``no_exchange``) in the program's place."""
-    tr, recipe = cell.traffic, ref_assemble.Recipe()
+    tr, augment = cell.traffic, ref_assemble.Recipe()
     b = tr["batch"]
     batches = [ref_assemble.batch(inputs.clips, inputs.labels, inputs.noise,
                                   ref_assemble.draws(inputs.key, k, b, len(inputs.clips), inputs.n_silence,
-                                                     len(inputs.noise), recipe, device), recipe, device)
+                                                     len(inputs.noise), augment, device), augment, device)
                for k in range(CHECK_STEPS)]
     kw = {}
     if variant in ("fp8", "int8", "bf16"):
-        kw["rounding"] = ref_model.rounding(variant)
+        kw["rounding"] = precision.rounding(variant)
     elif variant == "half_batch":
         kw["rows"] = slice(0, b // 2)
     elif variant == "no_exchange":
         kw["rows"], kw["divisor"] = slice(0, -(-b // ranks)), b
     elif variant is not None:
         raise SystemExit(f"kwsbench: no control {variant!r} for training")
-    out = ref_train.steps(inputs.weights, cell.config, batches, frontend.mfcc, **kw)
+    out = cell.recipe.steps(inputs.weights, cell.config, batches, frontend.mfcc, cell.family.forward, **kw)
     out["params0"] = inputs.weights
     return out
 
@@ -188,11 +193,11 @@ def run(cell: harness.Cell, args, clock: common.Clock) -> None:
         print(f"kwsbench: card and power limit: {power}", file=sys.stderr, flush=True)
     torch.zeros(1, device=device)
     stage = clock.stage("interpreter, torch and the card ready")
-    inputs = make_inputs(args.seed, tr, cell.config, device)
+    inputs = make_inputs(args.seed, tr, cell.family, cell.config, device)
     stage = clock.stage("inputs made", stage)
     prog = build(cell, inputs, device, mesh)
     stage = clock.stage("program built", stage)
-    readings = program_readings(prog)
+    readings = program_readings(prog, cell.recipe)
     sync = lambda: common.sync(device)  # noqa: E731
     sync()
     stage = clock.stage("three steps taken", stage)
@@ -245,7 +250,7 @@ def run(cell: harness.Cell, args, clock: common.Clock) -> None:
         result = {"correct": correct, "attempted": steps, "failed": 0 if loss_ok else steps}
         if args.trace:
             traced_steps = tr["trace_calls"] * tr["steps_per_call"]
-            counters = {"model_flops": 3 * utterances * work.model_flops(cell.config), "window_s": window_s,
+            counters = {"model_flops": 3 * utterances * cell.family.model_flops(cell.config), "window_s": window_s,
                         "units": steps, "traced_units": traced_steps, "work_s": work_s,
                         "exchanged_bytes_per_step": exchanged / traced_steps if mesh.size > 1 else None}
             reading = common.Reading(trace, counters, cell.config, tr, common.device_name(device), mesh.size)
@@ -267,9 +272,9 @@ def readings(cell: harness.Cell, seed: int, device: torch.device, variants: list
     from honk_tpu_torch.parallel import make_data_mesh
 
     mesh = mesh or make_data_mesh(0)
-    inputs = make_inputs(seed, cell.traffic, cell.config, device)
+    inputs = make_inputs(seed, cell.traffic, cell.family, cell.config, device)
     prog = build(cell, inputs, device, mesh)
-    got = program_readings(prog)
+    got = program_readings(prog, cell.recipe)
     del prog
     if mesh.rank != 0:
         return {}

@@ -1,7 +1,8 @@
 """Faults planted under the timed path, for the tests that show ``correct`` comes out false.
 
 Each patches the port in this process only (``--fault <name>``, a test's
-option that no check passes):
+option that no check passes), in the classes that the cell's family and
+recipe name (``PORT_MODEL``, ``PORT_OPTIMIZER``):
 
 - ``unchanged``: a train step returns its state unchanged (the update is skipped, the step still counted);
 - ``half_batch``: half of each batch is left out. Training: its second half repeats its first, so the loss is
@@ -13,19 +14,18 @@ option that no check passes):
 
 from __future__ import annotations
 
+from kwsbench import harness
+
 NAMES = ("unchanged", "half_batch", "no_exchange", "altered_answer", "altered_detection")
 
 
-def plant(name: str) -> None:
+def plant(name: str, cell: harness.Cell) -> None:
     if name == "unchanged":
-        from honk_tpu_torch.train import state
-
         def apply(self, st):
             st.step += 1
 
-        state.SGD.apply = apply
+        harness.port(cell.recipe.PORT_OPTIMIZER).apply = apply
     elif name == "half_batch":
-        from honk_tpu_torch.models import res
         from honk_tpu_torch.train import steps
 
         sample = steps.sample_train_batch
@@ -37,7 +37,8 @@ def plant(name: str) -> None:
             return audio, labels
 
         steps.sample_train_batch = halved
-        forward = res.SpeechResModel.forward
+        model = harness.port(cell.family.PORT_MODEL)
+        forward = model.forward
 
         def half_answers(self, x, *args, **kwargs):
             out = forward(self, x, *args, **kwargs)
@@ -46,16 +47,15 @@ def plant(name: str) -> None:
                 out[out.shape[0] // 2:] = 0
             return out
 
-        res.SpeechResModel.forward = half_answers
+        model.forward = half_answers
     elif name == "no_exchange":
         from honk_tpu_torch.parallel import mesh
 
         mesh.DataMesh.all_reduce_ = lambda self, t: t
         mesh.DataMesh.all_reduce_grads = lambda self, grads: None
     elif name == "altered_answer":
-        from honk_tpu_torch.models import res
-
-        forward = res.SpeechResModel.forward
+        model = harness.port(cell.family.PORT_MODEL)
+        forward = model.forward
 
         def altered(self, x, *args, **kwargs):
             out = forward(self, x, *args, **kwargs)
@@ -64,7 +64,7 @@ def plant(name: str) -> None:
                 out[0, 0] += 1.0 + out[0].abs().max()
             return out
 
-        res.SpeechResModel.forward = altered
+        model.forward = altered
     elif name == "altered_detection":
         from honk_tpu_torch.stream import streamer
 

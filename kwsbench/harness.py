@@ -1,15 +1,19 @@
-"""What every run shares: finding its cell, configuration, traffic, limits and metrics by name; the card and
-module checks; the result line.
+"""What every run shares: finding its cell, configuration, traffic, limits, model family, recipe and metrics by
+name; the card and module checks; the result line.
 
 ``BENCHMARK.json`` at the checkout's root names everything. A cell's entry
-there gives its configuration (whose ``file`` is the sizes as run), its
-traffic (``kwsbench/traffic/<traffic>.json``, whose ``kind`` names the
-driver ``kwsbench/drivers/<kind>.py``) and its chips; its limits are
-``kwsbench/limits/<cell>.json``; each per-layer metric is a reader,
-``kwsbench/metrics/<metric>.py``, or, where there is none, the reader of the
-part of its name before the first dot (``mfu.train`` and ``mfu.score`` both
-read ``mfu.py``). So a cell, a configuration, a traffic mix
-or a metric is added by adding files, and no file here names one.
+there gives its configuration (whose ``file`` is the sizes as run, and
+whose ``family`` names the family's reference module
+``kwsbench/reference/<family>.py``), its traffic
+(``kwsbench/traffic/<traffic>.json``, whose ``kind`` names the driver
+``kwsbench/drivers/<kind>.py``; where the driver ``NEEDS`` a ``recipe``,
+it names ``kwsbench/reference/recipe_<recipe>.py``) and its chips; its
+limits are ``kwsbench/limits/<cell>.json``; each per-layer metric is a
+reader, ``kwsbench/metrics/<metric>.py``, or, where there is none, the
+reader of the part of its name before the first dot (``mfu.train`` and
+``mfu.score`` both read ``mfu.py``). So a cell, a configuration, a model
+family, a traffic mix, a recipe or a metric is added by adding files, and
+no file here names one.
 """
 
 from __future__ import annotations
@@ -18,11 +22,15 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import sys
 from pathlib import Path
 from types import ModuleType
 
+from .reference import FAMILY, RECIPE
+
 ROOT = Path(__file__).resolve().parent.parent
+REFERENCE = Path(__file__).resolve().parent / "reference"
 # Top-level module names that no run may load: JAX and the JAX package the port was made from.
 BANNED_MODULES = ("jax", "jaxlib", "flax", "honk_tpu")
 
@@ -38,6 +46,8 @@ class Cell:
     limits: dict
     end_to_end: list[dict]
     per_layer: list[dict]
+    family: ModuleType  # the configuration's ``family``
+    recipe: ModuleType | None  # the traffic's ``recipe``, where its driver needs one
 
 
 def load_json(path: Path) -> dict:
@@ -60,13 +70,41 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
         raise SystemExit(f"kwsbench: no workload {name!r} in BENCHMARK.json; there are {sorted(cells)}")
     w = cells[name]
     conf = next(c for c in bench["configs"] if c["name"] == w["config"])
+    config = load_json(root / conf["file"])
+    traffic_file = f"kwsbench/traffic/{w['traffic']}.json"
+    traffic = load_json(root / traffic_file)
+    for key, data, file in [("family", config, conf["file"])] + [
+            (key, traffic, traffic_file) for key in getattr(driver(traffic["kind"]), "NEEDS", ())]:
+        if key not in data:
+            raise SystemExit(f"kwsbench: {file} names no {key!r}, which {name} needs")
+    recipe = traffic.get("recipe")
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     reported = {m["name"] for m in e2e}
     return Cell(
-        name=name, chips=int(w["chips"]), config=load_json(root / conf["file"]),
-        traffic=load_json(root / "kwsbench" / "traffic" / f"{w['traffic']}.json"),
+        name=name, chips=int(w["chips"]), config=config, traffic=traffic,
         limits=load_json(root / "kwsbench" / "limits" / f"{name}.json"), end_to_end=e2e,
-        per_layer=[m for m in bench["per_layer"] if _reports(m, name, reported)])
+        per_layer=[m for m in bench["per_layer"] if _reports(m, name, reported)],
+        family=reference_module("family", config["family"], config["family"], FAMILY),
+        recipe=None if recipe is None else reference_module("recipe", recipe, f"recipe_{recipe}", RECIPE))
+
+
+def reference_module(key: str, value, stem: str, api: tuple[str, ...]) -> ModuleType:
+    """``kwsbench/reference/<stem>.py``, which a data file's ``key`` names by ``value``; refuses a value that
+    names no such module, and a module that lacks a name of ``api``."""
+    named = isinstance(value, str) and re.fullmatch(r"[a-z][a-z0-9_]*", value)
+    if not (named and (REFERENCE / f"{stem}.py").is_file()):
+        raise SystemExit(f"kwsbench: the {key} {value!r} names no module kwsbench/reference/{stem}.py")
+    module = importlib.import_module(f"kwsbench.reference.{stem}")
+    missing = [a for a in api if not hasattr(module, a)]
+    if missing:
+        raise SystemExit(f"kwsbench: kwsbench/reference/{stem}.py, the {key} {value!r}, lacks {missing}")
+    return module
+
+
+def port(name: str):
+    """The port's object named ``module:attribute``: the reference names the port's objects and imports none."""
+    module, attribute = name.split(":")
+    return getattr(importlib.import_module(module), attribute)
 
 
 def load_file_module(path: Path, name: str) -> ModuleType:
@@ -80,7 +118,10 @@ def load_file_module(path: Path, name: str) -> ModuleType:
 
 
 def driver(kind: str, root: Path = ROOT) -> ModuleType:
-    return load_file_module(root / "kwsbench" / "drivers" / f"{kind}.py", f"kwsbench_driver_{kind}")
+    path = root / "kwsbench" / "drivers" / f"{kind}.py"
+    if not path.is_file():
+        raise SystemExit(f"kwsbench: the traffic kind {kind!r} has no driver kwsbench/drivers/{kind}.py")
+    return load_file_module(path, f"kwsbench_driver_{kind}")
 
 
 def reader_path(metric: str, root: Path = ROOT) -> Path:

@@ -1,4 +1,4 @@
-"""Plain res8 / res15 (Tang & Lin, ICASSP 2018, arXiv:1710.10361, Table 1 and section 3).
+"""The res family: plain res8 / res15 (Tang & Lin, ICASSP 2018, arXiv:1710.10361, Table 1 and section 3).
 
 Layer ``i`` of ``0 .. n_layers``: a 3x3 bias-free conv (res15: dilation
 ``2 ** ((i - 1) // 3)`` on layer ``i >= 1``, padding equal to it), ReLU;
@@ -9,71 +9,24 @@ and a Dense to the labels.
 
 BatchNorm in training takes the biased batch variance ``E[x^2] - E[x]^2``
 clipped at 0 with eps 1e-5; in eval the running statistics. Float32, TF32
-off (``no_tf32``). ``rounding``, when given, rounds a tensor to a lower
-precision at each point where a low-precision model rounds (the conv
-operands and output, the pool, the residual sum, BN's output), and the
-gradient flowing back through each such point: the control of the
-comparison (``rounding("fp8")``, ``rounding("int8")``), or, with
-``rounding("bf16")``, the bf16 model's own rounding alone, the witness
-that a gap of the program's is its precision's.
+off (``precision.no_tf32``). ``rounding``, when given, rounds a tensor at
+each point where a low-precision model rounds (the conv operands and
+output, the pool, the residual sum, BN's output), and the gradient flowing
+back through each such point (``precision.rounding``).
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable
+import math
 
 import torch
 import torch.nn.functional as F
 
+from . import frontend
+from .precision import Rounding, no_tf32
+
+PORT_MODEL = "honk_tpu_torch.models.res:SpeechResModel"
 BN_EPS = 1e-5
-Rounding = Callable[[torch.Tensor], torch.Tensor] | None
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """cuDNN and cuBLAS float32 products outside TF32 inside the block, restored after."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
-def _round(t: torch.Tensor, fmt: str) -> torch.Tensor:
-    """``t`` rounded to ``fmt``: ``bf16``, to nearest bfloat16; under a per-tensor scale, ``fp8``, float8 e4m3
-    with the largest magnitude at 448, and ``int8``, symmetric integers with it at 127."""
-    if fmt == "bf16":
-        return t.to(torch.bfloat16).float()
-    amax = t.abs().amax().clamp_min(1e-30)
-    if fmt == "fp8":
-        return (t * (448.0 / amax)).to(torch.float8_e4m3fn).float() * (amax / 448.0)
-    if fmt == "int8":
-        return torch.round(t * (127.0 / amax)).clamp(-127, 127) * (amax / 127.0)
-    raise ValueError(f"no rounding {fmt!r}")
-
-
-class _Rounded(torch.autograd.Function):
-    """A value rounded to ``fmt`` going forward, and its gradient rounded to ``fmt`` going back."""
-
-    @staticmethod
-    def forward(ctx, t, fmt):
-        ctx.fmt = fmt
-        return _round(t, fmt)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _round(g, ctx.fmt), None
-
-
-def rounding(fmt: str | None) -> Rounding:
-    """The control's rounding below bf16 (``fp8`` or ``int8``), bf16's own (``bf16``), or None for the reference
-    itself."""
-    if fmt is None:
-        return None
-    _round(torch.zeros(1), fmt)  # refuses an unknown format now, not in the middle of a forward
-    return lambda t: _Rounded.apply(t, fmt)
 
 
 def dilation(config: dict, i: int) -> int:
@@ -89,6 +42,14 @@ def param_shapes(config: dict) -> dict[str, tuple[int, ...]]:
     shapes["output.weight"] = (n, c)
     shapes["output.bias"] = (n,)
     return shapes
+
+
+def init(name: str, u: torch.Tensor, gain: float, shapes: dict) -> torch.Tensor:
+    """Every conv and Dense weight uniform in +-gain/sqrt(fan_in) (the port's and flax's initialiser), the Dense
+    bias 0."""
+    if name.endswith("bias"):
+        return torch.zeros(u.shape, device=u.device)
+    return u * (gain / math.sqrt(u.numel() / u.shape[0]))
 
 
 def forward(params: dict, config: dict, feats: torch.Tensor, bn: dict | None = None,
@@ -124,3 +85,27 @@ def forward(params: dict, config: dict, feats: torch.Tensor, bn: dict | None = N
             mean, var = bn[i]
         x = q((x - mean[:, None, None]) * torch.rsqrt(var + BN_EPS)[:, None, None])
     return F.linear(x.mean(dim=(2, 3)), params["output.weight"], params["output.bias"])
+
+
+def eval_state(params: dict, config: dict, feats: torch.Tensor) -> dict:
+    """BN's running statistics as a trained model holds them: each layer's batch mean and biased variance over
+    ``feats`` in the training forward (so the folded BN of the eval forward normalises)."""
+    stats: list = []
+    with no_tf32(), torch.no_grad():
+        forward(params, config, feats, stats=stats)
+    return {i + 1: s for i, s in enumerate(stats)}
+
+
+def stack_geometry(config: dict) -> tuple[int, int, int, int, int, tuple[int, int]]:
+    """(C, H, W, L, n_labels, pool) of a res configuration on 101 x 40 features."""
+    ph, pw = tuple(config.get("res_pool", (1, 1)))
+    return (config["n_feature_maps"], frontend.WINDOW_FRAMES // ph, frontend.N_DCT // pw, config["n_layers"],
+            config["n_labels"], (ph, pw))
+
+
+def model_flops(config: dict) -> float:
+    """2 x the multiply-adds of every conv and Dense of one utterance's forward (101 x 40 features)."""
+    C, H, W, L, n_lab, _ = stack_geometry(config)
+    conv0 = 2 * frontend.WINDOW_FRAMES * frontend.N_DCT * 9 * C  # before the pool
+    # Every conv of the stack pads to SAME (a dilated one by its dilation): H x W outputs.
+    return conv0 + L * 2 * H * W * 9 * C * C + 2 * C * n_lab

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import frontend, model as M
+from . import frontend
+from .precision import Rounding, no_tf32
 
 
 def smooth(post: torch.Tensor, w: int) -> torch.Tensor:
@@ -38,14 +39,14 @@ def detect(smoothed: np.ndarray, threshold: float, min_gap: int, hop_s: float) -
     return events
 
 
-def search(params: dict, config: dict, bn: dict, audio: torch.Tensor, stream: dict,
-           rounding: M.Rounding = None, block: int = 512) -> torch.Tensor:
+def search(forward, params: dict, config: dict, bn: dict, audio: torch.Tensor, stream: dict,
+           rounding: Rounding = None, block: int = 512) -> torch.Tensor:
     """Smoothed posteriors (n_windows, n_labels) of one recording (float32 on its device), the
-    windows' forward ``block`` at a time."""
+    windows' ``forward`` (the family's) ``block`` at a time."""
     hop_frames = stream["hop_samples"] // frontend.HOP
-    with M.no_tf32(), torch.no_grad():
+    with no_tf32(), torch.no_grad():
         feats = frontend.mfcc(audio[None])[0]
         windows = feats.unfold(0, frontend.WINDOW_FRAMES, hop_frames).transpose(1, 2)
-        post = torch.cat([torch.softmax(M.forward(params, config, windows[i:i + block], bn=bn, rounding=rounding),
+        post = torch.cat([torch.softmax(forward(params, config, windows[i:i + block], bn=bn, rounding=rounding),
                                         dim=-1) for i in range(0, windows.shape[0], block)])
         return smooth(post, stream["smoothing_window"])

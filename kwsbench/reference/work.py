@@ -2,10 +2,11 @@
 
 Peaks are NVIDIA's H100 SXM data sheet (dense, no sparsity; they assume the
 700 W power limit). Work is counted from the configuration's shapes, never
-from what a kernel happens to do: ``model_flops`` is 2 x the multiply-adds
-of every conv and Dense of one utterance's forward (a training step: 3 x
-that); ``forward_work`` / ``forward_bound`` are the res stack's operations
-and bytes from the features; ``mfcc_work`` the frontend's.
+from what a kernel happens to do: each family's ``model_flops`` (in its own
+module) is 2 x the multiply-adds of every conv and Dense of one
+utterance's forward (a training step: 3 x that); ``forward_work`` /
+``forward_bound`` are the res stack's operations and bytes from the
+features; ``mfcc_work`` the frontend's.
 """
 
 from __future__ import annotations
@@ -72,17 +73,3 @@ def mfcc_work(n_frames: int, n_samples: int) -> tuple[float, float]:
     per_frame = 480 + 2.5 * 480 * math.log2(480) + 3 * 241 + 2 * taps + 40 + 2 * 40 * 40
     return n_frames * per_frame, 4 * (n_samples + n_frames * 40 + 480 + taps + 40 * 40)
 
-
-def stack_geometry(config: dict) -> tuple[int, int, int, int, int, tuple[int, int]]:
-    """(C, H, W, L, n_labels, pool) of a res configuration on 101 x 40 features."""
-    ph, pw = tuple(config.get("res_pool", (1, 1)))
-    return (config["n_feature_maps"], frontend.WINDOW_FRAMES // ph, frontend.N_DCT // pw, config["n_layers"],
-            config["n_labels"], (ph, pw))
-
-
-def model_flops(config: dict) -> float:
-    """2 x the multiply-adds of every conv and Dense of one utterance's forward (101 x 40 features)."""
-    C, H, W, L, n_lab, _ = stack_geometry(config)
-    conv0 = 2 * frontend.WINDOW_FRAMES * frontend.N_DCT * 9 * C  # before the pool
-    # Every conv of the stack pads to SAME (a dilated one by its dilation): H x W outputs.
-    return conv0 + L * 2 * H * W * 9 * C * C + 2 * C * n_lab

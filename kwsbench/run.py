@@ -79,7 +79,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.fault:
         from kwsbench import faults
 
-        faults.plant(args.fault)
+        faults.plant(args.fault, cell)
     harness.driver(cell.traffic["kind"]).run(cell, args, common.Clock(float(os.environ.get(T0_ENV, T0))))
     return 0
 

@@ -1,11 +1,16 @@
-"""A cell, a configuration, a traffic mix and a per-layer metric are found by name: added as files alone."""
+"""A cell, a configuration, a model family, a traffic mix, a recipe and a per-layer metric are found by name:
+added as files alone."""
 
 import json
 import shutil
 
+import pytest
+import torch
 from conftest import ROOT, cells, rehearsal
 
 from kwsbench import common, faults, harness
+
+KINDS = {p.stem for p in (ROOT / "kwsbench" / "drivers").glob("*.py")} - {"__init__"}
 
 
 def _copy_benchmark(tmp_path):
@@ -19,7 +24,10 @@ def test_every_cell_of_the_benchmark_is_found_with_its_files():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     for w in bench["workloads"]:
         cell = harness.find_cell(w["name"])
-        assert cell.chips == w["chips"] and cell.traffic["kind"] in ("train", "score", "recordings")
+        assert cell.chips == w["chips"] and cell.traffic["kind"] in KINDS
+        assert cell.family.__name__ == f"kwsbench.reference.{cell.config['family']}"
+        needs = getattr(harness.driver(cell.traffic["kind"]), "NEEDS", ())
+        assert (cell.recipe is not None) == ("recipe" in needs)
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
         assert cell.per_layer, f"{w['name']} reports no per-layer metric"
         for m in cell.per_layer:
@@ -121,3 +129,79 @@ def test_the_benchmark_file_keeps_its_format():
         got = harness.find_cell(cell)
         assert len(got.end_to_end) >= 2 and got.per_layer
     assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def _write(path, data):
+    path.write_text(json.dumps(data))
+
+
+@pytest.mark.parametrize("cell,file,key,value,named", [
+    ("res8.score.b256", "configs/res8.json", "family", None, "'family'"),
+    ("res15.train.b64", "traffic/train.b64.json", "recipe", None, "'recipe'"),
+    ("res15.train.b64", "configs/res15.json", "family", "kwt", "reference/kwt.py"),
+    ("res15.train.b64", "traffic/train.b64.json", "recipe", "adamw", "reference/recipe_adamw.py"),
+], ids=["no-family", "no-recipe", "family-without-module", "recipe-without-module"])
+def test_a_cell_whose_family_or_recipe_is_missing_or_has_no_module_is_refused_by_name(tmp_path, cell, file, key,
+                                                                                      value, named):
+    _copy_benchmark(tmp_path)
+    path = tmp_path / "kwsbench" / file
+    data = json.loads(path.read_text())
+    if value is None:
+        del data[key]
+    else:
+        data[key] = value
+    _write(path, data)
+    with pytest.raises(SystemExit, match=named):
+        harness.find_cell(cell, root=tmp_path)
+
+
+# cnn-trad-pool2 (castorini/honk's ConfigType.CNN_TRAD_POOL2) as the benchmark would run it, with no dropout so
+# that the reference can follow its training steps.
+CNN_TRAD_POOL2 = {
+    "name": "cnn-trad-pool2", "source": "https://www.isca-archive.org/interspeech_2015/sainath15b_interspeech.html",
+    "family": "cnn", "registry_name": "cnn-trad-pool2", "n_labels": 12, "dropout_prob": 0.0, "height": 101,
+    "width": 40, "n_feature_maps1": 64, "conv1_size": [20, 8], "conv1_pool": [2, 2], "conv1_stride": [1, 1],
+    "n_feature_maps2": 64, "conv2_size": [10, 4], "conv2_stride": [1, 1], "conv2_pool": [1, 1], "tf_variant": True,
+    "compute_dtype": "bfloat16"}
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# Training in float32: under the Honk recipe's learning rate of 0.1 the narrow cnn's loss grows 2.5 -> 11 -> 51
+# in three steps, so bf16's rounding moves the later losses by percents (the bf16 witness more than the program).
+@pytest.mark.parametrize("traffic,like,dtype", [("score.b256", "res8.score.b256", "bfloat16"),
+                                                ("train.b64", "res15.train.b64", "float32")],
+                         ids=["score", "train"])
+def test_a_configuration_of_another_family_is_added_as_files_alone_and_agrees_with_its_reference(
+        tmp_path, one_thread, traffic, like, dtype):
+    """cnn-trad-pool2's configuration, limits (the res cell's of the same traffic) and rehearsal (narrow) written
+    as files; the driver's readings on the CPU: the program against the cnn reference within the res cell's
+    limits."""
+    bench = _copy_benchmark(tmp_path)
+    name = f"cnn-trad-pool2.{traffic}"
+    _write(tmp_path / "kwsbench/configs/cnn-trad-pool2.json", dict(CNN_TRAD_POOL2, compute_dtype=dtype))
+    shutil.copy(ROOT / f"kwsbench/limits/{like}.json", tmp_path / f"kwsbench/limits/{name}.json")
+    shrink = dict(rehearsal(like), config={"n_feature_maps1": 8, "n_feature_maps2": 8})
+    _write(tmp_path / f"kwsbench/rehearse/{name}.json", shrink)
+    bench["configs"].append({"name": "cnn-trad-pool2", "source": CNN_TRAD_POOL2["source"],
+                             "file": "kwsbench/configs/cnn-trad-pool2.json", "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": name, "config": "cnn-trad-pool2", "traffic": traffic, "chips": 1,
+                               "why": "a test"})
+    _write(tmp_path / "BENCHMARK.json", bench)
+
+    cell = harness.find_cell(name, root=tmp_path)
+    assert cell.family.__name__ == "kwsbench.reference.cnn"
+    r = rehearsal(name, tmp_path)
+    cell.config.update(r["config"])
+    cell.traffic.update(r["traffic"])
+    got = harness.driver(cell.traffic["kind"]).readings(cell, 2_000_000_051, torch.device("cpu"), ["program"])
+    values = {n: v for n, v, _ in got["program"]}
+    assert set(cell.limits) <= set(values)
+    for n, limit in cell.limits.items():
+        assert values[n] <= limit, (n, values[n], limit)

@@ -55,13 +55,41 @@ def test_the_reference_imports_nothing_of_the_port_nor_jax():
         tops = {name.split(".", 1)[0] for name in _imports(path)}
         assert not tops & {"honk_tpu_torch", *harness.BANNED_MODULES}, (path.name, tops)
     # And importing all of it loads none of them.
-    code = ("import sys; sys.path.insert(0, %r); import kwsbench.reference.assemble, kwsbench.reference.compare, "
-            "kwsbench.reference.frontend, kwsbench.reference.model, kwsbench.reference.stream, "
-            "kwsbench.reference.train, kwsbench.reference.work; "
-            "print(sorted({m.split('.', 1)[0] for m in sys.modules}))" % str(ROOT))
+    modules = ", ".join(f"kwsbench.reference.{path.stem}" for path in files if path.stem != "__init__")
+    code = ("import sys; sys.path.insert(0, %r); import %s; "
+            "print(sorted({m.split('.', 1)[0] for m in sys.modules}))" % (str(ROOT), modules))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, check=True)
     tops = set(ast.literal_eval(out.stdout.strip()))
     assert not tops & {"honk_tpu_torch", *harness.BANNED_MODULES}
+
+
+def test_the_drivers_reach_a_family_and_a_recipe_through_the_cell_alone():
+    """No driver, ``common.py`` or ``faults.py`` imports a family's or a recipe's module, or names the port's
+    classes that the family and the recipe name."""
+    import importlib
+
+    from kwsbench.reference import FAMILY, RECIPE
+
+    seam = {}
+    for path in (ROOT / "kwsbench" / "reference").glob("*.py"):
+        module = importlib.import_module(f"kwsbench.reference.{path.stem}")
+        for api, key in ((FAMILY, "PORT_MODEL"), (RECIPE, "PORT_OPTIMIZER")):
+            if all(hasattr(module, a) for a in api):
+                seam[path.stem] = getattr(module, key).split(":")[1]
+    assert {"res", "cnn", "recipe_honk_sgd"} <= set(seam)
+    for path in [*(ROOT / "kwsbench" / "drivers").glob("*.py"), ROOT / "kwsbench/common.py",
+                 ROOT / "kwsbench/faults.py"]:
+        tree = ast.parse(path.read_text())
+        names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names |= {part for a in node.names for part in a.name.split(".")}
+            elif isinstance(node, ast.ImportFrom):
+                names |= set((node.module or "").split(".")) | {a.name for a in node.names}
+        assert not names & set(seam), (path.name, names & set(seam))
+        words = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} | {
+            n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+        assert not words & set(seam.values()), (path.name, words & set(seam.values()))
 
 
 def test_a_banned_module_loaded_stops_the_result(monkeypatch, capsys):

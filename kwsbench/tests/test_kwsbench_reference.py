@@ -1,5 +1,6 @@
 """The plain reference against the port on the CPU at tiny sizes: the frontend, the draws and the assembly, the
-eval and training forwards, three float32 train steps, the offline search; and the work counters' numbers."""
+eval and training forwards of each family, three float32 train steps, the offline search; and the work counters'
+numbers."""
 
 import math
 
@@ -7,12 +8,21 @@ import numpy as np
 import pytest
 import torch
 
-from kwsbench import common
-from kwsbench.reference import assemble, frontend, model as M, stream, train, work
+from kwsbench import common, harness
+from kwsbench.reference import assemble, cnn, frontend, precision, recipe_honk_sgd as train, res as M, stream, work
 
 TINY_RES15 = dict(n_labels=12, n_layers=4, n_feature_maps=8, use_dilation=True, registry_name="res15")
 TINY_RES8 = dict(n_labels=12, n_layers=6, n_feature_maps=12, res_pool=[4, 3], use_dilation=False,
                  registry_name="res8")
+# cnn-trad-pool2 and cnn-tstride4's layer patterns (two convs, no Dense; strided, pooled, dnn1 with its ReLU and
+# dnn2), narrow.
+_CNN = dict(height=101, width=40, n_labels=12, dropout_prob=0.0)
+TINY_TRAD = dict(_CNN, registry_name="cnn-trad-pool2", n_feature_maps1=6, conv1_size=[20, 8], conv1_pool=[2, 2],
+                 conv1_stride=[1, 1], n_feature_maps2=5, conv2_size=[10, 4], conv2_stride=[1, 1], conv2_pool=[1, 1],
+                 tf_variant=True)
+TINY_TSTRIDE = dict(_CNN, registry_name="cnn-tstride4", n_feature_maps1=7, conv1_size=[16, 8], conv1_pool=[1, 3],
+                    conv1_stride=[4, 1], n_feature_maps2=5, conv2_size=[5, 4], conv2_stride=[1, 1],
+                    conv2_pool=[1, 1], dnn1_size=16, dnn2_size=10)
 
 
 @pytest.fixture(autouse=True)
@@ -68,30 +78,33 @@ def test_draws_and_assembly_match_the_port():
         torch.testing.assert_close(ref_lab, lab)
 
 
-@pytest.mark.parametrize("config", [TINY_RES8, TINY_RES15], ids=["res8", "res15"])
-def test_eval_forward_matches_the_port_in_float32(config):
-    weights = common.make_weights(3, config, torch.device("cpu"), output_gain=20.0)
+@pytest.mark.parametrize("family,config", [(M, TINY_RES8), (M, TINY_RES15), (cnn, TINY_TRAD), (cnn, TINY_TSTRIDE)],
+                         ids=["res8", "res15", "cnn-trad-pool2", "cnn-tstride4"])
+def test_eval_forward_matches_the_port_in_float32(family, config):
+    weights = common.make_weights(3, family, config, torch.device("cpu"), output_gain=20.0)
     feats = frontend.mfcc(_audio(8))
-    bn = common.calibrated_bn(weights, config, feats)
+    bn = family.eval_state(weights, config, feats)
     model = _port_model(config, weights, bn).eval()
+    assert isinstance(model, harness.port(family.PORT_MODEL))
     with torch.no_grad():
-        torch.testing.assert_close(M.forward(weights, config, feats, bn=bn), model(feats), rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(family.forward(weights, config, feats, bn=bn), model(feats), rtol=1e-4,
+                                   atol=1e-4)
         stats: list = []
-        M.forward(weights, config, feats, stats=stats)
-        assert len(stats) == config["n_layers"]
+        family.forward(weights, config, feats, stats=stats)
+        assert len(stats) == (config["n_layers"] if family is M else 0)
 
 
 def test_three_float32_train_steps_match_the_port():
     from honk_tpu_torch.data import AugmentConfig, prepare_train_arrays
-    from honk_tpu_torch.train import create_train_state, make_optimizer, make_train_scan
+    from honk_tpu_torch.train import create_train_state, make_train_scan
 
     rng = np.random.default_rng(2)
     clips = rng.integers(-3000, 3000, (24, 16000), dtype=np.int16)
     labels = rng.integers(1, 12, 24).astype(np.int32)
     noise = (rng.standard_normal(40000) * 0.1).astype(np.float32)
-    weights = common.make_weights(4, TINY_RES15, torch.device("cpu"))
+    weights = common.make_weights(4, M, TINY_RES15, torch.device("cpu"))
     model = _port_model(TINY_RES15, weights)
-    tx = make_optimizer()
+    tx = train.port_optimizer(harness.port)
     state = create_train_state(model, tx)
     aug = AugmentConfig(n_silence=2)
     arrays = prepare_train_arrays(clips, labels, noise, aug)
@@ -104,7 +117,7 @@ def test_three_float32_train_steps_match_the_port():
     batches = [assemble.batch(clips, labels, noise, assemble.draws(11, k, 8, 24, 2, len(noise), recipe,
                                                                    torch.device("cpu")), recipe, torch.device("cpu"))
                for k in range(3)]
-    ref = train.steps(weights, TINY_RES15, batches, frontend.mfcc)
+    ref = train.steps(weights, TINY_RES15, batches, frontend.mfcc, M.forward)
     np.testing.assert_allclose(ref["losses"], losses, rtol=1e-4)
     for name, p in model.named_parameters():
         torch.testing.assert_close(ref["params"][name], p.detach(), rtol=1e-3, atol=1e-5)
@@ -116,13 +129,13 @@ def test_offline_search_matches_the_port_in_float32():
 
     cfg = dict(window_samples=16000, hop_samples=3200, smoothing_window=5, detection_threshold=0.2,
                min_gap_windows=4)
-    weights = common.make_weights(5, TINY_RES15, torch.device("cpu"), output_gain=20.0)
+    weights = common.make_weights(5, M, TINY_RES15, torch.device("cpu"), output_gain=20.0)
     audio = _audio(1, 16000 * 5, seed=3)[0]
     feats = frontend.mfcc(audio[None])[0].unfold(0, 101, 20).transpose(1, 2)
-    bn = common.calibrated_bn(weights, TINY_RES15, feats)
+    bn = M.eval_state(weights, TINY_RES15, feats)
     model = _port_model(TINY_RES15, weights, bn).eval()
     smoothed, dets = stream_file(model, None, audio.numpy(), StreamConfig(**cfg))
-    ref = stream.search(weights, TINY_RES15, bn, audio, cfg).numpy()
+    ref = stream.search(M.forward, weights, TINY_RES15, bn, audio, cfg).numpy()
     np.testing.assert_allclose(ref, smoothed, rtol=0, atol=1e-5)
     assert stream.detect(smoothed, 0.2, 4, 0.2) == [(d.time_s, d.label, d.score) for d in dets]
 
@@ -130,9 +143,12 @@ def test_offline_search_matches_the_port_in_float32():
 def test_work_counters():
     res8 = dict(n_feature_maps=45, n_layers=6, res_pool=[4, 3], n_labels=12)
     res15 = dict(n_feature_maps=45, n_layers=13, use_dilation=True, n_labels=12)
-    assert work.model_flops(res8) == 74_350_980  # about 74 MFLOP an utterance
-    assert work.model_flops(res15) == 1_917_627_480
-    assert work.stack_geometry(res8) == (45, 25, 13, 6, 12, (4, 3))
+    assert M.model_flops(res8) == 74_350_980  # about 74 MFLOP an utterance
+    assert M.model_flops(res15) == 1_917_627_480
+    assert M.stack_geometry(res8) == (45, 25, 13, 6, 12, (4, 3))
+    # cnn-trad-pool2: conv1 64 x 160 taps over 82 x 33, conv2 64 x 64 x 40 over 32 x 13, a Dense of 26,624 x 12.
+    trad = dict(TINY_TRAD, n_feature_maps1=64, n_feature_maps2=64)
+    assert cnn.model_flops(trad) == 2 * (64 * 160 * 82 * 33 + 64 * 64 * 40 * 32 * 13 + 26_624 * 12) == 192_372_736
     bound_ms, by = work.forward_bound(256, 45, 25, 13, 6, 12, (4, 3), "NVIDIA H100 80GB HBM3",
                                       "bfloat16_activations")
     assert by == "operations" and math.isclose(bound_ms, 0.0304687, rel_tol=1e-5)
@@ -147,7 +163,7 @@ def test_the_controls_rounding_is_coarser_than_bf16_both_ways(fmt):
 
     mags = 10 ** torch.linspace(-2, 0.5, 1001)
     x = (mags * torch.where(torch.arange(1001) % 2 == 0, 1.0, -1.0)).requires_grad_(True)
-    q = M.rounding(fmt)(x)
+    q = precision.rounding(fmt)(x)
     bf16 = rel(x.detach().to(torch.bfloat16).float(), x.detach())
     assert rel(q.detach(), x.detach()) > 4 * bf16
     g = x.detach().flip(0)
