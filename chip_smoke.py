@@ -330,6 +330,16 @@ and the weight-gradient kernel (csrc/conv_wgrad.cu) at the training shapes:
     library path) and the bound, by CUDA events; its launches in one bf16
     forward and backward of each model (14 a res15 step, 7 a res8 step).
 
+and the Keyword Transformer (models/kwt.py), the port's one model with
+attention:
+
+53. KWT-3 at its published size, bf16, one training step of KWT's recipe
+    at B=64 through make_train_step: the attention core's passes a step
+    (kwt.attention_calls, 2 x 12), the attention kernels the step launched
+    (torch.profiler: the pinned flash backend's), the loss finite; its eval
+    logits on the card against the float32 forward on the CPU from the
+    same weights (the largest gap over the logits' RMS, read).
+
 It prints a JSON line of per-kernel results (for the res stack also each
 mode's forward from the features, and its launches by entry on every path;
 for the weight-gradient kernel its launches on every path and its times a
@@ -1224,6 +1234,52 @@ def phase_wgrad(torch, dev, name, smi) -> dict:
                                for b in (str(TRAIN_BATCH), str(RES15_WGRAD_ROWS))}}
                         for c, r in out.items() if c != "s"})
           + f"; {smi}; {out['s']:.1f} s")
+    return out
+
+
+def phase_kwt(torch, dev, smi) -> dict:
+    """53. KWT-3 (``models/kwt.py``) at its published size in bf16: one training step of KWT's recipe at
+    TRAIN_BATCH rows on seeded features through ``make_train_step``, under ``torch.profiler``, which must
+    count 2 x depth passes of the attention core (``kwt.attention_calls``) and launch the flash backend's
+    kernels; then its eval logits on the card beside the float32 forward on the CPU from the same weights
+    (the largest gap over the reference logits' RMS, read, not gated)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from honk_tpu_torch.models import find_config, find_model, init_weights, kwt
+    from honk_tpu_torch.train import create_train_state, make_adamw, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = find_config("kwt-3")
+    g = torch.Generator().manual_seed(SEED)
+    cpu = init_weights(find_model("kwt-3")(cfg), torch.Generator().manual_seed(SEED))
+    model = find_model("kwt-3")(cfg, dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(cpu.state_dict())
+    feats = torch.randn((TRAIN_BATCH, 101, 40), generator=g) * 3
+    labels = torch.randint(0, cfg["n_labels"], (TRAIN_BATCH,), generator=g)
+    tx = make_adamw(101, 140)
+    state, step = create_train_state(model, tx), make_train_step(tx, TRAIN_BATCH, None)
+    step.apply_features(state, feats.to(dev), labels.to(dev))  # warm
+    torch.cuda.synchronize()
+    kwt.attention_calls = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step.apply_features(state, feats.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+    calls = kwt.attention_calls
+    if calls != 2 * cfg["depth"]:
+        fail(f"a KWT-3 step passed through the attention core {calls} times, expected {2 * cfg['depth']}")
+    names = sorted({e.key for e in prof.key_averages() if "flash" in e.key.lower() and not e.key.startswith("aten::")})
+    if not names:
+        fail("a KWT-3 step launched no flash-attention kernel")
+    if not bool(torch.isfinite(m["loss"])):
+        fail(f"a KWT-3 step's loss is {float(m['loss'])}")
+    cpu.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    with torch.no_grad():
+        got = state.model.eval()(feats[:16].to(dev)).float().cpu()
+        ref = cpu.eval()(feats[:16])
+    gap = float((got - ref).abs().max() / ref.pow(2).mean().sqrt())
+    out = {"attention_calls_per_step": calls, "flash_kernels": names, "loss": float(m["loss"]),
+           "eval_logit_gap_vs_cpu_f32": gap, "s": time.perf_counter() - t0}
+    print(f"[kwt] KWT-3 bf16 step at B={TRAIN_BATCH}: " + json.dumps(out) + f"; {smi}")
     return out
 
 
@@ -4294,6 +4350,8 @@ def main() -> int:
         bf16_ranks = phase_bf16_ranks(torch, dev, A, smi)
         # 52. The weight-gradient kernel's times a res15 and a res8 step, and its launches a step.
         wgrad = phase_wgrad(torch, dev, name, smi)
+        # 53. KWT-3's training step on the card: the attention core's passes, the flash kernels.
+        kwt_step = phase_kwt(torch, dev, smi)
         # 35. The scaling harness at one card, beside phase 11's step.
         scaling = phase_scaling(torch, counters, step_times, smi)
         # 36-39. The measuring tools: entry(), cli.bench, cli.bench_stream, cli.bench_serve.
@@ -4513,7 +4571,7 @@ def main() -> int:
                       "train_epochs": epochs, "train_step_b64_ms": step_times,
                       "family_eval_logit_err": family_errs, "family_listen": family_listen, "hard_v2": hard_v2,
                       "family_train_epochs": {c: v[1] for c, v in family_train.items()},
-                      "family_times": family_times,
+                      "family_times": family_times, "kwt_step": kwt_step,
                       "streaming": {k: v for k, v in streaming.items() if k not in ("mfcc", "res_stack")},
                       "personalize": personalize, "datagen": datagen, "worker_thread": worker,
                       "data_parallel": data_parallel, "shards": shards, "profile_dir": profile_dir,

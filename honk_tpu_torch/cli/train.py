@@ -6,9 +6,14 @@
     python -m honk_tpu_torch.cli.train --type eval --model res8 \\
         --data_dir data/speech_dataset --input_file ckpts/res8/best.pt
 
-``--model`` is any of the 16 configs: res8, res15, res26 and their
--narrow forms, and the ten cnn-* (cnn-trad-pool2's recorded recipe is
-``--lr 0.003 0.0003 --schedule 440``). Runs on ``--device cuda`` (the
+``--model`` is any of the 17 configs: res8, res15, res26 and their
+-narrow forms, the ten cnn-* (cnn-trad-pool2's recorded recipe is
+``--lr 0.003 0.0003 --schedule 440``), and kwt-3, the Keyword Transformer,
+which the port alone has. kwt-3 trains with its own recipe, AdamW with
+warm-up and cosine decay and label smoothing 0.1 (``train.make_adamw``),
+which ``--lr``, ``--schedule``, ``--momentum``, ``--weight_decay`` and
+``--use_nesterov`` (the SGD recipe's) do not change; the paper's run is
+``--model kwt-3 --batch_size 512 --n_epochs 140``. Runs on ``--device cuda`` (the
 default; it raises where no CUDA device is present) or ``--device cpu``.
 ``--compute_dtype bfloat16`` (the default) runs the model as flax's
 ``dtype=bfloat16`` does (bf16 convolutions, CNN hidden dense layers and

@@ -1,4 +1,4 @@
-"""What both model families share: initialisation, operand casts, dropout.
+"""What the model families share: initialisation, operand casts, dropout.
 
 - ``init_weights``: the JAX package's initialisers, drawn from an explicit
   generator (``honk_tpu/models/res.py``, ``honk_tpu/models/cnn.py``).
@@ -51,7 +51,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     cnn-one-stride1), flax's ``truncated_normal(0.01)``: a standard normal
     truncated to +-2, scaled by ``0.01 / 0.8796...``, so within +-0.02274
     with a standard deviation of 0.01. Biases 0; BN running mean 0,
-    variance 1.
+    variance 1; LayerNorm gains 1; the transformer's class token and
+    position table 0 (neither ends in ``weight``).
     """
     truncated = getattr(model, "tf_variant", False)
     for name, p in model.named_parameters():
@@ -63,6 +64,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             bound = 1.0 / math.sqrt(p[0].numel())
             p.copy_(torch.rand(p.shape, generator=generator, device=generator.device) * (2 * bound) - bound)
+    for m in model.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
     for name, b in model.named_buffers():
         if name.endswith("running_mean"):
             b.zero_()
@@ -98,8 +102,8 @@ class Output(nn.Linear):
 
 def cast_parameters(model: nn.Module) -> list[nn.Parameter]:
     """The parameters ``conv`` / ``dense`` cast to the model's dtype: those of
-    every Conv2d and Linear but ``model.output``, the float32 Dense of both
-    families."""
+    every Conv2d and Linear but ``model.output``, the float32 Dense of every
+    family."""
     return [p for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear)) and m is not model.output
             for p in m.parameters()]
 
@@ -217,10 +221,12 @@ class _LowConv(torch.autograd.Function):
 
 def _dense_grads(ctx, gy: torch.Tensor, x: torch.Tensor) -> tuple:
     """A Dense layer's weight and bias gradients as float64 sums over the rows of ``gy`` and ``x``
-    (each product exact for bf16 operands), kept by ``wide_grads``."""
+    (each product exact for bf16 operands), kept by ``wide_grads``; inside the ``dense_weight_grad``
+    span, the float64 casts included."""
     weight, bias = ctx.params
-    gw = _keep(ctx.sink, weight, gy.double().t().mm(x.double())) if ctx.needs_input_grad[1] else None
-    gb = _keep(ctx.sink, bias, gy.sum(dim=0, dtype=torch.float64)) if ctx.needs_input_grad[2] else None
+    with annotate("dense_weight_grad"):
+        gw = _keep(ctx.sink, weight, gy.double().t().mm(x.double())) if ctx.needs_input_grad[1] else None
+        gb = _keep(ctx.sink, bias, gy.sum(dim=0, dtype=torch.float64)) if ctx.needs_input_grad[2] else None
     return gw, gb
 
 

@@ -2,8 +2,12 @@
 
 Equivalent of reference ``utils/model.py::ConfigType`` / ``_configs`` /
 ``find_model`` / ``find_config``. A copy of ``honk_tpu.models.registry``
-(tests hold ``find_config`` equal for all 16 types) whose ``find_model``
-returns the port's ``nn.Module`` classes.
+(tests hold ``find_config`` equal for its 16 types) whose ``find_model``
+returns the port's ``nn.Module`` classes, with a 17th type the port alone
+has: ``kwt-3``, the Keyword Transformer (Berg, O'Connor & Cruz,
+Interspeech 2021, arXiv:2104.00769, Table 1; ``models/kwt.py``), whose
+``"recipe": "adamw"`` names the optimizer the training loop builds for it
+(``train.state.make_adamw``).
 
 PROVENANCE: the reference mount was empty at survey time (SURVEY.md §0);
 the geometry below is reconstructed from the upstream Honk codebase
@@ -39,6 +43,7 @@ class ConfigType(enum.Enum):
     RES15_NARROW = "res15-narrow"
     RES8_NARROW = "res8-narrow"
     RES26_NARROW = "res26-narrow"
+    KWT3 = "kwt-3"
 
 
 # Input feature geometry: (time=101 frames, freq=40 MFCCs) for 1 s audio.
@@ -182,6 +187,11 @@ _configs: dict[ConfigType, dict[str, Any]] = {
     ConfigType.RES26_NARROW: dict(
         n_labels=12, n_layers=24, n_feature_maps=19, res_pool=(2, 2), use_dilation=False
     ),
+    # KWT-3: a token a MFCC frame (101 of 40 coefficients) and a class token, 12 PostNorm blocks at d=192,
+    # 3 heads of 64, an MLP of 768; trained with AdamW, warm-up and cosine decay, label smoothing 0.1.
+    ConfigType.KWT3: dict(
+        n_labels=12, n_mfcc=40, frames=101, dim=192, depth=12, heads=3, head_dim=64, mlp_dim=768, recipe="adamw"
+    ),
 }
 
 
@@ -194,10 +204,14 @@ def find_config(conf: ConfigType | str) -> dict[str, Any]:
 
 def find_model(conf: ConfigType | str):
     """The ``nn.Module`` class for a model type: ``SpeechModel`` for cnn-*,
-    ``SpeechResModel`` for res*; both are built as ``cls(config, dtype=None)``."""
+    ``SpeechResModel`` for res*, ``KeywordTransformer`` for kwt-*; each is
+    built as ``cls(config, dtype=None)``."""
     from .cnn import SpeechModel
+    from .kwt import KeywordTransformer
     from .res import SpeechResModel
 
     if isinstance(conf, str):
         conf = ConfigType(conf)
+    if conf.value.startswith("kwt"):
+        return KeywordTransformer
     return SpeechResModel if conf.value.startswith("res") else SpeechModel

@@ -39,7 +39,7 @@ from ..data.dataset import PackedDataset, PackedSplit
 from ..metrics import MetricsLogger, trace_to
 from ..parallel import is_primary, make_data_mesh, rank_device
 from ..models import find_config, find_model, init_weights, load_state_dict
-from .state import create_train_state, make_optimizer
+from .state import create_train_state, make_adamw, make_optimizer
 from .steps import make_eval_sweep, make_train_scan
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -87,7 +87,11 @@ def train(
     """Full training run. Returns {'state', 'best', 'best_dev_acc', 'test_acc', 'model', 'dataset'}.
 
     ``device`` defaults to cuda (and raises without one). Any model of the
-    registry trains. ``compute_dtype`` is the model's compute dtype (flax's
+    registry trains, with the SGD recipe of ``cfg.train`` (lr ladder,
+    momentum, weight decay) or, for a model whose registry config names
+    ``"recipe": "adamw"`` (kwt-3), KWT's AdamW recipe over the run's
+    ``n_epochs`` (``make_adamw``: 10 warm-up epochs, cosine decay to 0,
+    label smoothing 0.1), which the SGD flags do not change. ``compute_dtype`` is the model's compute dtype (flax's
     ``dtype``: the convs, a CNN's hidden dense layers and the activations
     between them, the res stack's kernel mode),
     in its training steps and in the dev and test sweeps alike, as the JAX
@@ -115,27 +119,30 @@ def train(
         load_state_dict(model, read_state_dict(cfg.train.input_file))
     mesh.replicate(model.to(device))
 
-    tx = make_optimizer(
-        lrs=tuple(cfg.train.lr),
-        boundaries=tuple(cfg.train.schedule),
-        momentum=cfg.train.momentum,
-        weight_decay=cfg.train.weight_decay,
-        nesterov=cfg.train.use_nesterov,
-    )
-    state = create_train_state(model, tx)
-
     n_train = len(dataset.train)
     n_silence = int(cfg.data.silence_prob * n_train)
+    batch_size = cfg.train.batch_size
+    steps_per_epoch = max(1, math.ceil((n_train + n_silence) / batch_size))
+    if model_cfg.get("recipe") == "adamw":
+        tx = make_adamw(steps_per_epoch, cfg.train.n_epochs)
+    else:
+        tx = make_optimizer(
+            lrs=tuple(cfg.train.lr),
+            boundaries=tuple(cfg.train.schedule),
+            momentum=cfg.train.momentum,
+            weight_decay=cfg.train.weight_decay,
+            nesterov=cfg.train.use_nesterov,
+        )
+    state = create_train_state(model, tx)
+
     aug = AugmentConfig(
         noise_prob=cfg.data.noise_prob,
         timeshift_samples=cfg.data.timeshift_samples,
         n_silence=n_silence,
     )
     arrays = prepare_train_arrays(dataset.train.audio, dataset.train.labels, dataset.noise, aug, device=device)
-    batch_size = cfg.train.batch_size
     eval_sweep = make_eval_sweep(cfg.train.eval_batch_size, mesh)
 
-    steps_per_epoch = max(1, math.ceil((n_train + n_silence) / batch_size))
     # Chunks of steps_per_call steps, then the epoch's tail, as the JAX loop
     # cuts its compiled scans (here each is a Python loop of single steps).
     chunk = min(steps_per_epoch, max(1, cfg.train.steps_per_call))

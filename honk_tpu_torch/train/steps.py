@@ -3,9 +3,11 @@
 A train step is: draw the batch on the device from the step's generator,
 assemble it (assembly kernel), MFCC (MFCC kernel), the training forward
 (its dropout masks, for a CNN, drawn from the same generator after the
-batch), the mean cross-entropy, backward (cuDNN through autograd), and the
-SGD update. The only host-to-device traffic per step is the generator's
-seed; the packed corpus stays on the device for the whole run. Eval sweeps
+batch), the mean cross-entropy (with the label smoothing the optimizer's
+recipe carries: SGD's 0, AdamW's 0.1), backward (cuDNN through autograd),
+and the optimizer's update. The only host-to-device traffic per step is
+the generator's seed; the packed corpus stays on the device for the whole
+run. Eval sweeps
 run the MFCC kernel and the model's eval forward (res8 / res26: the
 res-stack kernel) on fixed-size batches, with the model's eval operands
 (``model.eval_operands()``) prepared once per sweep. The eval forward
@@ -51,14 +53,14 @@ from ..frontend.mfcc import compute_mfccs
 from ..metrics import annotate
 from ..models.layers import finish_grads, wide_grads
 from ..parallel import DataMesh
-from .state import SGD, TrainState
+from .state import SGD, AdamW, TrainState
 
 
 def _sharded(mesh: DataMesh | None) -> bool:
     return mesh is not None and mesh.size > 1
 
 
-def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: DataMesh | None = None):
+def make_train_step(tx: SGD | AdamW, batch_size: int, aug_cfg: AugmentConfig, mesh: DataMesh | None = None):
     """Build the train step.
 
     ``step(state, key, arrays) -> (state, {"loss", "acc"})``: the batch of
@@ -83,7 +85,7 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
         with annotate("forward_backward"), wide_grads() as wide:
             logits = model(feats, dropout=dropout, mesh=mesh)
             # This rank's share of the global batch's mean (at one rank, the mean).
-            loss = F.cross_entropy(logits, labels, reduction="sum") / batch_size
+            loss = F.cross_entropy(logits, labels, reduction="sum", label_smoothing=tx.label_smoothing) / batch_size
             loss.backward()
         with annotate("update"):
             finish_grads(model, wide, mesh)
@@ -115,7 +117,7 @@ def make_train_step(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, mesh: Data
     return train_step
 
 
-def make_train_scan(tx: SGD, batch_size: int, aug_cfg: AugmentConfig, n_steps: int,
+def make_train_scan(tx: SGD | AdamW, batch_size: int, aug_cfg: AugmentConfig, n_steps: int,
                     mesh: DataMesh | None = None):
     """N single steps in a row: ``scan(state, key, arrays) -> (state, mean metrics)``.
 

@@ -29,11 +29,12 @@ ZOO_RES8 = os.path.join(os.path.dirname(__file__), "..", "zoo", "res8.pt")
 
 
 def test_find_config_equal_for_every_config_type():
-    assert [c.value for c in ConfigType] == [c.value for c in JConfigType]
-    assert len(ConfigType) == 16
-    for c in ConfigType:
+    """The JAX package's 16 types in its order, each config equal; then kwt-3, which the port alone has."""
+    assert [c.value for c in ConfigType] == [c.value for c in JConfigType] + ["kwt-3"]
+    assert len(JConfigType) == 16
+    for c in JConfigType:
         assert find_config(c.value) == jfind_config(c.value), c.value
-        assert find_config(c) == jfind_config(c.value), c.value
+        assert find_config(ConfigType(c.value)) == jfind_config(c.value), c.value
 
 
 def _flax_init(conf, seed=0):

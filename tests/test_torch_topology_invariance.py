@@ -21,6 +21,13 @@ input gradients, row for row. In float32 the convs keep autograd's float32
 weight gradients (oneDNN's, which part the topologies), so only the first
 step is held: BN's input gradients and the output layer's gradients.
 
+A narrow KWT (``models/kwt.py``: d=32, 2 heads of 16, 2 blocks), B=8,
+three AdamW steps of KWT's recipe on 1 and 2 gloo ranks: each step's
+gradients, first moments and weights ``torch.equal``, which shows that
+LayerNorm's gains and biases, the class token and the position table, like
+the Dense layers, leave a rank as float64 sums (``layers._keep``) that
+``finish_grads`` adds and rounds once.
+
 The parts, each against its reference: BN's backward against
 ``torch.autograd.gradcheck`` in float64 and, at one rank, against flax's
 BatchNorm VJP (float32 within ``test_torch_train.FWD_TOL``; bf16 by the
@@ -30,6 +37,9 @@ rows; the output layer, bit for bit ``nn.Linear``'s forward and input
 gradient.
 """
 
+import os
+import sys
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -37,10 +47,11 @@ import numpy as np
 import pytest
 import torch
 
-from honk_tpu_torch.models import layers, res
+from honk_tpu_torch.models import KeywordTransformer, find_config, init_weights, layers, res
 from test_torch_bf16_ranks import STEPS, injected, port_ranks
 from test_torch_bf16_train import RATIO
 from test_torch_train import FWD_TOL
+from torch_ranks import REPO, free_port, run_ranks
 
 WORLDS = (1, 2, 4)
 
@@ -187,3 +198,40 @@ def test_the_output_layer_is_nn_linears_forward_and_input_gradient():
     assert torch.equal(out.weight.grad, wide[out.weight].float()) and torch.equal(out.bias.grad, truth_b.float())
     scale = ct.abs().double().t().mm(x.abs().double())  # nn.Linear's float32 sum lies within its bound
     assert bool(((lin.weight.grad.double() - truth_w).abs() <= 16 * 2.0 ** -24 * scale).all())
+
+
+KWT_NARROW = dict(find_config("kwt-3"), dim=32, heads=2, head_dim=16, mlp_dim=64, depth=2)
+
+
+@pytest.fixture(scope="module")
+def kwt_topologies(tmp_path_factory):
+    """The narrow KWT's steps (``torch_bf16_rank_worker.kwt_steps``) on 1 rank and on 2 gloo ranks."""
+    tmp = tmp_path_factory.mktemp("kwt")
+    gen = torch.Generator().manual_seed(6)
+    model = init_weights(KeywordTransformer(KWT_NARROW), torch.Generator().manual_seed(6))
+    weights = {}
+    for n, p in model.named_parameters():  # every LayerNorm gain, bias and embedding off its initial value
+        drift = 0.1 * (torch.rand(p.shape, generator=gen) * 2 - 1)
+        weights[n] = p.detach() + drift if "norm" in n or n in ("class_token", "positions") else p.detach().clone()
+    batches = [(torch.randn((8, 101, 40), generator=gen) * 3, torch.randint(0, 12, (8,), generator=gen))
+               for _ in range(STEPS)]
+    spec = str(tmp / "spec.pt")
+    torch.save({"kwt": {"config": KWT_NARROW, "weights": weights, "batches": batches}}, spec)
+    worker = os.path.join(REPO, "tests", "torch_bf16_rank_worker.py")
+    outs = {w: [str(tmp / f"world{w}-rank{r}.pt") for r in range(w)] for w in (1, 2)}
+    ports = {1: 0, 2: free_port()}
+    run_ranks([[sys.executable, worker, str(r), str(w), str(ports[w]), spec, o]
+               for w in (1, 2) for r, o in enumerate(outs[w])])
+    return {w: [torch.load(o, weights_only=False)["kwt"] for o in outs[w]] for w in (1, 2)}
+
+
+@pytest.mark.parametrize("what", ["grads", "exp_avg", "weights"])
+def test_kwt_steps_are_bitwise_on_one_and_two_ranks(kwt_topologies, what):
+    one = kwt_topologies[1][0]
+    for step in range(STEPS):
+        want = one[step][what]
+        assert want and all(bool(v.abs().sum() > 0) for v in want.values()), f"{what}: nothing to compare"
+        for rank, out in enumerate(kwt_topologies[2]):
+            got = out[step][what]
+            apart = {k: int((got[k] != want[k]).sum()) for k in want if not torch.equal(got[k], want[k])}
+            assert not apart, f"after step {step + 1}, 2 ranks (rank {rank}): elements apart from one rank's {apart}"

@@ -9,8 +9,9 @@ for each config in ``spec['confs']``, or, where ``spec`` holds
 draws, injected) from ``spec['variables']``, this rank's rows of each, in
 each of ``spec['dtypes']`` (bf16 alone by default): the state after every
 step recorded, the first step's gradients, and each step's gradients,
-momentum and BN input gradients (``steps``); writes what it computed to
-``out.pt``.
+momentum and BN input gradients (``steps``), or, where ``spec`` holds
+``kwt``, a narrow KWT's AdamW steps on its batches of features
+(``kwt_steps``); writes what it computed to ``out.pt``.
 With world 1 it joins no group: the one-rank reference, which also runs
 the float32 steps. Imports nothing of JAX.
 """
@@ -60,6 +61,31 @@ def batch_steps(spec: dict, mesh, dtype=None) -> tuple[list[dict], dict, list[di
         res.batch_norm_train = norm
     return states, grads, steps
 
+def kwt_steps(spec: dict, mesh) -> list[dict]:
+    """A narrow KWT's AdamW steps (KWT's recipe, label smoothing 0.1) on ``spec['kwt']``'s global batches of
+    features, this rank's rows of each, from its weights: after each step the gradients as the update took
+    them, the first moments and the weights."""
+    from honk_tpu_torch.models import KeywordTransformer
+    from honk_tpu_torch.train import make_adamw
+
+    kw = spec["kwt"]
+    model = KeywordTransformer(kw["config"], dtype=torch.bfloat16)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(kw["weights"][n])
+    tx = make_adamw(1, 140)
+    state, names = create_train_state(model, tx), {p: n for n, p in model.named_parameters()}
+    out = []
+    for feats, labels in kw["batches"]:
+        start, stop = mesh.shard_rows(feats.shape[0])
+        step = make_train_step(tx, feats.shape[0], AugmentConfig(), mesh)
+        state, _ = step.apply_features(state, feats[start:stop], labels[start:stop])
+        out.append({"grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+                    "exp_avg": {names[p]: s["exp_avg"].clone() for p, s in state.optimizer.state.items()},
+                    "weights": {n: p.detach().clone() for n, p in model.named_parameters()}})
+    return out
+
+
 def main() -> int:
     rank, world, port, spec_path, out_path = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -68,7 +94,9 @@ def main() -> int:
     try:
         spec = torch.load(spec_path, weights_only=False)
         mesh = make_data_mesh(world if world > 1 else 0, "data")
-        if "batches" in spec:
+        if "kwt" in spec:
+            out = {"kwt": kwt_steps(spec, mesh)}
+        elif "batches" in spec:
             out = {"steps": {}}
             for name in spec.get("dtypes", ["bfloat16"]):
                 states, grads, out["steps"][name] = batch_steps(spec, mesh, getattr(torch, name))
